@@ -1,0 +1,4 @@
+from spblas_tpu_torch.formats.csr import CSR
+from spblas_tpu_torch.formats.csc import CSC
+from spblas_tpu_torch.formats.coo import COO
+from spblas_tpu_torch.formats.convert import to_csr

@@ -1,0 +1,2 @@
+"""Structured plans and the hand-written Hopper kernels they launch
+(``csrc/``), selected by ``plans.build_matvec_plan``."""

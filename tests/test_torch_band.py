@@ -1,0 +1,127 @@
+"""spblas_tpu_torch band-panel plan and SpMV against the JAX package:
+bit-equal plans, and the kernel's plain version against the Pallas
+kernel run in interpret mode on the same plan."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spblas_tpu.kernels import banded as jband
+from spblas_tpu.utils import generate as gen
+
+from spblas_tpu_torch.kernels import banded as tband
+from spblas_tpu_torch.utils import interop
+
+from tests.torch_util import (  # noqa: F401
+    assert_rows_close, port_csr, to_np, one_torch_thread)
+
+# (m, n, bandwidth): m not a multiple of 1024, n > m and n < m, odd and
+# even half-bandwidths (half = bandwidth // 2)
+SHAPES = [(1000, 1000, 18), (1100, 1500, 14), (2000, 1200, 22),
+          (3000, 3000, 9)]
+
+
+def _bits(a) -> np.ndarray:
+    """Raw bits of a float32 or bfloat16 array, for exact comparison."""
+    if isinstance(a, torch.Tensor):
+        return (a.view(torch.int16) if a.dtype == torch.bfloat16
+                else a.view(torch.int32)).numpy()
+    a = np.asarray(a)
+    return a.view(np.int16 if a.dtype.itemsize == 2 else np.int32)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_build_band_plan_bit_equal(shape, bf16):
+    m, n, bw = shape
+    a = gen.generate_banded_csr(m, n, bw, seed=1)
+    jp = jband.build_band_plan(a, dtype=jnp.bfloat16 if bf16 else None)
+    tp = tband.build_band_plan(port_csr(a),
+                               dtype=torch.bfloat16 if bf16 else None)
+    assert tp.pad_l == jp.pad_l and tp.shape == jp.shape
+    assert tuple(tp.panels.shape) == tuple(jp.panels.shape)
+    np.testing.assert_array_equal(_bits(tp.panels), _bits(jp.panels))
+
+
+def test_band_halfwidth_matches_jax():
+    for m, n, bw in SHAPES:
+        a = gen.generate_banded_csr(m, n, bw, seed=2)
+        assert tband.band_halfwidth(port_csr(a)) == jband.band_halfwidth(a)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_band_plain_matches_pallas_interpret(shape, bf16):
+    """The port's plain band SpMV on the JAX plan's own panels against
+    ``band_spmv(..., interpret=True)``."""
+    m, n, bw = shape
+    a = gen.generate_banded_csr(m, n, bw, seed=3)
+    jp = jband.build_band_plan(a, dtype=jnp.bfloat16 if bf16 else None)
+    tp = interop.band_plan_from_numpy(np.asarray(jp.panels), jp.pad_l,
+                                      jp.shape, device="cpu")
+    x = gen.generate_vector(n, seed=4)
+    y_jax = jband.band_spmv(jp, jnp.asarray(x), interpret=True)
+    y_port = tband.band_spmv(tp, torch.from_numpy(x))
+    assert y_port.dtype == torch.float32 and y_port.shape == (m,)
+    # the error bound holds against the matrix as the panels store it
+    a_ref = a if not bf16 else _bf16_values(a)
+    assert_rows_close(y_port, y_jax, a_ref, x)
+
+
+def _bf16_values(a):
+    """``a`` with its values rounded to bfloat16, as bf16 panels hold
+    them."""
+    return a.update(a.values.astype(jnp.bfloat16).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("x_dtype", [np.float32, "bfloat16"])
+def test_band_result_dtype_matches_jax(x_dtype):
+    a = gen.generate_banded_csr(500, 500, 10, seed=5)
+    jp = jband.build_band_plan(a)
+    tp = tband.build_band_plan(port_csr(a))
+    x = gen.generate_vector(500, seed=6)
+    jx = jnp.asarray(x).astype(jnp.bfloat16 if x_dtype == "bfloat16"
+                               else jnp.float32)
+    tx = torch.from_numpy(x).to(torch.bfloat16 if x_dtype == "bfloat16"
+                                else torch.float32)
+    y_jax = jband.band_spmv(jp, jx, interpret=True)
+    y_port = tband.band_spmv(tp, tx)
+    assert str(y_port.dtype).split(".")[-1] == str(y_jax.dtype)
+    assert_rows_close(y_port, y_jax, a, to_np(tx))
+
+
+def test_reference_is_the_padded_panel_sum():
+    """band_spmv_reference against a loop over rows: y[r] = sum_c
+    panels[r, c] * xp[(r // 128) * 128 + c]."""
+    rng = np.random.default_rng(7)
+    panels = rng.standard_normal((256, 140)).astype(np.float32)
+    xp = rng.standard_normal(256 - 128 + 140).astype(np.float32)
+    y = tband.band_spmv_reference(torch.from_numpy(panels),
+                                  torch.from_numpy(xp)).numpy()
+    want = np.array([panels[r].astype(np.float64)
+                     @ xp[(r // 128) * 128:(r // 128) * 128 + 140]
+                     for r in range(256)])
+    bound = 64 * np.finfo(np.float32).eps * np.array(
+        [np.abs(panels[r]) @ np.abs(xp[(r // 128) * 128:(r // 128) * 128
+                                       + 140]) for r in range(256)])
+    assert (np.abs(y - want) <= bound).all()
+
+
+@pytest.mark.parametrize("bad", ["xp_dtype", "panel_dtype", "xp_short",
+                                 "rows", "device"])
+def test_band_wrapper_rejects_bad_operands(bad):
+    panels = torch.zeros(256, 136)
+    xp = torch.zeros(256 - 128 + 136)
+    if bad == "xp_dtype":
+        xp = xp.double()
+    elif bad == "panel_dtype":
+        panels = panels.half()
+    elif bad == "xp_short":
+        xp = xp[:-1]
+    elif bad == "rows":
+        panels = panels[:200]
+    else:
+        panels = panels.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        tband.band_spmv_padded(panels, xp)

@@ -1,0 +1,228 @@
+"""spblas_tpu_torch containers, conversions, device rule and isolation,
+held to the JAX package on the same seeded numpy inputs."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import spblas_tpu as sp
+from spblas_tpu import types as jtypes
+from spblas_tpu.formats.convert import to_csr as jax_to_csr
+from spblas_tpu.utils import generate as gen
+
+import spblas_tpu_torch as tsp
+from spblas_tpu_torch import types as ttypes
+from spblas_tpu_torch.formats.convert import to_csr as port_to_csr
+from spblas_tpu_torch.utils import generate as tgen
+from spblas_tpu_torch.utils import interop
+
+from tests.torch_util import (  # noqa: F401
+    port_csr, to_np, one_torch_thread)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _csr_arrays(m=60, n=50, nnz=300, seed=0):
+    return gen.generate_csr_arrays(m, n, nnz, seed=seed)
+
+
+@pytest.mark.parametrize("capacity", [None, 512, 1000])
+def test_csr_from_arrays_padding_matches_jax(capacity):
+    vals, rowptr, cols = _csr_arrays()
+    a = sp.CSR.from_arrays(vals, rowptr, cols, (60, 50), nnz=300,
+                           capacity=capacity)
+    b = tsp.CSR.from_arrays(vals, rowptr, cols, (60, 50), nnz=300,
+                            capacity=capacity, device="cpu")
+    assert b.capacity == a.capacity and b.nnz == int(a.nnz)
+    np.testing.assert_array_equal(to_np(b.values), np.asarray(a.values))
+    np.testing.assert_array_equal(to_np(b.colind), np.asarray(a.colind))
+    np.testing.assert_array_equal(to_np(b.rowptr), np.asarray(a.rowptr))
+    assert b.colind.dtype == torch.int32 and b.rowptr.dtype == torch.int32
+
+
+def test_csr_oversized_buffer_is_made_canonical():
+    vals, rowptr, cols = _csr_arrays()
+    stale_v = np.concatenate([vals, np.full(20, 7.0, np.float32)])
+    stale_c = np.concatenate([cols, np.full(20, 3)])
+    a = sp.CSR.from_arrays(stale_v, rowptr, stale_c, (60, 50), nnz=300)
+    b = tsp.CSR.from_arrays(stale_v, rowptr, stale_c, (60, 50), nnz=300,
+                            device="cpu")
+    np.testing.assert_array_equal(to_np(b.values), np.asarray(a.values))
+    np.testing.assert_array_equal(to_np(b.colind), np.asarray(a.colind))
+    b.validate()
+
+
+def test_row_ids_map_padding_to_m():
+    a = gen.generate_csr(40, 30, 200, seed=3, capacity=256)
+    b = port_csr(a)
+    np.testing.assert_array_equal(to_np(b.row_ids()), np.asarray(a.row_ids()))
+    assert int(b.row_ids()[-1]) == 40
+
+
+@pytest.mark.parametrize("fmt", ["csr", "csc", "coo"])
+def test_todense_matches_jax(fmt):
+    m, n, nnz = 45, 70, 400
+    if fmt == "csr":
+        a = gen.generate_csr(m, n, nnz, seed=4, capacity=512)
+        b = port_csr(a)
+    elif fmt == "csc":
+        a = gen.generate_csc(m, n, nnz, seed=4, capacity=512)
+        b = tsp.CSC.from_arrays(np.asarray(a.values), np.asarray(a.colptr),
+                                np.asarray(a.rowind), a.shape, nnz=nnz,
+                                capacity=512, device="cpu")
+    else:
+        a = gen.generate_coo(m, n, nnz, seed=4, capacity=512)
+        b = tsp.COO.from_arrays(np.asarray(a.values), np.asarray(a.rowind),
+                                np.asarray(a.colind), a.shape, nnz=nnz,
+                                capacity=512, device="cpu")
+    np.testing.assert_array_equal(to_np(b.todense()), np.asarray(a.todense()))
+
+
+def test_csr_from_dense_matches_jax():
+    rng = np.random.default_rng(12)
+    dense = rng.uniform(-1, 1, (40, 33)).astype(np.float32)
+    dense[np.abs(dense) < 0.7] = 0
+    a = sp.CSR.from_dense(dense)
+    for src in (dense, torch.from_numpy(dense)):
+        b = tsp.CSR.from_dense(src, device="cpu")
+        for t, j in ((b.values, a.values), (b.rowptr, a.rowptr),
+                     (b.colind, a.colind)):
+            np.testing.assert_array_equal(to_np(t), np.asarray(j))
+        np.testing.assert_array_equal(to_np(b.todense()), dense)
+
+
+@pytest.mark.parametrize("src", ["coo", "csc"])
+def test_to_csr_matches_jax(src):
+    if src == "coo":
+        a = gen.generate_coo(50, 40, 300, seed=5, capacity=512)
+        b = tsp.COO.from_arrays(np.asarray(a.values), np.asarray(a.rowind),
+                                np.asarray(a.colind), a.shape, nnz=300,
+                                capacity=512, device="cpu")
+    else:
+        a = gen.generate_csc(50, 40, 300, seed=5, capacity=512)
+        b = tsp.CSC.from_arrays(np.asarray(a.values), np.asarray(a.colptr),
+                                np.asarray(a.rowind), a.shape, nnz=300,
+                                capacity=512, device="cpu")
+    ja, tb = jax_to_csr(a), port_to_csr(b)
+    tb.validate()
+    np.testing.assert_array_equal(to_np(tb.rowptr), np.asarray(ja.rowptr))
+    np.testing.assert_array_equal(to_np(tb.todense()),
+                                  np.asarray(ja.todense()))
+
+
+@pytest.mark.parametrize("fault", ["rowptr_end", "colind_range",
+                                   "padding"])
+def test_validate_raises_like_jax(fault):
+    vals, rowptr, cols = _csr_arrays()
+    rowptr, cols = rowptr.copy(), cols.copy()
+    if fault == "rowptr_end":
+        rowptr[-1] = 299
+    elif fault == "colind_range":
+        cols[5] = 50
+    a = sp.CSR.from_arrays(vals, rowptr, cols, (60, 50), nnz=300)
+    b = tsp.CSR.from_arrays(vals, rowptr, cols, (60, 50), nnz=300,
+                            device="cpu")
+    if fault == "padding":
+        # break the canonical zero padding behind the constructor's back
+        b.values[-1] = 1.0
+        a = a.update(a.values.at[-1].set(1.0))
+    with pytest.raises(ValueError):
+        a.validate()
+    with pytest.raises(ValueError):
+        b.validate()
+
+
+def test_interop_keeps_bits():
+    a = gen.generate_banded_csr(300, 320, 9, seed=6, capacity=4096)
+    b = port_csr(a)
+    assert b.capacity == 4096 and b.shape == (300, 320)
+    for t, j in ((b.values, a.values), (b.rowptr, a.rowptr),
+                 (b.colind, a.colind)):
+        np.testing.assert_array_equal(to_np(t), np.asarray(j))
+
+
+@pytest.mark.parametrize("nnz", [0, 1, 5, 1000, 1024, 1025])
+def test_quantize_capacity_matches_jax(nnz):
+    assert ttypes.quantize_capacity(nnz) == jtypes.quantize_capacity(nnz)
+
+
+@pytest.mark.parametrize("ctor", ["csr", "csc", "coo", "generate_csr",
+                                  "generate_vector", "band_plan",
+                                  "dia_plan"])
+def test_default_device_raises_without_cuda(ctor, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    vals, rowptr, cols = _csr_arrays()
+    calls = {
+        "csr": lambda: tsp.CSR.from_arrays(vals, rowptr, cols, (60, 50)),
+        "csc": lambda: tsp.CSC.from_arrays(vals, rowptr, cols, (50, 60)),
+        "coo": lambda: tsp.COO.from_arrays(vals, cols, cols, (60, 50)),
+        "generate_csr": lambda: tgen.generate_csr(20, 20, 40),
+        "generate_vector": lambda: tgen.generate_vector(20),
+        "band_plan": lambda: interop.band_plan_from_numpy(
+            np.zeros((1024, 136), np.float32), 4, (1000, 1000)),
+        "dia_plan": lambda: interop.dia_plan_from_numpy(
+            np.zeros((1, 256, 128), np.float32), (0,), (100, 100)),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[ctor]()
+
+
+def test_generators_match_jax_arrays():
+    """The port's generators draw the JAX package's numbers."""
+    cases = [
+        (gen.generate_csr(80, 90, 500, seed=7),
+         tgen.generate_csr(80, 90, 500, seed=7, device="cpu")),
+        (gen.generate_banded_csr(200, 180, 11, seed=8),
+         tgen.generate_banded_csr(200, 180, 11, seed=8, device="cpu")),
+        (gen.generate_stencil_csr((7, 8, 9), seed=9),
+         tgen.generate_stencil_csr((7, 8, 9), seed=9, device="cpu")),
+        (gen.generate_fem_graph_csr(12, 15, seed=10),
+         tgen.generate_fem_graph_csr(12, 15, seed=10, device="cpu")),
+    ]
+    for a, b in cases:
+        for t, j in ((b.values, a.values), (b.rowptr, a.rowptr),
+                     (b.colind, a.colind)):
+            np.testing.assert_array_equal(to_np(t), np.asarray(j))
+    np.testing.assert_array_equal(
+        to_np(tgen.generate_vector(33, seed=11, device="cpu")),
+        gen.generate_vector(33, seed=11))
+
+
+def test_traced_opens_profiler_range():
+    a = tgen.generate_csr(30, 30, 90, seed=1, device="cpu")
+    x = tgen.generate_vector(30, seed=2, device="cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tsp.multiply(a, x)
+    names = {e.key for e in prof.key_averages()}
+    assert {"spblas.multiply", "spblas.spmv"} <= names
+
+
+def test_port_imports_neither_jax_nor_spblas_tpu():
+    """With jax and spblas_tpu made unimportable, every module of the
+    port imports and the CPU main path runs."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["spblas_tpu"] = None
+        import importlib, pkgutil
+        import spblas_tpu_torch as sp
+        for mod in pkgutil.walk_packages(sp.__path__, "spblas_tpu_torch."):
+            importlib.import_module(mod.name)
+        from spblas_tpu_torch.utils import generate as gen
+        a = gen.generate_banded_csr(500, 500, 9, seed=0, device="cpu")
+        x = gen.generate_vector(500, seed=1, device="cpu")
+        y = sp.multiply(sp.scaled(2.0, sp.matrix_opt(a)), x)
+        assert y.shape == (500,) and bool(y.isfinite().all())
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

@@ -1,0 +1,73 @@
+"""Shared helpers of the ``test_torch_*`` files: carry the JAX package's
+containers and plans across as numpy, and the per-row dot-product
+tolerance the port is held to.
+
+Tolerance: |y_port - y_ref|_i <= 64 * eps_f32 * scale * (|A| . |x|)_i —
+the dot-product form of ``tests/util.py::assert_close``'s 64*eps model,
+since the two packages sum each row in different orders.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from spblas_tpu_torch.utils import interop
+
+EPS32 = float(np.finfo(np.float32).eps)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch thread while a ``test_torch_*`` module runs (the suite
+    runs six workers at once), restored after it, so that a worker that
+    only imports the module keeps its own setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def port_csr(a):
+    """The JAX CSR ``a`` as a port CSR on the CPU (same capacity)."""
+    return interop.csr_from_numpy(np.asarray(a.values), np.asarray(a.rowptr),
+                                  np.asarray(a.colind), int(a.nnz), a.shape,
+                                  device="cpu")
+
+
+def abs_dot(a, x) -> np.ndarray:
+    """(|A| . |x|) per row in float64, from the JAX CSR's live entries."""
+    m, _ = a.shape
+    nnz = int(a.nnz)
+    rowptr = np.asarray(a.rowptr).astype(np.int64)
+    rows = np.repeat(np.arange(m), np.diff(np.minimum(rowptr, nnz)))
+    cols = np.asarray(a.colind)[:nnz]
+    w = (np.abs(np.asarray(a.values)[:nnz]).astype(np.float64)
+         * np.abs(to_np(x)[cols]).astype(np.float64))
+    return np.bincount(rows, weights=w, minlength=m)
+
+
+def to_np(y) -> np.ndarray:
+    if isinstance(y, torch.Tensor):
+        y = y.detach()
+        if y.dtype == torch.bfloat16:
+            y = y.float()
+        return y.resolve_conj().numpy()
+    return np.asarray(y)
+
+
+def assert_rows_close(y, y_ref, a, x, scale=1.0, factor=64, eps=EPS32,
+                      err_msg=""):
+    """|y - y_ref|_i <= factor*eps*|scale|*(|A|.|x|)_i for the JAX CSR
+    ``a`` and the operand ``x``."""
+    y = to_np(y).astype(np.complex128)
+    y_ref = to_np(y_ref).astype(np.complex128)
+    assert y.shape == y_ref.shape, f"shape {y.shape} vs {y_ref.shape}"
+    bound = factor * eps * abs(scale) * abs_dot(a, x)
+    err = np.abs(y - y_ref)
+    bad = err > bound
+    worst = int(np.argmax(err - bound))
+    assert not bad.any(), (
+        f"{err_msg} {bad.sum()} rows out of bound; worst row {worst}: "
+        f"err {err[worst]}, bound {bound[worst]}")
