@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the port's hand-written CUDA kernels from ``spblas_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, drives the main
-path ``multiply(scaled(2.0, matrix_opt(A)), x)`` at full width (the
+Builds the port's hand-written CUDA kernels from ``spblas_tpu_torch/csrc``
+and its native ROUTE2 packer from ``spblas_tpu_torch/native/src``, holds
+each kernel against its plain PyTorch version on the card, drives the
+main path ``multiply(scaled(2.0, matrix_opt(A)), x)`` at full width (the
 409,600-row banded headline matrix, the 1000x1000 stencil, the 800x800
-FEM mesh, the 64^3 stencil and a uniform 100k matrix) against the port's
+FEM mesh, the 64^3 stencil, uniform 300k and 1M degree-10 matrices, a
+complex64 uniform 100k matrix and a 131k R-MAT graph) against the port's
 float64 base path, and times every kernel beside its bound, its plain
 version and the cuSPARSE call (``torch.mv`` on a ``torch.sparse_csr_tensor``,
 timed here as a yardstick only; the port never calls it).
@@ -25,6 +27,7 @@ result.  It imports nothing of JAX.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -33,11 +36,14 @@ import sys
 import time
 import warnings
 
+import numpy as np
 import torch
 
 import spblas_tpu_torch as sp
-from spblas_tpu_torch import _build
-from spblas_tpu_torch.kernels import banded, dia
+from spblas_tpu_torch import _build, native
+from spblas_tpu_torch.formats.csr import CSR
+from spblas_tpu_torch.kernels import banded, dia, route2
+from spblas_tpu_torch.kernels import route2_kernel as r2k
 from spblas_tpu_torch.utils import generate as gen
 
 EPS32 = torch.finfo(torch.float32).eps
@@ -68,13 +74,33 @@ DIA_KERNEL_ONLY = [
         30_000, 2_000_000, 9, seed=4)),
     ("stencil_2000x2000", lambda: gen.generate_stencil_csr(
         (2000, 2000), seed=6))]
-SELL_MAIN = ("uniform_100k_deg10", lambda: gen.generate_csr(
-    100_000, 100_000, 1_000_000, seed=5))
+# general sparsity: the bench's spmv_general_route matrices (bench.py:145,
+# :794, seed 3) take kind route; a complex64 uniform matrix route_cx; the
+# bench's R-MAT graph (bench.py:768, seed 5; hub fraction 0.78, which
+# sends JAX to ROUTE v1, not ported yet) keeps SELL on a driven path
+ROUTE_MAIN = [("uniform_300k_deg10", lambda: gen.generate_csr(
+                  300_000, 300_000, 3_000_000, seed=3)),
+              ("uniform_1m_deg10", lambda: gen.generate_csr(
+                  1_000_000, 1_000_000, 10_000_000, seed=3))]
+CX_MAIN = ("uniform_100k_deg10_c64", lambda: gen.generate_csr(
+    100_000, 100_000, 1_000_000, seed=5, complex_=True))
+SELL_MAIN = ("rmat_131k_deg16", lambda: gen.generate_rmat_csr(
+    131_072, 131_072 * 16, seed=5))
+# kernel-only ROUTE2 plans of the 300k matrix beside the main-path ones:
+# five rows of degree 20,000 added (aux levels; as flag-2 hub chunks with
+# hub_deg=256), and the any-lane publish
+ROUTE_HUB_ROWS = (5, 20_000)
 
 BAND_SOURCE = "spblas_tpu_torch/csrc/band_spmv.cu"
 DIA_SOURCE = "spblas_tpu_torch/csrc/dia_spmv.cu"
+ROUTE_SOURCE = "spblas_tpu_torch/csrc/route2_spmv.cu"
 BAND_REPLACES = "spblas_tpu/kernels/banded.py:104"
 DIA_REPLACES = "spblas_tpu/kernels/dia.py:146"
+ROUTE_REPLACES = "spblas_tpu/kernels/route2_kernel.py:119"
+# wrapper -> kernel name, for the launch counts
+WRAPPERS = {"band_spmv": banded.band_spmv_padded,
+            "dia_spmv": dia.dia_spmv_padded,
+            "route2_spmv": r2k.route2_spmv_padded}
 
 
 class SmokeFailure(RuntimeError):
@@ -117,9 +143,13 @@ def bound(nbytes, flops, rates):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _wide(t):
+    return t.to(torch.complex128) if t.is_complex() else t.double()
+
+
 def row_check(y, y_ref, absdot, scale=1.0):
     """Per-row tolerance; returns max |y - y_ref|."""
-    err = (y.double() - y_ref.double()).abs()
+    err = (_wide(y) - _wide(y_ref)).abs()
     lim = 64 * EPS32 * abs(scale) * absdot.double()
     bad = int((err > lim).sum())
     require(bad == 0, f"{bad} rows outside 64*eps*(|A||x|) "
@@ -256,33 +286,100 @@ def dia_case(name, a, seed, rates, card):
     return rec
 
 
+def hub_rows_csr(a, count, degree, seed):
+    """``a`` with ``count`` rows given ``degree`` distinct random columns
+    each (duplicates merged), as a CSR on the card."""
+    m, n = a.shape
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(a.shape[0]), np.diff(
+        a.rowptr.cpu().numpy().astype(np.int64)))
+    hub = np.repeat(rng.choice(m, count, replace=False), degree)
+    cols = np.concatenate([a.colind[: a.nnz].cpu().numpy(),
+                           rng.integers(0, n, len(hub))])
+    vals = np.concatenate([a.values[: a.nnz].cpu().numpy(),
+                           rng.uniform(0, 100, len(hub)).astype(np.float32)])
+    rows = np.concatenate([rows, hub])
+    _, idx = np.unique(rows * n + cols, return_index=True)
+    rowptr = np.concatenate([[0], np.cumsum(np.bincount(rows[idx],
+                                                        minlength=m))])
+    return CSR.from_arrays(vals[idx], rowptr, cols[idx], (m, n),
+                           nnz=len(idx), device=a.device)
+
+
+def route2_case(name, a, kw, seed, rates, card):
+    plan = route2.build_route2_plan(a.rowptr, a.colind, a.values, a.shape,
+                                    a.nnz, device=a.device, **kw)
+    x = gen.generate_vector(a.shape[1], seed=seed)
+    x2 = r2k.pack_x2(plan, x)
+    before = r2k.route2_spmv_padded.launches
+    y_k = r2k.route2_spmv_padded(plan, x2)
+    torch.cuda.synchronize()
+    per_call = r2k.route2_spmv_padded.launches - before
+    require(per_call == len(plan.launch_ranges()),
+            f"route2_spmv {name}: {per_call} launches")
+    y_p = r2k.route2_spmv_reference(plan, x2)
+    err = row_check(y_k, y_p, r2k.route2_spmv_reference(
+        dataclasses.replace(plan, val=plan.val.abs()), x2.abs()))
+    log(f"[check] route2_spmv {name}: in bound, max |err| {err:.3e}")
+    # each input read once (tile and values, the per-chunk scalars, the x
+    # pane), the output pane written twice (zeroed, then accumulated)
+    nch = plan.nchunks
+    nbytes = (nch * (8 * 1024 + 12 + 4 * plan.rotated)
+              + plan.x_rows * 512 + 2 * r2k.out_rows(plan) * 512)
+    b_ms, b_by = bound(nbytes, 2 * nch * 1024, rates)
+
+    def copy():
+        p = dataclasses.replace(
+            plan, tile=plan.tile.clone(), val=plan.val.clone(),
+            slab_base=plan.slab_base.clone(), y_base=plan.y_base.clone(),
+            src_flag=plan.src_flag.clone(),
+            rho=plan.rho.clone() if plan.rotated else None)
+        return p, x2.clone()
+
+    ins = replicas(copy, nbytes)
+    k_ms = device_ms(r2k.route2_spmv_padded, ins)
+    p_ms = device_ms(r2k.route2_spmv_reference, ins)
+    l_ms = library_ms(a, x)
+    del ins
+    torch.cuda.empty_cache()
+    return {"kernel": "route2_spmv", "case": name, "m": a.shape[0],
+            "n": a.shape[1], "nnz": a.nnz, "build": kw, "nchunks": nch,
+            "fill": plan.fill, "g": plan.g, "ww": plan.row_window_mult,
+            "rotated": plan.rotated, "any_lane": plan.any_lane,
+            "has_hub": plan.has_hub, "n_aux_chunks": plan.n_aux_chunks,
+            "launches_per_call": per_call, "max_abs_err": err,
+            "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": p_ms, "library_ms": l_ms,
+            "nnz_s": a.nnz / (k_ms * 1e-3), "card": card}
+
+
 # ------------------------------------------------------------------ #
 # phase 3: the main path at full width
 # ------------------------------------------------------------------ #
 
 def main_path(name, a, kind, seed, card):
-    x = gen.generate_vector(a.shape[1], seed=seed)
+    cx = a.dtype.is_complex
+    x = gen.generate_vector(a.shape[1], seed=seed, complex_=cx)
     opt = sp.matrix_opt(a)
-    banded.band_spmv_padded.launches = 0
-    dia.dia_spmv_padded.launches = 0
+    for w in WRAPPERS.values():
+        w.launches = 0
     t0 = time.perf_counter()
     y = sp.multiply(sp.scaled(2.0, opt), x)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {"band_spmv": banded.band_spmv_padded.launches,
-                "dia_spmv": dia.dia_spmv_padded.launches}
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
     got = opt._plans["matvec"][0]
     log(f"[main] {name}: kind {got}, launches {launches}")
     require(got == kind, f"{name}: chooser picked {got!r}, want {kind!r}")
-    require(y.shape == (a.shape[0],) and y.dtype == torch.float32
+    require(y.shape == (a.shape[0],) and y.dtype == a.dtype
             and bool(torch.isfinite(y).all()), f"{name}: bad result")
     # reference: the port's own base path in float64 on the card
-    a64 = dataclasses.replace(a, values=a.values.double())
-    y_ref = sp.multiply(sp.scaled(2.0, a64), x.double())
+    a64 = dataclasses.replace(a, values=_wide(a.values))
+    y_ref = sp.multiply(sp.scaled(2.0, a64), _wide(x))
     absdot = sp.multiply(dataclasses.replace(a, values=a.values.abs()
                                              .double()), x.abs().double())
     err = row_check(y, y_ref, absdot, scale=2.0)
-    xs = [gen.generate_vector(a.shape[1], seed=seed + 1 + i)
+    xs = [gen.generate_vector(a.shape[1], seed=seed + 1 + i, complex_=cx)
           for i in range(4)]
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
@@ -321,10 +418,15 @@ def run():
         f"{sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
 
-    # phase 1: build every kernel from the sources, all at once
+    # phase 1: build every kernel from the sources, all at once, and the
+    # native packer beside them
     t0 = time.perf_counter()
-    outs = _build.build_all()
-    log(f"[build] {sorted(outs)} in {time.perf_counter() - t0:.1f} s")
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        packer = pool.submit(native.get_lib)
+        outs = _build.build_all()
+        packer.result()
+    log(f"[build] {sorted(outs)} and {native.library_path().name} in "
+        f"{time.perf_counter() - t0:.1f} s")
     for k, out in outs.items():
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
@@ -342,24 +444,47 @@ def run():
     dia_recs = {n: dia_case(n, a, 21, rates, card) for n, a in mats.items()}
     for i, (n, make) in enumerate(DIA_KERNEL_ONLY):
         dia_recs[n] = dia_case(n, make(), 22 + i, rates, card)
+    general = {n: make() for n, make in ROUTE_MAIN}
+    u300 = general[ROUTE_MAIN[0][0]]
+    hubbed = hub_rows_csr(u300, *ROUTE_HUB_ROWS, seed=61)
+    route_recs = [route2_case(n, a, {}, 62, rates, card)
+                  for n, a in general.items()]
+    route_recs += [
+        route2_case("uniform_300k_hub_rows_aux", hubbed, {}, 63, rates,
+                    card),
+        route2_case("uniform_300k_hub_rows_hub256", hubbed,
+                    {"hub_deg": 256}, 64, rates, card),
+        route2_case("uniform_300k_any_lane", u300, {"any_lane": True}, 65,
+                    rates, card)]
+    require(route_recs[2]["n_aux_chunks"] > 0
+            and route_recs[3]["has_hub"] and route_recs[4]["any_lane"]
+            and route_recs[1]["rotated"],
+            "route2 kernel cases miss a plan feature")
+    del hubbed
 
     # phase 3: the main path at full width, counts read around each run
     main = [main_path(hname, head, "band", 31, card)]
     main += [main_path(n, a, "dia", 41, card) for n, a in mats.items()]
-    main.append(main_path(SELL_MAIN[0], SELL_MAIN[1](), "sell", 51, card))
-    launches = {k: sum(r["launches"][k] for r in main)
-                for k in ("band_spmv", "dia_spmv")}
-    require(launches["band_spmv"] > 0 and launches["dia_spmv"] > 0,
+    main += [main_path(n, a, "route", 51, card) for n, a in general.items()]
+    main.append(main_path(CX_MAIN[0], CX_MAIN[1](), "route_cx", 52, card))
+    main.append(main_path(SELL_MAIN[0], SELL_MAIN[1](), "sell", 53, card))
+    for r in main:
+        if r["kind"] in ("route", "route_cx"):
+            require(r["launches"]["route2_spmv"] > 0,
+                    f"{r['main_path']} did not launch route2_spmv")
+    launches = {k: sum(r["launches"][k] for r in main) for k in WRAPPERS}
+    require(all(launches.values()),
             f"main path missed a kernel: {launches}")
 
     # phase 4: one line per kernel and shape, with the launches of the
     # main-path call on that matrix (0: a kernel-only shape)
     by_name = {r["main_path"]: r["launches"] for r in main}
-    for r in band_recs + list(dia_recs.values()):
+    for r in band_recs + list(dia_recs.values()) + route_recs:
         r["launches"] = by_name.get(r["case"], {}).get(r["kernel"], 0)
         emit(r)
 
     hb, hd = band_recs[len(BAND_CASES)], dia_recs[DIA_MAIN[0][0]]
+    hr = route_recs[0]
     log(card)
     emit({"kernels": [
         {"name": "band_spmv", "route": "cuda", "source": BAND_SOURCE,
@@ -374,6 +499,12 @@ def run():
          "ms": hd["kernel_ms"], "plain_ms": hd["plain_ms"],
          "bound_ms": hd["bound_ms"], "bound_by": hd["bound_by"],
          "library_ms": hd["library_ms"]},
+        {"name": "route2_spmv", "route": "cuda", "source": ROUTE_SOURCE,
+         "replaces": ROUTE_REPLACES, "launches": launches["route2_spmv"],
+         "max_abs_err": max(r["max_abs_err"] for r in route_recs),
+         "ms": hr["kernel_ms"], "plain_ms": hr["plain_ms"],
+         "bound_ms": hr["bound_ms"], "bound_by": hr["bound_by"],
+         "library_ms": hr["library_ms"]},
     ]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

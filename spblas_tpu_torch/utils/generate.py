@@ -180,3 +180,35 @@ def generate_fem_graph_csr(nx, ny, seed=0, dtype=np.float32,
                     -1.0 + 0.01 * rng.standard_normal(len(rows)))
     return _coo_to_csr(rows, cols, vals.astype(dtype), (m, m), capacity,
                        device)
+
+
+def generate_rmat_csr(n, nnz, seed=0, a=0.57, b=0.19, c=0.19,
+                      dtype=np.float32, device=None) -> CSR:
+    """R-MAT power-law pattern (Chakrabarti et al.), the stand-in for
+    skewed-degree matrices: edges drop recursively into quadrants with
+    probabilities (a, b, c, 1-a-b-c); duplicates are coalesced, so nnz
+    is at most the requested count."""
+    rng = np.random.default_rng(seed)
+    scale = int(np.ceil(np.log2(max(n, 2))))
+    n_pow = 1 << scale
+    rows = np.zeros(nnz, np.int64)
+    cols = np.zeros(nnz, np.int64)
+    for level in range(scale):
+        r = rng.random(nnz)
+        quad_b = (r >= a) & (r < a + b)
+        quad_c = (r >= a + b) & (r < a + b + c)
+        quad_d = r >= a + b + c
+        bit = 1 << (scale - 1 - level)
+        rows += bit * (quad_c | quad_d)
+        cols += bit * (quad_b | quad_d)
+    keep = (rows < n) & (cols < n)
+    rows, cols = rows[keep], cols[keep]
+    key = rows * n_pow + cols
+    _, idx = np.unique(key, return_index=True)
+    rows, cols = rows[idx], cols[idx]
+    order = np.lexsort((cols, rows))
+    rows, cols = rows[order], cols[order]
+    vals = rng.uniform(0.1, 1.0, len(rows)).astype(dtype) / \
+        max(len(rows) / max(n, 1), 1.0)
+    return CSR.from_arrays(vals, _rows_to_rowptr(rows, n), cols, (n, n),
+                           nnz=len(rows), device=device)

@@ -212,13 +212,27 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
         sys.modules["spblas_tpu"] = None
         import importlib, pkgutil
         import spblas_tpu_torch as sp
+        seen = set()
         for mod in pkgutil.walk_packages(sp.__path__, "spblas_tpu_torch."):
             importlib.import_module(mod.name)
+            seen.add(mod.name)
+        assert {"spblas_tpu_torch.native", "spblas_tpu_torch.kernels.route2",
+                "spblas_tpu_torch.kernels.route2_kernel"} <= seen, seen
+        from spblas_tpu_torch.kernels import plans
         from spblas_tpu_torch.utils import generate as gen
         a = gen.generate_banded_csr(500, 500, 9, seed=0, device="cpu")
         x = gen.generate_vector(500, seed=1, device="cpu")
         y = sp.multiply(sp.scaled(2.0, sp.matrix_opt(a)), x)
         assert y.shape == (500,) and bool(y.isfinite().all())
+        # the ROUTE2 rung (native packer, plain kernel version) as well
+        plans._on_cuda = lambda t: True
+        a = gen.generate_csr(800, 800, 6400, seed=2, device="cpu")
+        opt = sp.matrix_opt(a)
+        y = sp.multiply(sp.scaled(2.0, opt),
+                        gen.generate_vector(800, seed=3, device="cpu"))
+        assert opt._plans["matvec"][0] == "route"
+        assert y.shape == (800,) and bool(y.isfinite().all())
+        assert "jax" not in sys.modules or sys.modules["jax"] is None
         print("ok")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -226,3 +240,29 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_native_library_is_built_from_the_ports_sources():
+    """The packer the port loads is its own build of
+    ``spblas_tpu_torch/native/src`` (byte copies of the JAX package's
+    sources), named by a hash of those sources and the flags, under the
+    port's ``_build/``."""
+    import ctypes
+    import hashlib
+    from pathlib import Path
+    from spblas_tpu_torch import native
+
+    src = Path(REPO) / "spblas_tpu_torch" / "native" / "src"
+    assert native.SRC == src
+    h = hashlib.sha1(" ".join(native.GXX_FLAGS).encode())
+    for name in ("route2_pack.cpp", "sort_util.cpp"):
+        body = (src / name).read_bytes()
+        assert body == (Path(REPO) / "spblas_tpu" / "native" / "src"
+                        / name).read_bytes()
+        h.update(body)
+    want = (Path(REPO) / "spblas_tpu_torch" / "_build"
+            / f"libroute2_host-{h.hexdigest()[:12]}.so")
+    lib = native.get_lib()
+    assert isinstance(lib, ctypes.CDLL)
+    assert native.library_path() == want and Path(lib._name) == want
+    assert want.exists()

@@ -2,6 +2,8 @@
 path ``multiply(scaled(2.0, matrix_opt(A)), x)``, the plan chooser, the
 base paths, errors and gradients, on the same seeded numpy inputs."""
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -74,17 +76,51 @@ def test_chooser_kind_matches_jax_with_gates_forced(name, kind, monkeypatch):
 
 
 def test_cuda_ladder_skips_unported_rungs(monkeypatch):
-    """With the CUDA probe forced, a general matrix skips the ROUTE/BSR/
-    RCM rungs by name and lands on SELL, no matrix gets an unported
-    kind, and plan_spmv has no path for one."""
+    """With the CUDA probe forced, a general matrix takes the ported
+    ROUTE2 rung ("route"), no matrix gets an unported kind (BSR, RCM
+    band, ROUTE v1, paned ROUTE2), and plan_spmv has no path for one."""
     monkeypatch.setattr(tplans, "_on_cuda", lambda t: True)
     kinds = {name: tplans.build_matvec_plan(port_csr(make()))[0]
              for name, make in MATRICES.items()}
-    assert kinds["uniform"] == "sell"
+    assert kinds["uniform"] == "route"
     assert not set(kinds.values()) & set(tplans.UNPORTED_KINDS)
     for k in tplans.UNPORTED_KINDS:
         with pytest.raises(ValueError, match="unknown plan kind"):
             tplans.plan_spmv((k, None), torch.zeros(3))
+
+
+GENERAL = {
+    "uniform_f32": (lambda: gen.generate_csr(1500, 1500, 12_000, seed=23),
+                    "route"),
+    "uniform_c64": (lambda: gen.generate_csr(1500, 1500, 12_000, seed=24,
+                                             complex_=True), "route_cx"),
+    # the same f32 values held in float64 by the port
+    "uniform_f64": (lambda: gen.generate_csr(1500, 1500, 12_000, seed=25),
+                    "sell"),
+    # hub fraction above 0.15: JAX takes ROUTE v1, not ported yet
+    "rmat": (lambda: gen.generate_rmat_csr(2048, 2048 * 16, seed=5),
+             "sell"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GENERAL))
+def test_cuda_ladder_general_kinds(name, monkeypatch):
+    """With the CUDA probe forced, the general rungs the port has: f32
+    takes route, complex64 route_cx, float64 and hub-heavy rows SELL;
+    each result matches JAX's base path."""
+    monkeypatch.setattr(tplans, "_on_cuda", lambda t: True)
+    make, kind = GENERAL[name]
+    a = make()
+    b = port_csr(a)
+    if name == "uniform_f64":
+        b = dataclasses.replace(b, values=b.values.double())
+    x = gen.generate_vector(a.shape[1], seed=26, complex_=b.dtype.is_complex)
+    opt = tsp.matrix_opt(b)
+    y = tsp.multiply(tsp.scaled(2.0, opt), torch.from_numpy(x))
+    assert opt._plans["matvec"][0] == kind
+    assert y.dtype == b.dtype
+    want = sp.multiply(sp.scaled(2.0, a), jnp.asarray(x))
+    assert_rows_close(y, want, a, x, scale=2.0)
 
 
 def test_structured_kinds_are_shared_names():
