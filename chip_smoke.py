@@ -4,15 +4,17 @@
     python3 chip_smoke.py
 
 Builds the port's hand-written CUDA kernels from ``spblas_tpu_torch/csrc``
-and its native ROUTE2 packer from ``spblas_tpu_torch/native/src``, holds
+and its native ROUTE packers from ``spblas_tpu_torch/native/src``, holds
 each kernel against its plain PyTorch version on the card, drives the
 main path ``multiply(scaled(2.0, matrix_opt(A)), x)`` at full width (the
 409,600-row banded headline matrix, the 1000x1000 stencil, the 800x800
 FEM mesh, the 64^3 stencil, uniform 300k and 1M degree-10 matrices, a
-complex64 uniform 100k matrix and a 131k R-MAT graph) against the port's
-float64 base path, and times every kernel beside its bound, its plain
-version and the cuSPARSE call (``torch.mv`` on a ``torch.sparse_csr_tensor``,
-timed here as a yardstick only; the port never calls it).
+complex64 uniform 100k matrix, the 131k R-MAT graph as it comes and with
+its rows in the chooser's degree order, a uniform 4M degree-10 matrix
+and the 300k matrix held in float64) against the port's float64 base
+path, and times every kernel beside its bound, its plain version and the
+cuSPARSE call (``torch.mv`` on a ``torch.sparse_csr_tensor``, timed here
+as a yardstick only; the port never calls it).
 
 Tolerance everywhere: |y - y_ref|_i <= 64 * eps_f32 * scale * (|A|.|x|)_i,
 the dot-product form of the test suite's 64*eps model, since the two
@@ -44,6 +46,9 @@ from spblas_tpu_torch import _build, native
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.kernels import banded, dia, route2
 from spblas_tpu_torch.kernels import route2_kernel as r2k
+from spblas_tpu_torch.kernels import route_paned as rpn
+from spblas_tpu_torch.kernels import route_plan as rpl
+from spblas_tpu_torch.kernels import route_spmv as rsp
 from spblas_tpu_torch.utils import generate as gen
 
 EPS32 = torch.finfo(torch.float32).eps
@@ -75,32 +80,53 @@ DIA_KERNEL_ONLY = [
     ("stencil_2000x2000", lambda: gen.generate_stencil_csr(
         (2000, 2000), seed=6))]
 # general sparsity: the bench's spmv_general_route matrices (bench.py:145,
-# :794, seed 3) take kind route; a complex64 uniform matrix route_cx; the
-# bench's R-MAT graph (bench.py:768, seed 5; hub fraction 0.78, which
-# sends JAX to ROUTE v1, not ported yet) keeps SELL on a driven path
+# :794, seed 3) take kind route; a complex64 uniform matrix route_cx
 ROUTE_MAIN = [("uniform_300k_deg10", lambda: gen.generate_csr(
                   300_000, 300_000, 3_000_000, seed=3)),
               ("uniform_1m_deg10", lambda: gen.generate_csr(
                   1_000_000, 1_000_000, 10_000_000, seed=3))]
 CX_MAIN = ("uniform_100k_deg10_c64", lambda: gen.generate_csr(
     100_000, 100_000, 1_000_000, seed=5, complex_=True))
-SELL_MAIN = ("rmat_131k_deg16", lambda: gen.generate_rmat_csr(
+# the bench's R-MAT graph (bench.py:768, seed 5; hub fraction 0.78) takes
+# route1_sorted; the same rows put in the chooser's degree order first
+# make its sort the identity and take route1
+RMAT_MAIN = ("rmat_131k_deg16", lambda: gen.generate_rmat_csr(
     131_072, 131_072 * 16, seed=5))
+# the bench's spmv_general_paned_4m matrix (bench.py:606-619, seed 3):
+# x and y past the VMEM rows, kind route_paned
+PANED_MAIN = ("uniform_4m_deg10", lambda: gen.generate_csr(
+    4_000_000, 4_000_000, 40_000_000, seed=3))
+# SELL: the f32 values of uniform 300k held in float64 (ROUTE_MAIN[0])
+SELL_MAIN = "uniform_300k_deg10_f64"
 # kernel-only ROUTE2 plans of the 300k matrix beside the main-path ones:
 # five rows of degree 20,000 added (aux levels; as flag-2 hub chunks with
 # hub_deg=256), and the any-lane publish
 ROUTE_HUB_ROWS = (5, 20_000)
+# kernel-only paned plan of the same 300k matrix with the hub rows:
+# small panels and panes, so it has several of each and aux levels
+PANED_SMALL = dict(panel_rows=65_536, pane_rows=512)
 
 BAND_SOURCE = "spblas_tpu_torch/csrc/band_spmv.cu"
 DIA_SOURCE = "spblas_tpu_torch/csrc/dia_spmv.cu"
 ROUTE_SOURCE = "spblas_tpu_torch/csrc/route2_spmv.cu"
+V1_SOURCE = "spblas_tpu_torch/csrc/route_spmv.cu"
+PANED_SOURCE = "spblas_tpu_torch/csrc/route_paned_spmv.cu"
 BAND_REPLACES = "spblas_tpu/kernels/banded.py:104"
 DIA_REPLACES = "spblas_tpu/kernels/dia.py:146"
 ROUTE_REPLACES = "spblas_tpu/kernels/route2_kernel.py:119"
+V1_REPLACES = "spblas_tpu/kernels/route_spmv.py:82"
+PANED_REPLACES = "spblas_tpu/kernels/route_paned.py:404"
 # wrapper -> kernel name, for the launch counts
 WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "dia_spmv": dia.dia_spmv_padded,
-            "route2_spmv": r2k.route2_spmv_padded}
+            "route2_spmv": r2k.route2_spmv_padded,
+            "route_spmv": rsp.route_spmv_padded,
+            "route_paned_spmv": rpn.route_paned_spmv_padded}
+# kind -> the kernels its main-path call must launch
+KIND_KERNELS = {"route": ("route2_spmv",), "route_cx": ("route2_spmv",),
+                "route1": ("route_spmv",),
+                "route1_sorted": ("route_spmv", "route2_spmv"),
+                "route_paned": ("route_paned_spmv",)}
 
 
 class SmokeFailure(RuntimeError):
@@ -353,6 +379,153 @@ def route2_case(name, a, kw, seed, rates, card):
             "nnz_s": a.nnz / (k_ms * 1e-3), "card": card}
 
 
+def v1_levels(plan):
+    """A ROUTE v1 plan and its aux plans, level by level."""
+    out = []
+    while plan is not None:
+        out.append(plan)
+        plan = plan.aux_plan
+    return out
+
+
+def route_v1_case(name, a, plan, seed, rates, card):
+    """``route_spmv`` on every level of a v1 plan against its plain
+    version; each level's x is the aux slots of the plain version's pane
+    of the level before, so both sides see the same inputs."""
+    levels = v1_levels(plan)
+    xin = gen.generate_vector(a.shape[1], seed=seed)
+    x2s, refs = [], []
+    for p in levels:
+        x2s.append(rsp.pack_x(p, xin))
+        refs.append(rsp.route_spmv_reference(p, x2s[-1]))
+        start = p.y_rows * 128
+        xin = refs[-1].view(-1)[start:start + p.aux_len]
+    before = rsp.route_spmv_padded.launches
+    err = 0.0
+    for p, x2, y_p in zip(levels, x2s, refs):
+        y_k = rsp.route_spmv_padded(p, x2)
+        torch.cuda.synchronize()
+        err = max(err, row_check(y_k, y_p, rsp.route_spmv_reference(
+            dataclasses.replace(p, val=p.val.abs()), x2.abs())))
+    per_call = rsp.route_spmv_padded.launches - before
+    require(per_call == len(levels), f"route_spmv {name}: {per_call} "
+                                     f"launches for {len(levels)} levels")
+    log(f"[check] route_spmv {name}: in bound, max |err| {err:.3e}")
+    # each input read once (tile1, tile3 and values, the per-chunk
+    # scalars, the x pane), each output pane written twice (zeroed, then
+    # accumulated), over every level
+    nbytes = sum(p.nchunks * (12 * 1024 + 8) + p.x_rows * 512
+                 + 2 * p.pane_rows * 512 for p in levels)
+    nslots = sum(p.nchunks for p in levels) * 1024
+    b_ms, b_by = bound(nbytes, 2 * nslots, rates)
+
+    def copy():
+        ps = [dataclasses.replace(
+            p, tile1=p.tile1.clone(), tile3=p.tile3.clone(),
+            val=p.val.clone(), slab_base=p.slab_base.clone(),
+            y_base=p.y_base.clone()) for p in levels]
+        return ps, [x2.clone() for x2 in x2s]
+
+    def run_levels(ps, xs, fn=rsp.route_spmv_padded):
+        for p, x2 in zip(ps, xs):
+            fn(p, x2)
+
+    ins = replicas(copy, nbytes)
+    k_ms = device_ms(run_levels, ins)
+    p_ms = device_ms(lambda ps, xs: run_levels(
+        ps, xs, rsp.route_spmv_reference), ins)
+    l_ms = library_ms(a, gen.generate_vector(a.shape[1], seed=seed))
+    del ins
+    torch.cuda.empty_cache()
+    return {"kernel": "route_spmv", "case": name, "m": a.shape[0],
+            "n": a.shape[1], "nnz": a.nnz, "levels": len(levels),
+            "nchunks": [p.nchunks for p in levels], "fill": plan.fill,
+            "g": plan.g, "hot_cols": plan.hot_cols.numel(),
+            "launches_per_call": per_call, "max_abs_err": err,
+            "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": p_ms, "library_ms": l_ms,
+            "nnz_s": a.nnz / (k_ms * 1e-3), "card": card}
+
+
+def paned_case(name, a, plan, seed, rates, card):
+    """``route_paned_spmv`` on every panel of a paned plan against its
+    plain version, panel by panel."""
+    x = gen.generate_vector(a.shape[1], seed=seed)
+    x2 = rpn.pack_x2(plan, x)
+    before = rpn.route_paned_spmv_padded.launches
+    err = 0.0
+    for p in plan.panels:
+        y_k = rpn.route_paned_spmv_padded(plan, p, x2)
+        torch.cuda.synchronize()
+        y_p = rpn.route_paned_spmv_reference(plan, p, x2)
+        err = max(err, row_check(y_k, y_p, rpn.route_paned_spmv_reference(
+            plan, dataclasses.replace(p, val=p.val.abs()), x2.abs())))
+        del y_k, y_p
+    per_call = rpn.route_paned_spmv_padded.launches - before
+    want = sum(hi > lo for p in plan.panels for lo, hi in p.launch_ranges())
+    require(per_call == want, f"route_paned_spmv {name}: {per_call} "
+                              f"launches, want {want}")
+    log(f"[check] route_paned_spmv {name}: in bound, max |err| {err:.3e}")
+    # each input read once (tile and values, the per-chunk scalars sb,
+    # yb, fl, pane and rho where rotated, x), each panel pane written
+    # twice (zeroed, then accumulated)
+    nbytes = plan.x_rows_pad * 512 + sum(
+        p.nchunks * (8 * 1024 + 16 + 4 * p.rotated) + 2 * p.out_rows * 512
+        for p in plan.panels)
+    b_ms, b_by = bound(nbytes, 2 * plan.nchunks * 1024, rates)
+
+    def copy():
+        return dataclasses.replace(plan, panels=tuple(
+            dataclasses.replace(
+                p, tile=p.tile.clone(), val=p.val.clone(), sb=p.sb.clone(),
+                yb=p.yb.clone(), fl=p.fl.clone(), rho=p.rho.clone(),
+                pane=p.pane.clone()) for p in plan.panels)), x2.clone()
+
+    def run_panels(pl, xx, fn=rpn.route_paned_spmv_padded):
+        for p in pl.panels:
+            fn(pl, p, xx)
+
+    ins = replicas(copy, nbytes)
+    k_ms = device_ms(run_panels, ins)
+    p_ms = device_ms(lambda pl, xx: run_panels(
+        pl, xx, rpn.route_paned_spmv_reference), ins)
+    l_ms = library_ms(a, x)
+    del ins
+    torch.cuda.empty_cache()
+    return {"kernel": "route_paned_spmv", "case": name, "m": a.shape[0],
+            "n": a.shape[1], "nnz": a.nnz, "panels": len(plan.panels),
+            "panes": plan.x_rows_pad // plan.pane_rows,
+            "nchunks": plan.nchunks, "fill": plan.fill, "g": plan.g,
+            "ww": plan.row_window_mult,
+            "rotated": any(p.rotated for p in plan.panels),
+            "aux_levels": max(len(p.launch_starts) - 1 for p in plan.panels),
+            "launches_per_call": per_call, "max_abs_err": err,
+            "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": p_ms, "library_ms": l_ms,
+            "nnz_s": a.nnz / (k_ms * 1e-3), "card": card}
+
+
+def chooser_order_csr(a):
+    """``a`` with its rows in the ROUTE chooser's own order (degree
+    descending, then the rows' column centre of mass), as
+    ``plans._try_route_sorted`` computes it, so that its sort is the
+    identity."""
+    m, n = a.shape
+    rp = a.rowptr.cpu().numpy().astype(np.int64)
+    ci = a.colind[: a.nnz].cpu().numpy()
+    vv = a.values[: a.nnz].cpu().numpy()
+    deg = np.diff(rp)
+    com = np.zeros(m)
+    np.add.at(com, np.repeat(np.arange(m), deg), ci)
+    perm = np.lexsort((com / np.maximum(deg, 1), -deg))
+    new_deg = deg[perm]
+    entry = (np.repeat(rp[perm] - np.concatenate(
+        [[0], np.cumsum(new_deg)[:-1]]), new_deg)
+        + np.arange(int(new_deg.sum())))
+    return CSR.from_arrays(vv[entry], np.concatenate([[0], np.cumsum(
+        new_deg)]), ci[entry], (m, n), nnz=a.nnz, device=a.device)
+
+
 # ------------------------------------------------------------------ #
 # phase 3: the main path at full width
 # ------------------------------------------------------------------ #
@@ -368,7 +541,7 @@ def main_path(name, a, kind, seed, card):
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = {k: w.launches for k, w in WRAPPERS.items()}
-    got = opt._plans["matvec"][0]
+    got, plan = opt._plans["matvec"]
     log(f"[main] {name}: kind {got}, launches {launches}")
     require(got == kind, f"{name}: chooser picked {got!r}, want {kind!r}")
     require(y.shape == (a.shape[0],) and y.dtype == a.dtype
@@ -397,7 +570,7 @@ def main_path(name, a, kind, seed, card):
            "max_abs_err_vs_f64": err, "first_call_s": first_s, "ms": ms,
            "nnz_s": a.nnz / (ms * 1e-3), "card": card}
     emit(rec)
-    return rec
+    return rec, plan
 
 
 def run():
@@ -460,18 +633,54 @@ def run():
             and route_recs[3]["has_hub"] and route_recs[4]["any_lane"]
             and route_recs[1]["rotated"],
             "route2 kernel cases miss a plan feature")
+    # ROUTE v1: the plain plan of the R-MAT graph (aux levels, hot
+    # columns) and the 300k matrix's v1 plan beside its ROUTE2 one
+    rmat = RMAT_MAIN[1]()
+    v1_recs = [route_v1_case(f"{n}_v1", a, rpl.build_route_plan(
+        a.rowptr, a.colind, a.values, a.shape, a.nnz, device=a.device),
+        71 + i, rates, card)
+        for i, (n, a) in enumerate(((RMAT_MAIN[0], rmat),
+                                    (ROUTE_MAIN[0][0], u300)))]
+    require(v1_recs[0]["levels"] > 1 and v1_recs[0]["hot_cols"] > 0,
+            "route_spmv R-MAT plan has no aux level or hot column")
+    # paned ROUTE2 at small panels and panes, hub rows for aux levels
+    paned_recs = [paned_case(
+        "uniform_300k_hub_rows_paned", hubbed, rpn.build_route_paned_plan(
+            hubbed.rowptr, hubbed.colind, hubbed.values, hubbed.shape,
+            hubbed.nnz, device=hubbed.device, **PANED_SMALL), 73, rates,
+        card)]
+    require(paned_recs[0]["panels"] > 1 and paned_recs[0]["panes"] > 1
+            and paned_recs[0]["aux_levels"] > 0,
+            "route_paned_spmv small plan misses panels, panes or aux")
     del hubbed
 
     # phase 3: the main path at full width, counts read around each run
-    main = [main_path(hname, head, "band", 31, card)]
-    main += [main_path(n, a, "dia", 41, card) for n, a in mats.items()]
-    main += [main_path(n, a, "route", 51, card) for n, a in general.items()]
-    main.append(main_path(CX_MAIN[0], CX_MAIN[1](), "route_cx", 52, card))
-    main.append(main_path(SELL_MAIN[0], SELL_MAIN[1](), "sell", 53, card))
+    main = [main_path(hname, head, "band", 31, card)[0]]
+    main += [main_path(n, a, "dia", 41, card)[0] for n, a in mats.items()]
+    main += [main_path(n, a, "route", 51, card)[0]
+             for n, a in general.items()]
+    main.append(main_path(CX_MAIN[0], CX_MAIN[1](), "route_cx", 52,
+                          card)[0])
+    rec, plan = main_path(RMAT_MAIN[0], rmat, "route1_sorted", 54, card)
+    main.append(rec)
+    # the main path's own v1 plan: the degree-sorted base
+    v1_recs.append(route_v1_case(RMAT_MAIN[0], rmat, plan.base, 74, rates,
+                                 card))
+    main.append(main_path(f"{RMAT_MAIN[0]}_chooser_order",
+                          chooser_order_csr(rmat), "route1", 55, card)[0])
+    del rmat, plan
+    big = PANED_MAIN[1]()
+    rec, plan = main_path(PANED_MAIN[0], big, "route_paned", 56, card)
+    main.append(rec)
+    paned_recs.append(paned_case(PANED_MAIN[0], big, plan, 75, rates, card))
+    del big, plan
+    torch.cuda.empty_cache()
+    main.append(main_path(SELL_MAIN, dataclasses.replace(
+        u300, values=u300.values.double()), "sell", 53, card)[0])
     for r in main:
-        if r["kind"] in ("route", "route_cx"):
-            require(r["launches"]["route2_spmv"] > 0,
-                    f"{r['main_path']} did not launch route2_spmv")
+        for k in KIND_KERNELS.get(r["kind"], ()):
+            require(r["launches"][k] > 0,
+                    f"{r['main_path']} ({r['kind']}) did not launch {k}")
     launches = {k: sum(r["launches"][k] for r in main) for k in WRAPPERS}
     require(all(launches.values()),
             f"main path missed a kernel: {launches}")
@@ -479,12 +688,13 @@ def run():
     # phase 4: one line per kernel and shape, with the launches of the
     # main-path call on that matrix (0: a kernel-only shape)
     by_name = {r["main_path"]: r["launches"] for r in main}
-    for r in band_recs + list(dia_recs.values()) + route_recs:
+    for r in (band_recs + list(dia_recs.values()) + route_recs + v1_recs
+              + paned_recs):
         r["launches"] = by_name.get(r["case"], {}).get(r["kernel"], 0)
         emit(r)
 
     hb, hd = band_recs[len(BAND_CASES)], dia_recs[DIA_MAIN[0][0]]
-    hr = route_recs[0]
+    hr, hv, hp = route_recs[0], v1_recs[-1], paned_recs[-1]
     log(card)
     emit({"kernels": [
         {"name": "band_spmv", "route": "cuda", "source": BAND_SOURCE,
@@ -505,6 +715,18 @@ def run():
          "ms": hr["kernel_ms"], "plain_ms": hr["plain_ms"],
          "bound_ms": hr["bound_ms"], "bound_by": hr["bound_by"],
          "library_ms": hr["library_ms"]},
+        {"name": "route_spmv", "route": "cuda", "source": V1_SOURCE,
+         "replaces": V1_REPLACES, "launches": launches["route_spmv"],
+         "max_abs_err": max(r["max_abs_err"] for r in v1_recs),
+         "ms": hv["kernel_ms"], "plain_ms": hv["plain_ms"],
+         "bound_ms": hv["bound_ms"], "bound_by": hv["bound_by"],
+         "library_ms": hv["library_ms"]},
+        {"name": "route_paned_spmv", "route": "cuda", "source": PANED_SOURCE,
+         "replaces": PANED_REPLACES, "launches": launches["route_paned_spmv"],
+         "max_abs_err": max(r["max_abs_err"] for r in paned_recs),
+         "ms": hp["kernel_ms"], "plain_ms": hp["plain_ms"],
+         "bound_ms": hp["bound_ms"], "bound_by": hp["bound_by"],
+         "library_ms": hp["library_ms"]},
     ]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

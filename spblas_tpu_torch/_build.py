@@ -4,8 +4,9 @@ plain C interface and loads it with ``ctypes``.
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 -Xcompiler -fPIC`` runs once per source, on first use, into
 ``spblas_tpu_torch/_build/`` (listed in ``.gitignore``).  The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and never loaded stale; the library is written under a temporary
+file name carries a hash of its source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source or header is rebuilt and
+never loaded stale; the library is written under a temporary
 name and renamed into place, so processes building at once do not
 collide.  Importing the package builds nothing.
 
@@ -57,10 +58,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> tuple:
+    """(source, library): the hash covers the source, every shared header
+    of ``csrc/`` (a source may include one) and the flags."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                          ).hexdigest()[:12]
-    return src, BUILD / f"{name}-{digest}.so"
+    h = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return src, BUILD / f"{name}-{h.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

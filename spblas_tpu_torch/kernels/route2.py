@@ -157,12 +157,16 @@ def _tile_dist_max(tiles: np.ndarray) -> int:
     return dm >> B_DIST
 
 
-def pick_row_window_mult(e_cell: float) -> int:
+def pick_row_window_mult(e_cell: float,
+                         max_rows: Optional[int] = None) -> int:
     """Supercell height: double W while the expected elements per
     supercell stay under ~8 chunks' worth (quantisation waste <= ~12 %),
-    capped at W = 8 (3 sub-window bits)."""
+    capped at W = 8 (3 sub-window bits) and, when given, at
+    ``max_rows`` (the paned builder's panel: the wide publish spans
+    1024*W rows)."""
     ww = 1
-    while ww < 8 and e_cell * ww < SUPERCELL_TARGET:
+    while (ww < 8 and e_cell * ww < SUPERCELL_TARGET
+           and (max_rows is None or ROW_WINDOW * ww * 2 <= max_rows)):
         ww *= 2
     return ww
 
@@ -229,15 +233,18 @@ def _build_route2_arrays(rowptr, colind, values, shape: Tuple[int, int],
                          nnz: int, any_lane: Optional[bool],
                          row_window_mult: Optional[int],
                          hub_deg: Optional[int],
-                         rotate: Optional[bool]) -> dict:
+                         rotate: Optional[bool],
+                         g: Optional[int] = None) -> dict:
     """Host phase of :func:`build_route2_plan`: the plan as numpy arrays
-    plus static fields."""
+    plus static fields.  The paned builder (``kernels/route_paned.py``)
+    calls it per row panel with its own window factor ``g``."""
     m, n = shape
     rowptr = np.asarray(rowptr).astype(np.int64)
     colind = np.asarray(colind).astype(np.int64)[:nnz]
     values = np.asarray(values)[:nnz]
 
-    g = pick_window_g(m, n, nnz)
+    if g is None:
+        g = pick_window_g(m, n, nnz)
     window = g * SLOTS
 
     rows = native.expand_rowptr(m, nnz, np.minimum(rowptr, nnz))

@@ -53,21 +53,26 @@ def _field(t: torch.Tensor, bit: int, mask: int) -> torch.Tensor:
     return (t >> bit) & mask
 
 
-def _reference_range(plan: Route2Plan, lo: int, hi: int,
-                     src: torch.Tensor, pane: torch.Tensor) -> None:
-    """Chunks [lo, hi) of one launch, all at once: gather from ``src``
-    (rows, 128) as it stands, then publish into ``pane`` (rows, 128)."""
-    t = plan.tile[lo:hi].long()
-    val = plan.val[lo:hi]
+def chunk_reference(tile: torch.Tensor, val: torch.Tensor,
+                    slab_base: torch.Tensor, y_base: torch.Tensor,
+                    src_flag: torch.Tensor, rho, src: torch.Tensor,
+                    pane: torch.Tensor, *, g: int, dist_max: int,
+                    any_lane: bool, ww: int, rotated: bool) -> None:
+    """The ROUTE2 chunk body over k chunks at once (``tile``, ``val``
+    (k, 8, 128); ``slab_base``, ``y_base``, ``src_flag`` and, on a
+    rotated plan, ``rho`` (k,)): gather from ``src`` (rows, 128) as it
+    stands, then publish into ``pane`` (rows, 128).  The plain version
+    of ``csrc/route2_chunk.cuh``."""
+    t = tile.long()
     k = t.shape[0]
     dev = t.device
-    flag = plan.src_flag[lo:hi].long().view(k, 1, 1)
+    flag = src_flag.long().view(k, 1, 1)
     ii = torch.arange(SUBS, device=dev).view(1, SUBS, 1)
     jj = torch.arange(LANES, device=dev).view(1, 1, LANES)
 
     # t1[a, l] = src[sb + r2[a, l], l]; rows past the pane read 0
-    r2 = _field(t, B_R2, 255).clamp(max=SUBS * plan.g - 1)
-    row = plan.slab_base[lo:hi].long().view(k, 1, 1) + r2
+    r2 = _field(t, B_R2, 255).clamp(max=SUBS * g - 1)
+    row = slab_base.long().view(k, 1, 1) + r2
     inside = row < src.shape[0]
     t1 = torch.where(inside, src[row.clamp(max=src.shape[0] - 1), jj], 0.0)
     va = _field(t, B_VA, 1).float()
@@ -77,13 +82,13 @@ def _reference_range(plan: Route2Plan, lo: int, hi: int,
     p = t3 * val
     dist = _field(t, B_DIST, 7)
     for d in (1, 2, 4):
-        if d > plan.dist_max:
+        if d > dist_max:
             break
         sh = torch.roll(p, d, dims=1)
         sh[:, :d] = 0
         p = p + torch.where(dist >= d, sh, 0.0)
     rs = torch.gather(p, 1, _field(t, B_PEND, 7))
-    if plan.any_lane:
+    if any_lane:
         rs = torch.gather(rs, 2, _field(t, B_LSRC, 127))
     hub = (t1 * val).sum(dim=(1, 2)).view(k, 1, 1)        # flag-2 chunks
     rs = torch.where(flag == 2, hub, rs) * va
@@ -91,18 +96,31 @@ def _reference_range(plan: Route2Plan, lo: int, hi: int,
     # destination of slot (s, j): sublane s, or (s - r) & 7 on a rotated
     # chunk; plus sub-window subw * 8 on a supercell plan
     sub = ii.expand(k, SUBS, LANES)
-    if plan.rotated:
-        rho = plan.rho[lo:hi].long().view(k, 1, 1)
-        r = torch.where(_field(t, B_SEL, 1) == 1, (rho >> 17) & 7,
-                        (rho >> 7) & 7)
+    if rotated:
+        rh = rho.long().view(k, 1, 1)
+        r = torch.where(_field(t, B_SEL, 1) == 1, (rh >> 17) & 7,
+                        (rh >> 7) & 7)
         sub = torch.where(flag == 2, sub, (sub - r) & 7)
     keep = va > 0
-    if plan.row_window_mult > 1:
+    if ww > 1:
         sw = _field(t, B_SUBW, 7)
-        keep = keep & (sw < plan.row_window_mult)
+        keep = keep & (sw < ww)
         sub = sub + SUBS * sw
-    dest = (plan.y_base[lo:hi].long().view(k, 1, 1) + sub) * LANES + jj
+    dest_row = y_base.long().view(k, 1, 1) + sub
+    keep = keep & (dest_row < pane.shape[0])
+    dest = dest_row * LANES + jj
     pane.view(-1).index_add_(0, dest[keep], rs[keep])
+
+
+def _reference_range(plan: Route2Plan, lo: int, hi: int,
+                     src: torch.Tensor, pane: torch.Tensor) -> None:
+    """Chunks [lo, hi) of one launch, all at once."""
+    chunk_reference(
+        plan.tile[lo:hi], plan.val[lo:hi], plan.slab_base[lo:hi],
+        plan.y_base[lo:hi], plan.src_flag[lo:hi],
+        plan.rho[lo:hi] if plan.rotated else None, src, pane, g=plan.g,
+        dist_max=plan.dist_max, any_lane=plan.any_lane,
+        ww=plan.row_window_mult, rotated=plan.rotated)
 
 
 def route2_spmv_reference(plan: Route2Plan,

@@ -1,7 +1,8 @@
-"""The port's own copy of the C++ host inspectors the ROUTE2 builder calls.
+"""The port's own copy of the C++ host inspectors the ROUTE builders call.
 
-``src/route2_pack.cpp`` and ``src/sort_util.cpp`` are byte-for-byte
-copies of the JAX package's sources (plain C++, no framework code).  One
+``src/route2_pack.cpp``, ``src/route_pack.cpp`` and ``src/sort_util.cpp``
+are byte-for-byte copies of the JAX package's sources (plain C++, no
+framework code).  One
 ``g++ -O3 -march=native -shared -fPIC -std=c++17`` builds them, on first
 use, into ``spblas_tpu_torch/_build/`` (listed in ``.gitignore``).  As in
 ``_build.py``, the library's file name carries a hash of its sources and
@@ -32,7 +33,7 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC = Path(__file__).resolve().parent / "src"
-SOURCES = ("route2_pack.cpp", "sort_util.cpp")
+SOURCES = ("route2_pack.cpp", "route_pack.cpp", "sort_util.cpp")
 BUILD = _PKG / "_build"
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
@@ -52,8 +53,8 @@ def library_path() -> Path:
 def _build(lib: Path) -> None:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: spblas_tpu_torch's ROUTE2 "
-                           "builder needs its native packer "
+        raise RuntimeError("g++ not found: spblas_tpu_torch's ROUTE "
+                           "builders need their native packer "
                            "(spblas_tpu_torch/native/src)")
     BUILD.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
@@ -96,6 +97,11 @@ def _declare(lib):
         i32p, i32p, i32p, i32p, i32p, i32p, i64p, i64p, i32p, i32p,
         i32p, i64p, ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
         ctypes.c_int32, i32p]
+    lib.spblas_route_pack.restype = i64
+    lib.spblas_route_pack.argtypes = [
+        i64, i64, i64p, i32p, i32p, i64,
+        i32p, i32p, i32p, i32p, i32p, i32p, i64p, i32p, i32p, i32p,
+        i64p]
     lib.spblas_route2_keys.restype = None
     lib.spblas_route2_keys.argtypes = [
         i64, i64p, i64p, ctypes.c_int32, ctypes.c_int32, i64,
@@ -112,6 +118,9 @@ def _declare(lib):
     lib.spblas_gather_tiles.restype = None
     lib.spblas_gather_tiles.argtypes = [i64, i32p, ctypes.c_void_p,
                                         ctypes.c_void_p]
+    lib.spblas_gather_tiles_fill.restype = None
+    lib.spblas_gather_tiles_fill.argtypes = [
+        i64, i32p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.spblas_expand_rowptr.restype = None
     lib.spblas_expand_rowptr.argtypes = [i64, i64, i64p, i64p]
 
@@ -172,6 +181,48 @@ def route2_pack(ne, ncells, cell_start, lrow, lcol, aux_windows_in=0,
                 int(aux_info[1]), aux_slot[:na], aux_lrow[:na],
                 aux_cell[:na], spill_idx, chunk_rho[:nch])
     raise RuntimeError("spblas_route2_pack: chunk buffer kept overflowing")
+
+
+def route_pack(ne, ncells, cell_start, lrow, lcol):
+    """Native ROUTE v1 chunk packing (``kernels/route_plan.py``'s hot
+    loop, the edge colouring included).
+
+    Returns (nchunks, elem_chunk, elem_gatpos, t1, t3, chunk_cell,
+    chunk_auxwin, aux_n, aux_slot, aux_lrow, aux_cell)."""
+    lib = get_lib()
+    cell_start = np.ascontiguousarray(cell_start, np.int64)
+    lrow = np.ascontiguousarray(lrow, np.int32)
+    lcol = np.ascontiguousarray(lcol, np.int32)
+    max_chunks = int(ne // 1024 + 4 * ncells + 16)
+    for _ in range(4):
+        elem_chunk = np.zeros(max(ne, 1), np.int32)
+        elem_gatpos = np.zeros(max(ne, 1), np.int32)
+        t1 = np.zeros(max_chunks * 1024, np.int32)
+        t3 = np.zeros(max_chunks * 1024, np.int32)
+        chunk_cell = np.zeros(max_chunks, np.int32)
+        chunk_auxwin = np.zeros(max_chunks, np.int32)
+        aux_n = np.zeros(1, np.int64)
+        aux_slot = np.zeros(max(ne, 1), np.int32)
+        aux_lrow = np.zeros(max(ne, 1), np.int32)
+        aux_cell = np.zeros(max(ne, 1), np.int32)
+        aux_cnt = np.zeros(1, np.int64)
+        rc = lib.spblas_route_pack(
+            ne, ncells, cell_start, lrow, lcol, max_chunks,
+            elem_chunk, elem_gatpos, t1, t3, chunk_cell, chunk_auxwin,
+            aux_n, aux_slot, aux_lrow, aux_cell, aux_cnt)
+        if rc == -1:
+            max_chunks *= 4
+            continue
+        if rc < 0:
+            raise RuntimeError(f"spblas_route_pack failed with code {rc}")
+        nch = int(rc)
+        na = int(aux_cnt[0])
+        return (nch, elem_chunk, elem_gatpos,
+                t1[: nch * 1024].reshape(nch, 8, 128),
+                t3[: nch * 1024].reshape(nch, 8, 128),
+                chunk_cell[:nch], chunk_auxwin[:nch], int(aux_n[0]),
+                aux_slot[:na], aux_lrow[:na], aux_cell[:na])
+    raise RuntimeError("spblas_route_pack: chunk buffer kept overflowing")
 
 
 def route2_keys(rows, cols, rw_bits, w_bits, ncellc, lvl=None,
@@ -257,6 +308,25 @@ def gather(idx, src):
         lib.spblas_gather_i64(n, idx, src, dst)
         return dst
     return None
+
+
+def gather_tiles_fill(idx, src, fill_tile):
+    """Pad-aware (8, 128) tile gather of 4-byte items: ``out[i] =
+    src[idx[i]]``, or ``fill_tile`` where ``idx[i] < 0``."""
+    lib = get_lib()
+    idx = np.ascontiguousarray(idx, np.int32)
+    src = np.ascontiguousarray(src)
+    if src.itemsize != 4 or src.shape[1:] != (8, 128):
+        raise ValueError(f"gather_tiles_fill takes (k, 8, 128) tiles of "
+                         f"4-byte items, got {src.dtype} {src.shape}")
+    fill_tile = np.ascontiguousarray(fill_tile, src.dtype)
+    n = len(idx)
+    dst = np.empty((n, 8, 128), src.dtype)
+    lib.spblas_gather_tiles_fill(
+        n, idx, src.ctypes.data_as(ctypes.c_void_p),
+        fill_tile.ctypes.data_as(ctypes.c_void_p),
+        dst.ctypes.data_as(ctypes.c_void_p))
+    return dst
 
 
 def expand_rowptr(m, nnz, rowptr):

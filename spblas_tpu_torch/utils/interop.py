@@ -13,7 +13,11 @@ from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.kernels.banded import BandPlan
 from spblas_tpu_torch.kernels.dia import DiaPlan
+from spblas_tpu_torch.kernels.plans import SortedRoutePlan
 from spblas_tpu_torch.kernels.route2 import SUBS, Route2Plan
+from spblas_tpu_torch.kernels.route_paned import (CB, PanedPanel,
+                                                  RoutePanedPlan)
+from spblas_tpu_torch.kernels.route_plan import RoutePlan
 
 
 def csr_from_numpy(values, rowptr, colind, nnz, shape,
@@ -90,3 +94,75 @@ def route2_plan_from_numpy(arrays: dict, static: dict,
         arrays["src_flag"], arrays["slab_base"], arrays["y_base"],
         int(static["g"]), int(static.get("row_window_mult", 1)))
     return Route2Plan(**put, **static, launch_starts=starts)
+
+
+def route_plan_from_numpy(arrays: dict, static: dict,
+                          device=None) -> RoutePlan:
+    """A RoutePlan over a JAX ``RoutePlan``'s arrays (as numpy, keyed by
+    field name: tile1, tile3, val, slab_base, y_base, val_src, hot_cols,
+    and aux_plan, the aux plan's own (arrays, static) pair or None) and
+    its static fields (g, shape, x_rows, y_rows, aux_len, n_pad, fill)."""
+    dev = _t.resolve_device(device)
+    arrays = dict(arrays)
+    aux = arrays.pop("aux_plan")
+    put = {k: _t.as_tensor(np.asarray(v), dev) for k, v in arrays.items()}
+    static = dict(static)
+    static["shape"] = (int(static["shape"][0]), int(static["shape"][1]))
+    return RoutePlan(
+        **put, **static,
+        aux_plan=None if aux is None else route_plan_from_numpy(
+            *aux, device=dev))
+
+
+def sorted_route_plan_from_numpy(base: tuple, unperm: tuple, entry_perm,
+                                 device=None) -> SortedRoutePlan:
+    """A SortedRoutePlan over a JAX one: ``base`` the (arrays, static)
+    pair of its ROUTE v1 plan, ``unperm`` that of its ROUTE2 un-permute
+    plan, ``entry_perm`` its entry permutation."""
+    dev = _t.resolve_device(device)
+    return SortedRoutePlan(
+        base=route_plan_from_numpy(*base, device=dev),
+        unperm=route2_plan_from_numpy(*unperm, device=dev),
+        entry_perm=_t.as_tensor(np.asarray(entry_perm), dev))
+
+
+def paned_chunk_panes(fl, eva, evb, evs) -> np.ndarray:
+    """The x pane each chunk of a carried paned panel reads: group k
+    (chunks [8k, 8k + 8)) reads buffer slot ``evs[k]``, which holds the
+    last pane started into it (``eva``/``evb`` = pane * 2 + slot) at or
+    before group k; aux and pad chunks get 0."""
+    in_slot = [0, 0]
+    group_pane = np.zeros(len(evs), np.int32)
+    for k, (a, b, s) in enumerate(zip(np.asarray(eva), np.asarray(evb),
+                                      np.asarray(evs))):
+        for ev in (a, b):
+            if ev >= 0:
+                in_slot[ev & 1] = ev >> 1
+        group_pane[k] = in_slot[s]
+    return np.where(np.asarray(fl) == 0, np.repeat(group_pane, CB),
+                    0).astype(np.int32)
+
+
+def route_paned_plan_from_numpy(panels: list, static: dict, device=None
+                                ) -> RoutePanedPlan:
+    """A RoutePanedPlan over a JAX one: ``panels`` one (arrays, static)
+    pair per panel (tile, val, sb, yb, fl, eva, evb, evw, evs, src_pos,
+    src_idx, rho; rows, out_rows, has_aux, dist_max, any_lane, rotated),
+    ``static`` the plan's (shape, g, pane_rows, x_rows_pad, fill,
+    row_window_mult).  The per-chunk pane comes from the event streams
+    (:func:`paned_chunk_panes`) and the launch starts conservatively from
+    :func:`route2_launch_starts`."""
+    dev = _t.resolve_device(device)
+    static = dict(static)
+    static["shape"] = (int(static["shape"][0]), int(static["shape"][1]))
+    out = []
+    for arrays, pstatic in panels:
+        a = {k: np.asarray(v) for k, v in arrays.items()}
+        a["pane"] = paned_chunk_panes(a["fl"], a["eva"], a["evb"], a["evs"])
+        starts = route2_launch_starts(a["fl"], a["sb"], a["yb"],
+                                      int(static["g"]),
+                                      int(static["row_window_mult"]))
+        out.append(PanedPanel(
+            **{k: _t.as_tensor(v, dev) for k, v in a.items()}, **pstatic,
+            launch_starts=tuple(sorted(set(starts)))))
+    return RoutePanedPlan(panels=tuple(out), **static)

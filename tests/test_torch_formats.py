@@ -217,7 +217,10 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
             importlib.import_module(mod.name)
             seen.add(mod.name)
         assert {"spblas_tpu_torch.native", "spblas_tpu_torch.kernels.route2",
-                "spblas_tpu_torch.kernels.route2_kernel"} <= seen, seen
+                "spblas_tpu_torch.kernels.route2_kernel",
+                "spblas_tpu_torch.kernels.route_plan",
+                "spblas_tpu_torch.kernels.route_spmv",
+                "spblas_tpu_torch.kernels.route_paned"} <= seen, seen
         from spblas_tpu_torch.kernels import plans
         from spblas_tpu_torch.utils import generate as gen
         a = gen.generate_banded_csr(500, 500, 9, seed=0, device="cpu")
@@ -232,6 +235,13 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                         gen.generate_vector(800, seed=3, device="cpu"))
         assert opt._plans["matvec"][0] == "route"
         assert y.shape == (800,) and bool(y.isfinite().all())
+        # a hub-heavy matrix takes the ROUTE v1 rung
+        a = gen.generate_rmat_csr(2048, 2048 * 16, seed=5, device="cpu")
+        opt = sp.matrix_opt(a)
+        y = sp.multiply(sp.scaled(2.0, opt),
+                        gen.generate_vector(2048, seed=4, device="cpu"))
+        assert opt._plans["matvec"][0] == "route1"
+        assert y.shape == (2048,) and bool(y.isfinite().all())
         assert "jax" not in sys.modules or sys.modules["jax"] is None
         print("ok")
     """)
@@ -255,7 +265,7 @@ def test_native_library_is_built_from_the_ports_sources():
     src = Path(REPO) / "spblas_tpu_torch" / "native" / "src"
     assert native.SRC == src
     h = hashlib.sha1(" ".join(native.GXX_FLAGS).encode())
-    for name in ("route2_pack.cpp", "sort_util.cpp"):
+    for name in ("route2_pack.cpp", "route_pack.cpp", "sort_util.cpp"):
         body = (src / name).read_bytes()
         assert body == (Path(REPO) / "spblas_tpu" / "native" / "src"
                         / name).read_bytes()

@@ -224,10 +224,9 @@ def _jax_csr(a):
 
 @pytest.mark.parametrize("case", ["uniform", "hub_heavy", "paned"])
 def test_try_route_kind_matches_jax(case, monkeypatch):
-    """Where JAX's _try_route picks "route" the port picks it too, with
-    the same plan; where JAX picks ROUTE v1 (hub-heavy rows) or paned
-    ROUTE2 (rows past the VMEM limit, made small here in both packages)
-    the port returns None and the ladder goes on to SELL."""
+    """The port's _try_route picks JAX's kind with JAX's plan: "route"
+    (ROUTE2) on a uniform matrix, ROUTE v1 on hub-heavy rows, and paned
+    ROUTE2 past the VMEM rows (made small here in both packages)."""
     if case == "hub_heavy":
         a = gen.generate_rmat_csr(4096, 4096 * 16, seed=5)
         a = sps.csr_matrix((np.array(a.values)[:a.nnz],
@@ -238,18 +237,27 @@ def test_try_route_kind_matches_jax(case, monkeypatch):
     if case == "paned":
         monkeypatch.setattr(jplans, "_ROUTE_VMEM_ROWS", 40)
         monkeypatch.setattr(tplans, "_ROUTE_VMEM_ROWS", 40)
-    jkind = jplans._try_route(_jax_csr(a))[0]
-    got = tplans._try_route(port_csr(_jax_csr(a)))
+    jkind, jplan = jplans._try_route(_jax_csr(a))
+    kind, plan = tplans._try_route(port_csr(_jax_csr(a)))
     want = {"uniform": "route", "hub_heavy": "route1",
             "paned": "route_paned"}[case]
-    assert jkind.startswith(want)
+    assert jkind.startswith(want) and kind == jkind
     if case == "uniform":
-        assert got[0] == "route"
-        assert np.array_equal(got[1].tile.numpy(),
-                              np.asarray(jplans._try_route(
-                                  _jax_csr(a))[1].tile))
+        pairs = [(jplan.tile, plan.tile)]
+    elif case == "paned":
+        pairs = [(jq.tile, tq.tile)
+                 for jq, tq in zip(jplan.panels, plan.panels)]
+    elif kind == "route1":
+        pairs = [(jplan.tile1, plan.tile1), (jplan.tile3, plan.tile3)]
     else:
-        assert got is None
+        pairs = [(jplan.base.tile1, plan.base.tile1),
+                 (jplan.unperm.tile, plan.unperm.tile)]
+    for want_t, got_t in pairs:
+        assert np.array_equal(got_t.numpy(), np.asarray(want_t))
+    x = _x(a)
+    assert_rows_close(tplans.plan_spmv((kind, plan), torch.from_numpy(x)),
+                      a.astype(np.float64) @ x.astype(np.float64),
+                      _ref_csr(a), x)
 
 
 @pytest.mark.parametrize("complex_", [False, True])

@@ -76,14 +76,17 @@ def test_chooser_kind_matches_jax_with_gates_forced(name, kind, monkeypatch):
 
 
 def test_cuda_ladder_skips_unported_rungs(monkeypatch):
-    """With the CUDA probe forced, a general matrix takes the ported
-    ROUTE2 rung ("route"), no matrix gets an unported kind (BSR, RCM
-    band, ROUTE v1, paned ROUTE2), and plan_spmv has no path for one."""
+    """With the CUDA probe forced (and JAX's TPU gate), every matrix
+    takes JAX's kind; only the BSR and RCM-band rungs stay skipped, no
+    matrix gets one of them, and plan_spmv has no path for one."""
     monkeypatch.setattr(tplans, "_on_cuda", lambda t: True)
-    kinds = {name: tplans.build_matvec_plan(port_csr(make()))[0]
-             for name, make in MATRICES.items()}
-    assert kinds["uniform"] == "route"
-    assert not set(kinds.values()) & set(tplans.UNPORTED_KINDS)
+    monkeypatch.setattr(jplans, "_on_tpu", lambda: True)
+    assert tplans.UNPORTED_KINDS == ("bsr", "band_perm")
+    for name, make in MATRICES.items():
+        a = make()
+        kind = tplans.build_matvec_plan(port_csr(a))[0]
+        assert kind not in tplans.UNPORTED_KINDS, name
+        assert kind == jplans.build_matvec_plan(a)[0], name
     for k in tplans.UNPORTED_KINDS:
         with pytest.raises(ValueError, match="unknown plan kind"):
             tplans.plan_spmv((k, None), torch.zeros(3))
@@ -97,17 +100,17 @@ GENERAL = {
     # the same f32 values held in float64 by the port
     "uniform_f64": (lambda: gen.generate_csr(1500, 1500, 12_000, seed=25),
                     "sell"),
-    # hub fraction above 0.15: JAX takes ROUTE v1, not ported yet
+    # hub fraction above 0.15: ROUTE v1
     "rmat": (lambda: gen.generate_rmat_csr(2048, 2048 * 16, seed=5),
-             "sell"),
+             "route1"),
 }
 
 
 @pytest.mark.parametrize("name", sorted(GENERAL))
 def test_cuda_ladder_general_kinds(name, monkeypatch):
-    """With the CUDA probe forced, the general rungs the port has: f32
-    takes route, complex64 route_cx, float64 and hub-heavy rows SELL;
-    each result matches JAX's base path."""
+    """With the CUDA probe forced, the general rungs: f32 takes route,
+    complex64 route_cx, hub-heavy rows route1, float64 SELL; each result
+    matches JAX's base path."""
     monkeypatch.setattr(tplans, "_on_cuda", lambda t: True)
     make, kind = GENERAL[name]
     a = make()
