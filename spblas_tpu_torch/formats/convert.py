@@ -1,14 +1,17 @@
 """Format conversions to CSR — counterpart of
-``spblas_tpu/formats/convert.py::to_csr`` for CSR, COO and CSC.
+``spblas_tpu/formats/convert.py::to_csr`` for CSR, COO, CSC and BSR.
 
-BSR and DCSR arrive with their slice (ROADMAP Queue 1 item 9).
+DCSR arrives with its own slice (ROADMAP Queue 1 item 9).
 """
 
 from __future__ import annotations
 
 import torch
 
+import numpy as np
+
 from spblas_tpu_torch import types as _t
+from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.formats.csc import CSC
 from spblas_tpu_torch.formats.coo import COO
@@ -21,6 +24,8 @@ def to_csr(a) -> CSR:
         return a.to_csr()
     if isinstance(a, CSC):
         return csc_to_csr(a)
+    if isinstance(a, BSR):
+        return bsr_to_csr(a)
     raise TypeError(f"cannot convert {type(a).__name__} to CSR")
 
 
@@ -42,3 +47,24 @@ def csc_to_csr(a: CSC) -> CSR:
                rowptr=rowptr,
                colind=torch.where(live, cols, 0).to(_t.index_dtype),
                nnz=a.nnz, shape=a.shape)
+
+
+def bsr_to_csr(a: BSR) -> CSR:
+    """Expand BSR blocks to scalar entries (host-side; zero entries
+    inside stored blocks are kept, like vendor BSR->CSR converters)."""
+    bh, bw = a.block_shape
+    m, n = a.shape
+    nnzb = a.nnz_blocks
+    vals = _t.to_numpy(a.values[:nnzb])
+    brow = _t.to_numpy(a.block_row_ids()[:nnzb])
+    bcol = _t.to_numpy(a.block_colind[:nnzb])
+    rows = (brow[:, None, None] * bh
+            + np.arange(bh)[None, :, None]).repeat(bw, axis=2)
+    cols = (bcol[:, None, None] * bw
+            + np.arange(bw)[None, None, :]).repeat(bh, axis=1)
+    rows, cols, v = rows.ravel(), cols.ravel(), vals.ravel()
+    order = np.lexsort((cols, rows))
+    rowptr = np.zeros(m + 1, dtype=np.int64)
+    np.add.at(rowptr[1:], rows, 1)
+    return CSR.from_arrays(v[order], np.cumsum(rowptr), cols[order],
+                           (m, n), nnz=len(v), device=a.device)

@@ -1,13 +1,24 @@
-"""Banded-panel SpMV — counterpart of ``spblas_tpu/kernels/banded.py``.
+"""Banded-panel SpMV and SpMM — counterpart of
+``spblas_tpu/kernels/banded.py``.
 
 128-row blocks of a band with half-width h touch only the columns
-[i*128 - h, i*128 + 127 + h], so each block is a dense (128, W) panel and
-SpMV becomes a stream of panel-row dot products with no index loads.
+[i*128 - h, i*128 + 127 + h], so each block is a dense (128, W) panel:
+SpMV becomes a stream of panel-row dot products with no index loads,
+SpMM one dense (128, W) x (W, k) product per block.
 
-On a CUDA tensor :func:`band_spmv_padded` launches the hand-written
-kernel ``csrc/band_spmv.cu`` (which replaces the TPU kernel
-``banded.py::_spmv_kernel``); on a CPU tensor it runs
-:func:`band_spmv_reference`, the plain PyTorch version of the same sum.
+On a CUDA tensor the wrappers launch hand-written kernels, and on a CPU
+tensor they run the plain PyTorch version of the same sum:
+
+  band_spmv_padded         csrc/band_spmv.cu   (replaces banded.py::
+                                                _spmv_kernel)
+  band_spmm_padded         csrc/band_spmm.cu   (replaces _spmm_kernel)
+  band_spmm_stream_padded  csrc/band_spmm.cu,  (replaces
+                           second entry point   _spmm_stream_kernel)
+
+:class:`PermutedBandPlan` is the RCM-reordered band of a general square
+matrix (kind ``band_perm``); its permutations are ``index_select`` by
+``perm`` and ``rank`` (the JAX package sorts by key, since the TPU has
+no fast gather; both are exact).
 """
 
 from __future__ import annotations
@@ -20,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spblas_tpu_torch import _build
+from spblas_tpu_torch import _build, native
 from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.formats.csr import CSR, host_arrays
 
@@ -92,22 +103,27 @@ def band_spmv_reference(panels: torch.Tensor,
     return prod.sum(dim=2).reshape(nblk * _R)
 
 
-def _check_operands(panels: torch.Tensor, xp: torch.Tensor) -> None:
+def _check_operands(panels: torch.Tensor, xp: torch.Tensor,
+                    ndim: int = 1) -> None:
+    """The checks of every panel kernel: ``xp`` is the padded x (1-D, for
+    SpMV) or the padded B (2-D, for SpMM)."""
+    name = "xp" if ndim == 1 else "bp"
     if panels.device != xp.device:
-        raise ValueError(f"panels on {panels.device}, xp on {xp.device}")
+        raise ValueError(f"panels on {panels.device}, {name} on {xp.device}")
     if panels.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"panels must be float32 or bfloat16, got "
                         f"{panels.dtype}")
     if xp.dtype != torch.float32:
-        raise TypeError(f"xp must be float32, got {xp.dtype}")
-    if panels.dim() != 2 or panels.shape[0] % _R or xp.dim() != 1:
+        raise TypeError(f"{name} must be float32, got {xp.dtype}")
+    if (panels.dim() != 2 or panels.shape[0] % _R
+            or xp.dim() != ndim):
         raise ValueError(f"bad shapes: panels {tuple(panels.shape)}, "
-                         f"xp {tuple(xp.shape)}")
+                         f"{name} {tuple(xp.shape)}")
     if xp.shape[0] < panels.shape[0] - _R + panels.shape[1]:
-        raise ValueError(f"xp length {xp.shape[0]} < "
+        raise ValueError(f"{name} rows {xp.shape[0]} < "
                          f"{panels.shape[0] - _R + panels.shape[1]}")
     if not (panels.is_contiguous() and xp.is_contiguous()):
-        raise ValueError("panels and xp must be contiguous")
+        raise ValueError(f"panels and {name} must be contiguous")
 
 
 # (panels, xp, y, rows, w, stream) of band_spmv_{f32,bf16}
@@ -154,3 +170,176 @@ def band_spmv(plan: BandPlan, x: torch.Tensor) -> torch.Tensor:
     y = band_spmv_padded(plan.panels, pad_x(plan, x))
     return y[: plan.shape[0]].to(
         torch.promote_types(plan.panels.dtype, x.dtype))
+
+
+def band_spmm_reference(panels: torch.Tensor,
+                        bp: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of both SpMM kernels over the same windows
+    as :func:`band_spmv_reference`: C[r] = panels[r] @ bp[(r // 128) *
+    128 : + W] per row block, each block product in float64
+    (:func:`types.wide_matmul`); returns (nblk * 128, k) f32."""
+    nblk = panels.shape[0] // _R
+    w = panels.shape[1]
+    windows = bp.float()[: (nblk - 1) * _R + w].unfold(0, w, _R)  # (nblk,k,w)
+    c = _t.wide_matmul(torch.bmm, panels.float().view(nblk, _R, w),
+                       windows.transpose(1, 2))
+    return c.reshape(nblk * _R, -1)
+
+
+# (panels, bp, c, rows, w, k, vec, stream) of band_spmm*_{f32,bf16}
+_SPMM_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                  ctypes.c_void_p)
+
+
+def _launch_spmm(entry: str, panels: torch.Tensor,
+                 bp: torch.Tensor) -> torch.Tensor:
+    rows, w = panels.shape
+    k = int(bp.shape[1])
+    c = torch.empty(rows, k, dtype=torch.float32, device=panels.device)
+    vec = int(k % 4 == 0 and bp.data_ptr() % 16 == 0
+              and c.data_ptr() % 16 == 0)
+    stream = torch.cuda.current_stream(panels.device).cuda_stream
+    symbol = entry + ("_bf16" if panels.dtype == torch.bfloat16 else "_f32")
+    _build.check(_build.function("band_spmm", symbol, _SPMM_ARGTYPES)(
+        panels.data_ptr(), bp.data_ptr(), c.data_ptr(), rows, w, k, vec,
+        stream), entry)
+    return c
+
+
+def band_spmm_padded(panels: torch.Tensor,
+                     bp: torch.Tensor) -> torch.Tensor:
+    """Core panel SpMM over pre-padded f32 B (rows >= nblk*128 + W - 128)
+    with B read from device memory; returns (nblk * 128, k) f32.  CUDA
+    tensors launch ``band_spmm.cu``'s resident entry point; CPU tensors
+    take :func:`band_spmm_reference`."""
+    _check_operands(panels, bp, ndim=2)
+    if not _t.on_cuda(panels):
+        return band_spmm_reference(panels, bp)
+    c = _launch_spmm("band_spmm", panels, bp)
+    band_spmm_padded.launches += 1
+    return c
+
+
+band_spmm_padded.launches = 0
+
+
+def band_spmm_stream_padded(panels: torch.Tensor,
+                            bp: torch.Tensor) -> torch.Tensor:
+    """The same product with each row block's B window streamed through
+    shared memory; CUDA tensors launch ``band_spmm.cu``'s stream entry
+    point, CPU tensors take :func:`band_spmm_reference`."""
+    _check_operands(panels, bp, ndim=2)
+    if not _t.on_cuda(panels):
+        return band_spmm_reference(panels, bp)
+    c = _launch_spmm("band_spmm_stream", panels, bp)
+    band_spmm_stream_padded.launches += 1
+    return c
+
+
+band_spmm_stream_padded.launches = 0
+
+
+def pad_b(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
+    """B as the SpMM kernels read it: f32, rows shifted down by pad_l,
+    then padded or trimmed to L = nblk*128 - 128 + W rows (the JAX padding
+    of ``band_spmm``).  At the bench's spmm_banded shape this is a copy of
+    B made every call."""
+    n = plan.shape[1]
+    L = plan.nblocks * _R - _R + plan.width
+    bp = F.pad(b.float(), (0, 0, plan.pad_l, max(0, L - plan.pad_l - n)))
+    return bp[:L].contiguous()
+
+
+def band_spmm(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B (dense (n, k) B) over the panel layout, B read from
+    device memory."""
+    c = band_spmm_padded(plan.panels, pad_b(plan, b))
+    return c[: plan.shape[0]].to(
+        torch.promote_types(plan.panels.dtype, b.dtype))
+
+
+def band_spmm_stream(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B with each row block's B window streamed through shared
+    memory."""
+    c = band_spmm_stream_padded(plan.panels, pad_b(plan, b))
+    return c[: plan.shape[0]].to(
+        torch.promote_types(plan.panels.dtype, b.dtype))
+
+
+@dataclasses.dataclass(frozen=True)
+class PermutedBandPlan:
+    """RCM-reordered band plan for a general square matrix: the native
+    RCM inspector (``native.rcm``) finds a low-bandwidth symmetric
+    ordering P, and P·A·Pᵀ becomes dense band panels.
+
+      perm: (mp,) int32, perm[i] = old position of new i, padded with
+            the identities m..mp-1
+      rank: (mp,) int32, its inverse (rank[j] = new position of old j)
+    """
+
+    band: BandPlan
+    perm: torch.Tensor
+    rank: torch.Tensor
+
+    @property
+    def shape(self):
+        return self.band.shape
+
+
+def build_permuted_band_plan(a: CSR, perm=None) -> PermutedBandPlan:
+    """Host inspect: permute the CSR by ``perm`` (RCM when None) and lay
+    the result out as band panels, on the matrix's device."""
+    m, n = a.shape
+    if m != n:
+        raise ValueError("permuted band plan requires a square matrix")
+    nnz = a.nnz
+    rows, colind, vals = host_arrays(a)
+    if perm is None:
+        perm, _ = native.rcm(m, nnz, _t.to_numpy(a.rowptr).astype(np.int64),
+                             colind)
+    perm = np.asarray(perm)
+    rank = np.empty(m, np.int64)
+    rank[perm] = np.arange(m)
+    new_rows = rank[rows]
+    new_cols = rank[colind]
+    order = np.lexsort((new_cols, new_rows))
+    p_rowptr = np.zeros(m + 1, np.int64)
+    np.add.at(p_rowptr[1:], new_rows, 1)
+    pa = CSR.from_arrays(vals[order], np.cumsum(p_rowptr), new_cols[order],
+                         (m, m), nnz=nnz, device=a.device)
+    band = build_band_plan(pa)
+    mp = band.nblocks * _R
+    perm_p = np.concatenate([perm, np.arange(m, mp)]).astype(np.int32)
+    rank_p = np.concatenate([rank, np.arange(m, mp)]).astype(np.int32)
+    return PermutedBandPlan(band=band,
+                            perm=torch.from_numpy(perm_p).to(a.device),
+                            rank=torch.from_numpy(rank_p).to(a.device))
+
+
+def _pad_rows(t: torch.Tensor, rows: int) -> torch.Tensor:
+    pad = (0, 0) * (t.dim() - 1) + (0, rows - t.shape[0])
+    return F.pad(t, pad)
+
+
+def _permuted_apply(fn, plan: PermutedBandPlan,
+                    x: torch.Tensor) -> torch.Tensor:
+    """A = P^T (P A P^T) P: gather the rows of x (or B) by perm, apply
+    ``fn`` over the band, gather the rows of the result by rank."""
+    m, n = plan.shape
+    mp = plan.perm.shape[0]
+    x_p = _pad_rows(x, mp).index_select(0, plan.perm)[:n]
+    return _pad_rows(fn(plan.band, x_p), mp).index_select(0, plan.rank)[:m]
+
+
+def permuted_band_spmv(plan: PermutedBandPlan, x: torch.Tensor
+                       ) -> torch.Tensor:
+    """y = A @ x over the permuted band."""
+    return _permuted_apply(band_spmv, plan, x)
+
+
+def permuted_band_spmm(plan: PermutedBandPlan, b: torch.Tensor
+                       ) -> torch.Tensor:
+    """C = A @ B over the permuted band, with the resident band SpMM (as
+    JAX's ``plan_spmm`` does for ``band_perm``)."""
+    return _permuted_apply(band_spmm, plan, b)

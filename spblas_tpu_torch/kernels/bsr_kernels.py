@@ -1,0 +1,207 @@
+"""BSR SpMV and SpMM — counterpart of ``spblas_tpu/kernels/bsr_pallas.py``.
+
+Each stored block is a dense (bh, bw) tile, so block-sparse products
+need no index traffic inside a block.  On a CUDA tensor
+:func:`bsr_spmv_blocks` and :func:`bsr_spmm_blocks` launch the
+hand-written kernels ``csrc/bsr_spmv.cu`` and ``csrc/bsr_spmm.cu``
+(which replace the TPU kernels ``bsr_pallas.py::_bsr_spmv_kernel`` and
+``_bsr_spmm_kernel``); on a CPU tensor they run
+:func:`bsr_spmv_reference` and :func:`bsr_spmm_reference`, the plain
+PyTorch versions of the same sums.
+
+The kernels take float32 or float64 blocks; :func:`bsr_spmv` and
+:func:`bsr_spmm` compute in ``result_type(A, x)`` as the JAX functions
+do, a complex product as real planes (four launches when both operands
+are complex, as ``band_cx_spmv`` does).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from spblas_tpu_torch import _build
+from spblas_tpu_torch import types as _t
+from spblas_tpu_torch.formats.bsr import BSR
+
+_KERNEL_DTYPES = (torch.float32, torch.float64)
+# entries of a block's B slice gathered at once by the plain SpMM (keeps
+# its (entries, bw, k) intermediate near 1 GB at the main path's widths)
+_REF_GATHER_ELEMS = 1 << 28
+
+
+def _block_rows(rowptr: torch.Tensor, capacity: int) -> torch.Tensor:
+    """Block row of each block slot; padded slots map to mb."""
+    e = torch.arange(capacity, dtype=rowptr.dtype, device=rowptr.device)
+    return torch.searchsorted(rowptr[1:], e, right=True)
+
+
+def bsr_spmv_reference(values, block_rowptr, block_colind,
+                       x) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: y[i*bh + r] = sum over the
+    blocks e of block row i of values[e, r, :] . x[colind[e]*bw:+bw], in
+    the blocks' dtype; returns (mb * bh,)."""
+    cap, bh, bw = values.shape
+    mb = block_rowptr.shape[0] - 1
+    xs = x[: (int(x.shape[0]) // bw) * bw].view(-1, bw).index_select(
+        0, block_colind.long())
+    part = (values * xs[:, None, :]).sum(dim=2)         # (cap, bh)
+    out = torch.zeros(mb + 1, bh, dtype=values.dtype, device=values.device)
+    out.index_add_(0, _block_rows(block_rowptr, cap), part)
+    return out[:mb].reshape(mb * bh)
+
+
+def bsr_spmm_reference(values, block_rowptr, block_colind,
+                       b) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: C block row i = sum over its
+    blocks e of values[e] @ B[colind[e]*bw:+bw, :] (each block product
+    in float64, :func:`types.wide_matmul`), in the blocks' dtype; returns
+    (mb * bh, k)."""
+    cap, bh, bw = values.shape
+    mb = block_rowptr.shape[0] - 1
+    k = int(b.shape[1])
+    bsl = b[: (int(b.shape[0]) // bw) * bw].reshape(-1, bw, k)
+    rows = _block_rows(block_rowptr, cap)
+    out = torch.zeros(mb + 1, bh, k, dtype=values.dtype,
+                      device=values.device)
+    step = max(1, _REF_GATHER_ELEMS // max(bw * k, 1))
+    for s in range(0, cap, step):
+        part = _t.wide_matmul(torch.bmm, values[s:s + step],
+                              bsl.index_select(
+                                  0, block_colind[s:s + step].long()))
+        out.index_add_(0, rows[s:s + step], part)
+    return out[:mb].reshape(mb * bh, k)
+
+
+def _check_operands(values, block_rowptr, block_colind, x, ndim) -> None:
+    if not (values.device == block_rowptr.device == block_colind.device
+            == x.device):
+        raise ValueError("values, block_rowptr, block_colind and the dense "
+                         "operand must share a device")
+    if values.dtype not in _KERNEL_DTYPES or x.dtype != values.dtype:
+        raise TypeError(f"values and the dense operand must be one of "
+                        f"float32/float64, got {values.dtype} and {x.dtype}")
+    if block_rowptr.dtype != torch.int32 or block_colind.dtype != torch.int32:
+        raise TypeError("block_rowptr and block_colind must be int32")
+    if values.dim() != 3 or x.dim() != ndim or block_rowptr.dim() != 1 \
+            or block_colind.shape != values.shape[:1]:
+        raise ValueError(f"bad shapes: values {tuple(values.shape)}, "
+                         f"block_colind {tuple(block_colind.shape)}, "
+                         f"operand {tuple(x.shape)}")
+    if not (values.is_contiguous() and x.is_contiguous()
+            and block_rowptr.is_contiguous()
+            and block_colind.is_contiguous()):
+        raise ValueError("BSR arrays and the dense operand must be "
+                         "contiguous")
+
+
+def _aligned(*ts) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in ts)
+
+
+# (values, rowptr, colind, x, y, mb, bh, bw, stream) of bsr_spmv_{f32,f64}
+_SPMV_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
+# (values, rowptr, colind, b, c, mb, bh, bw, k, vec, stream) of
+# bsr_spmm_{f32,f64}
+_SPMM_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
+    ctypes.c_void_p,)
+
+
+def _suffix(dtype) -> str:
+    return "f64" if dtype == torch.float64 else "f32"
+
+
+def bsr_spmv_blocks(values, block_rowptr, block_colind,
+                    x) -> torch.Tensor:
+    """y = A @ x over raw BSR arrays of one real dtype (x holds at least
+    every block column's slice); returns (mb * bh,).  CUDA tensors launch
+    ``bsr_spmv.cu``; CPU tensors take :func:`bsr_spmv_reference`."""
+    _check_operands(values, block_rowptr, block_colind, x, 1)
+    if not _t.on_cuda(values):
+        return bsr_spmv_reference(values, block_rowptr, block_colind, x)
+    _, bh, bw = values.shape
+    mb = int(block_rowptr.shape[0]) - 1
+    y = torch.empty(mb * bh, dtype=values.dtype, device=values.device)
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    sym = f"bsr_spmv_{_suffix(values.dtype)}"
+    _build.check(_build.function("bsr_spmv", sym, _SPMV_ARGTYPES)(
+        values.data_ptr(), block_rowptr.data_ptr(), block_colind.data_ptr(),
+        x.data_ptr(), y.data_ptr(), mb, bh, bw, stream), "bsr_spmv")
+    bsr_spmv_blocks.launches += 1
+    return y
+
+
+bsr_spmv_blocks.launches = 0
+
+
+def bsr_spmm_blocks(values, block_rowptr, block_colind,
+                    b) -> torch.Tensor:
+    """C = A @ B over raw BSR arrays of one real dtype and a row-major B;
+    returns (mb * bh, k).  CUDA tensors launch ``bsr_spmm.cu``; CPU
+    tensors take :func:`bsr_spmm_reference`."""
+    _check_operands(values, block_rowptr, block_colind, b, 2)
+    if not _t.on_cuda(values):
+        return bsr_spmm_reference(values, block_rowptr, block_colind, b)
+    _, bh, bw = values.shape
+    mb = int(block_rowptr.shape[0]) - 1
+    k = int(b.shape[1])
+    c = torch.empty(mb * bh, k, dtype=values.dtype, device=values.device)
+    vec = int(values.dtype == torch.float32 and k % 4 == 0
+              and _aligned(b, c))
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    sym = f"bsr_spmm_{_suffix(values.dtype)}"
+    _build.check(_build.function("bsr_spmm", sym, _SPMM_ARGTYPES)(
+        values.data_ptr(), block_rowptr.data_ptr(), block_colind.data_ptr(),
+        b.data_ptr(), c.data_ptr(), mb, bh, bw, k, vec, stream), "bsr_spmm")
+    bsr_spmm_blocks.launches += 1
+    return c
+
+
+bsr_spmm_blocks.launches = 0
+
+
+def _apply(fn, a: BSR, x: torch.Tensor) -> torch.Tensor:
+    """fn over a's arrays and x in result_type(A, x): one call for real
+    operands, real planes (up to four calls) for complex ones."""
+    out_dtype = torch.promote_types(a.dtype, x.dtype)
+    rp, ci = a.block_rowptr, a.block_colind
+    if not out_dtype.is_complex:
+        dt = out_dtype if out_dtype in _KERNEL_DTYPES else torch.float32
+        y = fn(a.values.to(dt).contiguous(), rp, ci, x.to(dt).contiguous())
+        return y.to(out_dtype)
+    real = torch.float64 if out_dtype == torch.complex128 else torch.float32
+
+    def planes(t):
+        if not t.is_complex():
+            return t.to(real).contiguous(), None
+        t = t.resolve_conj()
+        return t.real.to(real).contiguous(), t.imag.to(real).contiguous()
+
+    ar, ai = planes(a.values)
+    xr, xi = planes(x)
+    yr = fn(ar, rp, ci, xr)
+    yi = fn(ar, rp, ci, xi) if xi is not None else torch.zeros_like(yr)
+    if ai is not None:
+        yi = yi + fn(ai, rp, ci, xr)
+        if xi is not None:
+            yr = yr - fn(ai, rp, ci, xi)
+    return torch.complex(yr, yi).to(out_dtype)
+
+
+def bsr_spmv(a: BSR, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x with BSR A; returns (m,) in result_type(A, x)."""
+    m, n = a.shape
+    if x.dim() != 1 or x.shape[0] != n:
+        raise ValueError(f"bsr_spmv: A is {a.shape}, x is {tuple(x.shape)}")
+    return _apply(bsr_spmv_blocks, a, x)
+
+
+def bsr_spmm(a: BSR, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B with BSR A and dense (n, k) B; returns (m, k) in
+    result_type(A, B)."""
+    m, n = a.shape
+    if b.dim() != 2 or b.shape[0] != n:
+        raise ValueError(f"bsr_spmm: A is {a.shape}, B is {tuple(b.shape)}")
+    return _apply(bsr_spmm_blocks, a, b)

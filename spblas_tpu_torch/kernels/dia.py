@@ -115,6 +115,22 @@ def dia_spmv(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def dia_spmm(plan: DiaPlan, b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B over the diagonals, as torch ops (the JAX ``dia_spmm`` is
+    XLA code, with no TPU kernel): C += diags[k][:, None] * B shifted by
+    offsets[k], for every diagonal."""
+    m, n = plan.shape
+    pad_lo = max(-min(plan.offsets, default=0), 0)
+    pad_hi = max(max(plan.offsets, default=0) + m - n, 0)
+    bp = F.pad(b, (0, 0, pad_lo, pad_hi))
+    d = plan.diags_flat()
+    c = torch.zeros(m, b.shape[1], dtype=torch.promote_types(d.dtype, b.dtype),
+                    device=b.device)
+    for k, off in enumerate(plan.offsets):
+        c = c + d[k][:, None] * bp[pad_lo + off: pad_lo + off + m]
+    return c
+
+
 def _dia_rb(ndiag: int) -> int:
     """The TPU kernel's block height; it sets the x padding below, which
     the port keeps so both packages pad x alike."""

@@ -1,41 +1,61 @@
-"""Plan selection behind ``matrix_opt`` — the matvec half of
-``spblas_tpu/kernels/plans.py``.
+"""Plan selection behind ``matrix_opt`` — counterpart of
+``spblas_tpu/kernels/plans.py`` (matvec and matmul).
 
 The JAX ladder gates its Pallas rungs on the TPU; here they are gated on
-the matrix living on a CUDA device:
+the matrix living on a CUDA device.  The matvec ladder, in order:
 
-  banded, on CUDA      -> band-panel plan (csrc/band_spmv.cu)
-  stencil/mesh         -> DIA plan (csrc/dia_spmv.cu behind its gate)
-  banded, complex64    -> two real band plans (band_cx)
-  general, on CUDA     -> ROUTE2 plan (csrc/route2_spmv.cu), kind route;
-                          hub-heavy rows: ROUTE v1 (csrc/route_spmv.cu),
-                          kind route1, or degree-sorted v1 plus a ROUTE2
-                          un-permute, kind route1_sorted; x and y past
-                          the TPU's VMEM: paned ROUTE2
-                          (csrc/route_paned_spmv.cu), kind route_paned
-  general, complex64   -> two real plans of the kind above (route_cx)
-  general              -> SELL (torch ops)
+  banded (fill >= 0.15)  -> band-panel plan (csrc/band_spmv.cu)
+  block-dense            -> BSR plan, 8x128 blocks (csrc/bsr_spmv.cu)
+  banded, narrow         -> band-panel plan
+  stencil/mesh           -> DIA plan (csrc/dia_spmv.cu behind its gate)
+  square, RCM-bandable   -> permuted band plan (band_perm: native RCM,
+                            index_select permutations, band_spmv.cu)
+  banded, complex64      -> two real band plans (band_cx)
+  general, on CUDA       -> ROUTE2 plan (csrc/route2_spmv.cu), kind route;
+                            hub-heavy rows: ROUTE v1 (csrc/route_spmv.cu),
+                            kind route1, or degree-sorted v1 plus a ROUTE2
+                            un-permute, kind route1_sorted; x and y past
+                            the TPU's VMEM: paned ROUTE2
+                            (csrc/route_paned_spmv.cu), kind route_paned
+  general, complex64     -> two real plans of the kind above (route_cx)
+  general                -> SELL (torch ops)
+
+The matmul ladder (:func:`build_matmul_plan`) shares the structured
+rungs (``STRUCTURED_KINDS``; the plan cache aliases them across the
+``matvec`` and ``matmul`` keys) and sends general sparsity to SELL.
+:func:`plan_spmm` runs the band SpMM kernels (``csrc/band_spmm.cu``,
+resident or streamed B by the JAX 6 MB switch), the BSR SpMM kernel
+(``csrc/bsr_spmm.cu``) and the DIA and SELL products as torch ops.
 
 Thresholds and envelopes are the JAX package's (``plans.py:46-64``,
 ``:250-426``), kept for parity; re-deriving them for the H100 is ROADMAP
-Queue 1 item 18.  The rungs whose kernels are not ported yet are skipped
-by name (``UNPORTED_KINDS``) on CUDA.
+Queue 1 item 18.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import warnings
 from typing import Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
+from spblas_tpu_torch import native
+from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.convert import to_csr
-from spblas_tpu_torch.kernels.banded import (band_halfwidth, band_spmv,
-                                             build_band_plan)
+from spblas_tpu_torch.formats.csr import CSR, host_arrays
+from spblas_tpu_torch.kernels.banded import (band_halfwidth, band_spmm,
+                                             band_spmm_stream, band_spmv,
+                                             build_band_plan,
+                                             build_permuted_band_plan,
+                                             permuted_band_spmm,
+                                             permuted_band_spmv)
+from spblas_tpu_torch.kernels.bsr_kernels import bsr_spmm, bsr_spmv
 from spblas_tpu_torch.kernels.dia import (build_dia_plan, dia_fill_fraction,
-                                          dia_spmv)
+                                          dia_spmm, dia_spmv)
 from spblas_tpu_torch.kernels.route2 import Route2Plan, build_route2_plan
 from spblas_tpu_torch.kernels.route2_kernel import route2_spmv
 from spblas_tpu_torch.kernels.route_paned import (build_route_paned_plan,
@@ -43,22 +63,33 @@ from spblas_tpu_torch.kernels.route_paned import (build_route_paned_plan,
                                                   route_paned_spmv)
 from spblas_tpu_torch.kernels.route_plan import RoutePlan, build_route_plan
 from spblas_tpu_torch.kernels.route_spmv import route_spmv
-from spblas_tpu_torch.kernels.sell import build_sell_plan, sell_spmv
+from spblas_tpu_torch.kernels.sell import (build_sell_plan, sell_spmm,
+                                           sell_spmv)
 from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.types import on_cuda as _on_cuda
 
 # DIA wins when its dense-diagonal storage is mostly true nonzeros
 _DIA_FILL_THRESHOLD = 0.34
-# an already-banded but narrow matrix keeps the panel plan down to here
+# band panels are kept while they are at least this full ...
+_BAND_FILL_THRESHOLD = 0.15
+# ... and, after the BSR rung, an already-banded narrow matrix down to here
 _BAND_NARROW_FILL = 0.02
+# BSR pays bh*bw slots per stored block: taken when blocks are this full
+_BSR_FILL_THRESHOLD = 0.25
+_BSR_BLOCK = (8, 128)
+# the RCM-permuted band is kept only when this full
+_BAND_PERM_FILL_THRESHOLD = 0.05
+# plan_spmm streams B (band_spmm_stream) once the resident padded B
+# passes this many bytes: the TPU's VMEM budget, kept for parity
+_BAND_RESIDENT_B_BYTES = 6 * 1024 * 1024
 
-# Rungs of the JAX ladder whose kernels the port does not have yet.  The
-# CUDA ladder skips them by name; each has a ROADMAP Queue 3 entry.
-UNPORTED_KINDS = ("bsr", "band_perm")
-
-# plan kinds usable by both spmv and spmm (aliased in the plan cache once
-# plan_spmm lands)
+# plan kinds usable by both spmv and spmm: the plan cache aliases them
+# across the "matvec" and "matmul" keys, so structured inspection (RCM,
+# band and BSR packing) runs once per matrix
 STRUCTURED_KINDS = ("band", "band_perm", "band_cx", "bsr", "dia")
+# matvec plans that plan_spmm replays one column at a time
+_ROUTE_KINDS = ("route", "route1", "route1_sorted", "route_paned",
+                "route_cx")
 
 # plan kinds that preserve the operand dtype (torch formulations); the
 # *_cx kinds are complex-aware but compute in two f32 planes
@@ -98,14 +129,24 @@ def _build_band_cx(a):
     return (build_band_plan(ar), build_band_plan(ai))
 
 
-def band_cx_spmv(plans, x):
-    """(a+ib)(x+iy) = (ax-by) + i(ay+bx): four real panel SpMVs."""
+def _cx_apply(fn, plans, x):
+    """(a+ib)(x+iy) = (ax-by) + i(ay+bx): four real applies of ``fn``."""
     pr, pi = plans
     xr = x.real.float()
     xi = x.imag.float() if x.is_complex() else torch.zeros_like(xr)
-    yr = band_spmv(pr, xr) - band_spmv(pi, xi)
-    yi = band_spmv(pr, xi) + band_spmv(pi, xr)
+    yr = fn(pr, xr) - fn(pi, xi)
+    yi = fn(pr, xi) + fn(pi, xr)
     return torch.complex(yr, yi)
+
+
+def band_cx_spmv(plans, x):
+    """Complex band SpMV: four real panel SpMVs."""
+    return _cx_apply(band_spmv, plans, x)
+
+
+def band_cx_spmm(plans, b):
+    """Complex band SpMM: four real resident panel SpMMs."""
+    return _cx_apply(band_spmm, plans, b)
 
 
 def _dia_or_none(a):
@@ -114,9 +155,46 @@ def _dia_or_none(a):
     return None
 
 
+def _try_bsr(a):
+    """A BSR plan (8x128 blocks) when the stored blocks are at least
+    ``_BSR_FILL_THRESHOLD`` full, else None.  The shape is padded to
+    block multiples as metadata only: padded rows and columns are
+    structurally empty.  Returns (bsr, (m, n))."""
+    bh, bw = _BSR_BLOCK
+    m, n = a.shape
+    nnz = a.nnz
+    if nnz == 0:
+        return None
+    rows, cols, _ = host_arrays(a)
+    nb = -(-n // bw)
+    nnzb = len(np.unique((rows // bh) * nb + cols.astype(np.int64) // bw))
+    if nnz / float(nnzb * bh * bw) < _BSR_FILL_THRESHOLD:
+        return None
+    m_pad = -(-m // bh) * bh
+    n_pad = nb * bw
+    if (m_pad, n_pad) != (m, n):
+        pad_rp = torch.cat([a.rowptr, a.rowptr[-1:].expand(m_pad - m)])
+        a = CSR(values=a.values, rowptr=pad_rp, colind=a.colind, nnz=nnz,
+                shape=(m_pad, n_pad))
+    return (BSR.from_csr(a, _BSR_BLOCK), (m, n))
+
+
+def _try_band_perm(a):
+    """The RCM rung for a square matrix: a permuted band plan when the
+    reordered band is at least ``_BAND_PERM_FILL_THRESHOLD`` full, else
+    None."""
+    m = a.shape[0]
+    perm, h2 = native.rcm(m, a.nnz,
+                          _t.to_numpy(a.rowptr).astype(np.int64),
+                          _t.to_numpy(a.colind))
+    if _band_fill(a, h2) >= _BAND_PERM_FILL_THRESHOLD:
+        return ("band_perm", build_permuted_band_plan(a, perm=perm))
+    return None
+
+
 def _structured_plan(a, m, n, h):
-    """The structured-plan ladder; returns (kind, plan) or None when only
-    general-sparsity plans apply."""
+    """The structured-plan ladder (band, BSR, DIA, RCM band); returns
+    (kind, plan) or None when only general-sparsity plans apply."""
     if a.dtype.is_complex:
         if (_on_cuda(a.values) and a.dtype == torch.complex64
                 and _band_fill(a, h) >= _BAND_NARROW_FILL):
@@ -127,12 +205,21 @@ def _structured_plan(a, m, n, h):
         # dtype-preserving DIA/SELL paths
         return _dia_or_none(a)
     if _on_cuda(a.values):
-        # the JAX ladder tries "bsr" (UNPORTED_KINDS) between its two band
-        # rungs, at fills below 0.15; without it both band rungs are one
-        if _band_fill(a, h) >= _BAND_NARROW_FILL:
+        if _band_fill(a, h) >= _BAND_FILL_THRESHOLD:
             return ("band", build_band_plan(a))
-        # after DIA, the "band_perm" (RCM) rung would stand here
-        # (UNPORTED_KINDS)
+        bsr = _try_bsr(a)
+        if bsr is not None:
+            return ("bsr", bsr)
+        if _band_fill(a, h) >= _BAND_NARROW_FILL:
+            # already banded, just narrow: the panel kernel beats every
+            # gather path, and RCM would buy nothing
+            return ("band", build_band_plan(a))
+        dia = _dia_or_none(a)
+        if dia is not None or m != n:
+            return dia
+        # general square sparsity: keep an RCM reordering only when it
+        # makes the matrix genuinely banded
+        return _try_band_perm(a)
     return _dia_or_none(a)
 
 
@@ -294,6 +381,18 @@ def build_matvec_plan(a) -> Tuple[str, object]:
     return ("sell", build_sell_plan(a))
 
 
+def build_matmul_plan(a) -> Tuple[str, object]:
+    """SpMM plan: the structured rungs of :func:`build_matvec_plan`, and
+    SELL for general sparsity (a ROUTE plan would replay the whole SpMV
+    per column of B)."""
+    a = to_csr(a)
+    m, n = a.shape
+    structured = _structured_plan(a, m, n, band_halfwidth(a))
+    if structured is not None:
+        return structured
+    return ("sell", build_sell_plan(a))
+
+
 def plan_dtype_safe(plan: Tuple[str, object], x_dtype) -> bool:
     """True when running ``plan`` on an operand of ``x_dtype`` keeps the
     numerics intact: the f32 band kernel would drop the imaginary part of
@@ -306,10 +405,19 @@ def plan_dtype_safe(plan: Tuple[str, object], x_dtype) -> bool:
     return not (x_dtype.is_complex or x_dtype == torch.float64)
 
 
-def optimized_plan(opt, x_dtype):
-    """The cached matvec plan to run, or None when the op must take its
-    base path."""
-    plan = opt.get_plan("matvec", build_matvec_plan)
+def optimized_plan(opt, op_key: str, x_dtype):
+    """The cached plan for ``op_key`` ("matvec" or "matmul") to run, or
+    None when the op must take its base path.  A structured plan built
+    for the sibling op serves this one too, so RCM, band and BSR
+    inspection runs once per matrix."""
+    alias = "matmul" if op_key == "matvec" else "matvec"
+    builder = build_matvec_plan if op_key == "matvec" \
+        else build_matmul_plan
+    cached = opt._plans.get(alias)
+    if cached is not None and cached[0] in STRUCTURED_KINDS:
+        plan = cached
+    else:
+        plan = opt.get_plan(op_key, builder)
     return plan if plan_dtype_safe(plan, x_dtype) else None
 
 
@@ -324,6 +432,11 @@ def plan_spmv(plan: Tuple[str, object], x: torch.Tensor) -> torch.Tensor:
     kind, p = plan
     if kind == "band":
         return band_spmv(p, x)
+    if kind == "band_perm":
+        return permuted_band_spmv(p, x)
+    if kind == "bsr":
+        bsr, (m, n) = p
+        return bsr_spmv(bsr, F.pad(x, (0, bsr.shape[1] - n)))[:m]
     if kind == "dia":
         return dia_spmv(p, x)
     if kind == "sell":
@@ -340,4 +453,39 @@ def plan_spmv(plan: Tuple[str, object], x: torch.Tensor) -> torch.Tensor:
         return route_paned_spmv(p, x)
     if kind == "route_cx":
         return route_cx_spmv(p, x)
+    raise ValueError(f"unknown plan kind {kind!r}")
+
+
+def plan_spmm(plan: Tuple[str, object], b: torch.Tensor) -> torch.Tensor:
+    """C = A @ B over a cached plan; B is dense (n, k)."""
+    kind, p = plan
+    if kind == "band":
+        # the resident B of the TPU kernel had to fit its VMEM; past
+        # 6 MB the JAX ladder streams it, and so does this one
+        resident = (p.nblocks * 128 + p.width) * b.shape[1] * 4
+        if resident > _BAND_RESIDENT_B_BYTES:
+            return band_spmm_stream(p, b)
+        return band_spmm(p, b)
+    if kind == "band_perm":
+        return permuted_band_spmm(p, b)
+    if kind == "bsr":
+        bsr, (m, n) = p
+        return bsr_spmm(bsr, F.pad(b, (0, 0, 0, bsr.shape[1] - n)))[:m]
+    if kind == "band_cx":
+        return band_cx_spmm(p, b)
+    if kind == "sell":
+        return sell_spmm(p, b)
+    if kind == "dia":
+        return dia_spmm(p, b)
+    if kind in _ROUTE_KINDS:
+        # a matvec ROUTE plan fed to SpMM replays the whole SpMV per
+        # column of B; reachable only when a caller bypasses
+        # build_matmul_plan, whose general rung is SELL
+        warnings.warn(
+            f"plan_spmm got a '{kind}' (matvec) plan: replaying the SpMV "
+            f"kernel per column, ~{b.shape[1]}x the SpMM cost. Build an "
+            "SpMM plan with build_matmul_plan (SELL) instead.",
+            UserWarning, stacklevel=2)
+        return torch.stack([plan_spmv(plan, b[:, j].contiguous())
+                            for j in range(b.shape[1])], dim=1)
     raise ValueError(f"unknown plan kind {kind!r}")

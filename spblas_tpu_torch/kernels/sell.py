@@ -3,7 +3,8 @@
 Rows are bucketed by degree on a fine width ladder; each bucket is a
 dense (mb, Wb) block of values and columns.  SpMV is a gather, multiply
 and row sum per bucket, un-permuted with one row gather; rows with no
-entries read an appended zero.  This is the general-sparsity rung of the
+entries read an appended zero.  SpMM gathers whole rows of B the same
+way (:func:`bucket_matmul`).  This is the general-sparsity rung of the
 port (the JAX package's own off-TPU rung) and runs as torch ops: it has
 no hand-written kernel.
 """
@@ -21,6 +22,9 @@ from spblas_tpu_torch.formats.csr import CSR
 
 _WIDTH_LADDER = (1, 2, 3, 4, 5, 6, 8, 10, 12, 14, 16, 20, 24, 28, 32,
                  40, 48, 56, 64)
+# buckets up to this width take W accumulated row gathers in SpMM; wider
+# (hub) buckets one 3-D gather and an einsum
+_UNROLL_MAX = 64
 
 
 def _bucket_width(deg: int) -> int:
@@ -99,3 +103,33 @@ def sell_spmv(plan: SellPlan, x: torch.Tensor) -> torch.Tensor:
              for b in plan.buckets]
     parts.append(torch.zeros(1, dtype=dt, device=x.device))
     return torch.cat(parts)[plan.pos]
+
+
+def bucket_matmul(values: torch.Tensor, cols: torch.Tensor,
+                  mat: torch.Tensor) -> torch.Tensor:
+    """(mb, W) padded rows times dense mat -> (mb, k): W accumulated row
+    gathers for moderate widths, one 3-D gather and an einsum for wide
+    hub buckets (few rows there).  The einsum runs in float64
+    (:func:`types.wide_matmul`), so no TF32 setting reaches it."""
+    if values.shape[1] <= _UNROLL_MAX:
+        acc = torch.zeros(values.shape[0], mat.shape[1],
+                          dtype=torch.promote_types(values.dtype, mat.dtype),
+                          device=mat.device)
+        for w in range(values.shape[1]):
+            acc = acc + values[:, w, None] * mat.index_select(
+                0, cols[:, w])
+        return acc
+    bg = mat[cols.long()]
+    return _t.wide_matmul(lambda v, g: torch.einsum("mw,mwk->mk", v, g),
+                          values, bg)
+
+
+def sell_spmm(plan: SellPlan, mat: torch.Tensor) -> torch.Tensor:
+    """C = A @ B over the bucketed layout."""
+    k = mat.shape[1]
+    vdt = plan.buckets[0].values.dtype if plan.buckets else torch.float32
+    dt = torch.promote_types(vdt, mat.dtype)
+    parts = [bucket_matmul(b.values, b.cols, mat).to(dt)
+             for b in plan.buckets]
+    parts.append(torch.zeros(1, k, dtype=dt, device=mat.device))
+    return torch.cat(parts).index_select(0, plan.pos)

@@ -1,8 +1,8 @@
 """The port's own copy of the C++ host inspectors the ROUTE builders call.
 
-``src/route2_pack.cpp``, ``src/route_pack.cpp`` and ``src/sort_util.cpp``
-are byte-for-byte copies of the JAX package's sources (plain C++, no
-framework code).  One
+``src/route2_pack.cpp``, ``src/route_pack.cpp``, ``src/sort_util.cpp`` and
+``src/spblas_host.cpp`` are byte-for-byte copies of the JAX package's
+sources (plain C++, no framework code).  One
 ``g++ -O3 -march=native -shared -fPIC -std=c++17`` builds them, on first
 use, into ``spblas_tpu_torch/_build/`` (listed in ``.gitignore``).  As in
 ``_build.py``, the library's file name carries a hash of its sources and
@@ -12,11 +12,12 @@ processes building at once do not collide.  Importing the package builds
 nothing.
 
 There is no numpy fallback: if g++ is missing or fails, :func:`get_lib`
-raises.  (The JAX package's python packer is not carried; the machine
-with the card always has g++, which nvcc needs.)
+raises.  (The JAX package's python packer and its identity-ordering RCM
+fallback are not carried; the machine with the card always has g++,
+which nvcc needs.)
 
 The wrappers below are those of ``spblas_tpu/native/__init__.py`` that
-the builder calls, with the same arguments and results.
+the builders call, with the same arguments and results.
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import numpy as np
 
 _PKG = Path(__file__).resolve().parent.parent
 SRC = Path(__file__).resolve().parent / "src"
-SOURCES = ("route2_pack.cpp", "route_pack.cpp", "sort_util.cpp")
+SOURCES = ("route2_pack.cpp", "route_pack.cpp", "sort_util.cpp",
+           "spblas_host.cpp")
 BUILD = _PKG / "_build"
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
@@ -53,8 +55,8 @@ def library_path() -> Path:
 def _build(lib: Path) -> None:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: spblas_tpu_torch's ROUTE "
-                           "builders need their native packer "
+        raise RuntimeError("g++ not found: spblas_tpu_torch's ROUTE and "
+                           "RCM builders need their native library "
                            "(spblas_tpu_torch/native/src)")
     BUILD.mkdir(exist_ok=True)
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
@@ -123,6 +125,8 @@ def _declare(lib):
         i64, i32p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
     lib.spblas_expand_rowptr.restype = None
     lib.spblas_expand_rowptr.argtypes = [i64, i64, i64p, i64p]
+    lib.spblas_rcm.restype = i64
+    lib.spblas_rcm.argtypes = [i64, i64, i64p, i32p, i64p]
 
 
 def route2_pack(ne, ncells, cell_start, lrow, lcol, aux_windows_in=0,
@@ -336,3 +340,17 @@ def expand_rowptr(m, nnz, rowptr):
     rows = np.empty(nnz, np.int64)
     lib.spblas_expand_rowptr(m, nnz, rowptr, rows)
     return rows
+
+
+def rcm(m, nnz, rowptr, colind):
+    """Reverse Cuthill-McKee ordering on A + A^T.
+
+    Returns (perm, halfwidth): perm[i] = old row id at new position i
+    (int64), and the permuted matrix's band half-width.  Raises when the
+    native library cannot be built (no identity-ordering fallback)."""
+    lib = get_lib()
+    rowptr = np.ascontiguousarray(rowptr, dtype=np.int64)
+    colind = np.ascontiguousarray(colind, dtype=np.int32)
+    perm = np.zeros(m, np.int64)
+    h = int(lib.spblas_rcm(int(m), int(nnz), rowptr, colind, perm))
+    return perm, h

@@ -1,20 +1,24 @@
 """SpMV: y = A @ x for sparse A, dense x — counterpart of
 ``spblas_tpu/ops/spmv.py``.
 
-An ``OptimizedMatrix`` runs its cached plan (band, DIA, SELL); everything
-else takes the base path, a gather + multiply + ``index_add`` that
-autograd differentiates.
+An ``OptimizedMatrix`` runs its cached plan (``plans.plan_spmv``); a BSR
+takes its block kernel; everything else takes the base path, a gather +
+multiply + ``index_add`` that autograd differentiates.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
+from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.formats.csc import CSC
 from spblas_tpu_torch.formats.coo import COO
 from spblas_tpu_torch import views as _v
 from spblas_tpu_torch.kernels import plans as _plans
+from spblas_tpu_torch.kernels.bsr_kernels import bsr_spmv
 from spblas_tpu_torch.utils.logging import traced
 
 
@@ -37,7 +41,7 @@ def spmv(a_view, x_view) -> torch.Tensor:
     plan = None
     if (opt is not None and not conj_a and _v.is_sparse(a_view)
             and _plans.transform_safe(x, a.values)):
-        plan = _plans.optimized_plan(opt, x.dtype)
+        plan = _plans.optimized_plan(opt, "matvec", x.dtype)
     if plan is not None:
         y = _plans.plan_spmv(plan, x)
     else:
@@ -47,24 +51,34 @@ def spmv(a_view, x_view) -> torch.Tensor:
 
 def _segment_sum(contrib: torch.Tensor, seg: torch.Tensor,
                  num: int) -> torch.Tensor:
-    """Sum ``contrib`` into ``num`` rows by segment id.  One extra row
-    takes ids == num (padded CSR entries), which ``index_add`` would
-    reject and ``segment_sum`` drops; it is cut off."""
-    out = torch.zeros(num + 1, dtype=contrib.dtype, device=contrib.device)
+    """Sum ``contrib`` (entries, or entries by columns) into ``num`` rows
+    by segment id.  One extra row takes ids == num (padded CSR entries),
+    which ``index_add`` would reject and ``segment_sum`` drops; it is cut
+    off."""
+    out = contrib.new_zeros((num + 1,) + tuple(contrib.shape[1:]))
     return out.index_add(0, seg, contrib)[:num]
 
 
+def _entries(a, conj_a: bool):
+    """(values, column ids, row ids) of a CSR/CSC/COO's entries, the
+    values conjugated when ``conj_a``; padded entries hold value 0 (and
+    row m in a CSR)."""
+    vals = a.values.conj() if conj_a else a.values
+    if isinstance(a, CSR):
+        return vals, a.colind, a.row_ids()
+    if isinstance(a, CSC):
+        return vals, a.col_ids() % a.shape[1], a.rowind
+    return vals, a.colind, a.rowind
+
+
 def _spmv_base(a, x, conj_a: bool):
+    if isinstance(a, BSR):
+        if conj_a:
+            a = dataclasses.replace(a, values=a.values.conj())
+        return bsr_spmv(a, x)
     if isinstance(a, (CSR, CSC, COO)):
-        vals = a.values.conj() if conj_a else a.values
-        if isinstance(a, CSR):
-            cols, rows = a.colind, a.row_ids()     # padding: row m
-        elif isinstance(a, CSC):
-            cols, rows = a.col_ids() % a.shape[1], a.rowind
-        else:
-            cols, rows = a.colind, a.rowind        # padding: value 0
-        contrib = vals * x.index_select(0, cols)
-        return _segment_sum(contrib, rows, a.shape[0])
+        vals, cols, rows = _entries(a, conj_a)
+        return _segment_sum(vals * x.index_select(0, cols), rows, a.shape[0])
     # dense matrix fallback
     mat = a.conj() if conj_a else a
     return mat @ x

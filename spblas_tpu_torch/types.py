@@ -13,6 +13,7 @@ names another device; with no card and no device named they raise.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -85,3 +86,18 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.resolve_conj().numpy()
+
+
+def wide_matmul(fn, *ts) -> torch.Tensor:
+    """``fn(*ts)`` (a matmul, bmm or einsum) computed in float64 (complex128
+    for complex operands) and cast back to the operands' result type.  A
+    float32 product on CUDA follows the caller's TF32 setting
+    (``torch.backends.cuda.matmul``), which keeps about three decimal
+    digits; the JAX package's dots run at ``Precision.HIGHEST``, and a
+    float64 product reaches no such setting.  Non-float operands run as
+    they are."""
+    out = functools.reduce(torch.promote_types, (t.dtype for t in ts))
+    if not (out.is_floating_point or out.is_complex):
+        return fn(*ts)
+    wide = torch.complex128 if out.is_complex else torch.float64
+    return fn(*(t.to(wide) for t in ts)).to(out)

@@ -10,8 +10,9 @@ from __future__ import annotations
 import numpy as np
 
 from spblas_tpu_torch import types as _t
+from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.csr import CSR
-from spblas_tpu_torch.kernels.banded import BandPlan
+from spblas_tpu_torch.kernels.banded import BandPlan, PermutedBandPlan
 from spblas_tpu_torch.kernels.dia import DiaPlan
 from spblas_tpu_torch.kernels.plans import SortedRoutePlan
 from spblas_tpu_torch.kernels.route2 import SUBS, Route2Plan
@@ -30,12 +31,39 @@ def csr_from_numpy(values, rowptr, colind, nnz, shape,
                            device=device)
 
 
+def bsr_from_numpy(values, block_rowptr, block_colind, nnz_blocks, shape,
+                   block_shape, device=None) -> BSR:
+    """A BSR over a JAX ``BSR``'s arrays (values (capacity, bh, bw),
+    block_rowptr, block_colind) and its ``nnz_blocks``; the capacity is
+    kept."""
+    dev = _t.resolve_device(device)
+    return BSR(values=_t.as_tensor(np.asarray(values), dev),
+               block_rowptr=_t.as_tensor(np.asarray(block_rowptr), dev,
+                                         _t.offset_dtype),
+               block_colind=_t.as_tensor(np.asarray(block_colind), dev,
+                                         _t.index_dtype),
+               nnz_blocks=int(nnz_blocks),
+               shape=(int(shape[0]), int(shape[1])),
+               block_shape=(int(block_shape[0]), int(block_shape[1])))
+
+
 def band_plan_from_numpy(panels, pad_l, shape, device=None) -> BandPlan:
     """A BandPlan over the JAX plan's panels (f32, or bfloat16 as
     ml_dtypes hands it over)."""
     dev = _t.resolve_device(device)
     return BandPlan(panels=_t.as_tensor(np.asarray(panels), dev),
                     pad_l=int(pad_l), shape=(int(shape[0]), int(shape[1])))
+
+
+def permuted_band_plan_from_numpy(panels, pad_l, shape, perm, rank,
+                                  device=None) -> PermutedBandPlan:
+    """A PermutedBandPlan over a JAX one: its band plan's panels, pad_l
+    and shape, and its padded perm and rank."""
+    dev = _t.resolve_device(device)
+    return PermutedBandPlan(
+        band=band_plan_from_numpy(panels, pad_l, shape, device=dev),
+        perm=_t.as_tensor(np.asarray(perm), dev, _t.index_dtype),
+        rank=_t.as_tensor(np.asarray(rank), dev, _t.index_dtype))
 
 
 def dia_plan_from_numpy(diags, offsets, shape, device=None) -> DiaPlan:

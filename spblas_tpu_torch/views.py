@@ -12,6 +12,7 @@ from typing import Any
 
 import torch
 
+from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.formats.csc import CSC
 from spblas_tpu_torch.formats.coo import COO
@@ -74,9 +75,10 @@ def transposed(tensor):
     if isinstance(tensor, ConjugatedView):
         return ConjugatedView(base=transposed(tensor.base))
     if isinstance(tensor, OptimizedMatrix):
-        # stay optimized through the flip, with a fresh plan cache: the
-        # cached plans describe the untransposed orientation
-        return OptimizedMatrix(transposed(tensor.base))
+        # stay optimized through the flip, with a plan cache of its own
+        # (the cached plans describe the untransposed orientation); the
+        # flipped handle is kept, so a second flip inspects nothing anew
+        return tensor.flipped()
     if isinstance(tensor, CSR):
         m, n = tensor.shape
         return CSC(values=tensor.values, colptr=tensor.rowptr,
@@ -98,6 +100,7 @@ class OptimizedMatrix:
     def __init__(self, base):
         self.base = base
         self._plans = {}
+        self._flipped = None
 
     @property
     def shape(self):
@@ -106,6 +109,14 @@ class OptimizedMatrix:
     @property
     def dtype(self):
         return self.base.dtype
+
+    def flipped(self) -> "OptimizedMatrix":
+        """The transposed matrix's handle, made on first use and kept
+        (both ways), so dense·sparse products reuse its plans."""
+        if self._flipped is None:
+            self._flipped = OptimizedMatrix(transposed(self.base))
+            self._flipped._flipped = self
+        return self._flipped
 
     def get_plan(self, key, builder):
         """Return the cached plan for ``key``, building it on first use."""
@@ -193,7 +204,7 @@ def is_coo(t) -> bool:
 
 
 def is_sparse(t) -> bool:
-    return isinstance(get_ultimate_base(t), (CSR, CSC, COO))
+    return isinstance(get_ultimate_base(t), (CSR, CSC, COO, BSR))
 
 
 def is_dense_matrix(t) -> bool:

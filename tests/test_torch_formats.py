@@ -151,9 +151,10 @@ def test_quantize_capacity_matches_jax(nnz):
     assert ttypes.quantize_capacity(nnz) == jtypes.quantize_capacity(nnz)
 
 
-@pytest.mark.parametrize("ctor", ["csr", "csc", "coo", "generate_csr",
-                                  "generate_vector", "band_plan",
-                                  "dia_plan"])
+@pytest.mark.parametrize("ctor", ["csr", "csc", "coo", "bsr",
+                                  "generate_csr", "generate_vector",
+                                  "band_plan", "dia_plan",
+                                  "permuted_band_plan"])
 def test_default_device_raises_without_cuda(ctor, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     vals, rowptr, cols = _csr_arrays()
@@ -161,12 +162,17 @@ def test_default_device_raises_without_cuda(ctor, monkeypatch):
         "csr": lambda: tsp.CSR.from_arrays(vals, rowptr, cols, (60, 50)),
         "csc": lambda: tsp.CSC.from_arrays(vals, rowptr, cols, (50, 60)),
         "coo": lambda: tsp.COO.from_arrays(vals, cols, cols, (60, 50)),
+        "bsr": lambda: tsp.BSR.from_dense(np.eye(16, dtype=np.float32),
+                                          (8, 8)),
         "generate_csr": lambda: tgen.generate_csr(20, 20, 40),
         "generate_vector": lambda: tgen.generate_vector(20),
         "band_plan": lambda: interop.band_plan_from_numpy(
             np.zeros((1024, 136), np.float32), 4, (1000, 1000)),
         "dia_plan": lambda: interop.dia_plan_from_numpy(
             np.zeros((1, 256, 128), np.float32), (0,), (100, 100)),
+        "permuted_band_plan": lambda: interop.permuted_band_plan_from_numpy(
+            np.zeros((1024, 136), np.float32), 4, (1000, 1000),
+            np.arange(1024), np.arange(1024)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[ctor]()
@@ -220,7 +226,10 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                 "spblas_tpu_torch.kernels.route2_kernel",
                 "spblas_tpu_torch.kernels.route_plan",
                 "spblas_tpu_torch.kernels.route_spmv",
-                "spblas_tpu_torch.kernels.route_paned"} <= seen, seen
+                "spblas_tpu_torch.kernels.route_paned",
+                "spblas_tpu_torch.kernels.bsr_kernels",
+                "spblas_tpu_torch.formats.bsr",
+                "spblas_tpu_torch.ops.spmm"} <= seen, seen
         from spblas_tpu_torch.kernels import plans
         from spblas_tpu_torch.utils import generate as gen
         a = gen.generate_banded_csr(500, 500, 9, seed=0, device="cpu")
@@ -242,6 +251,23 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                         gen.generate_vector(2048, seed=4, device="cpu"))
         assert opt._plans["matvec"][0] == "route1"
         assert y.shape == (2048,) and bool(y.isfinite().all())
+        # SpMM on a block-dense matrix (the BSR rung) and on a permuted
+        # band (the RCM rung, native RCM), and dense·sparse
+        import numpy as np
+        d = np.zeros((64, 512), np.float32)
+        d[8:16, 128:256] = 1.0
+        opt = sp.matrix_opt(sp.CSR.from_dense(d, device="cpu"))
+        c = sp.multiply(opt, gen.generate_dense(512, 3, seed=6,
+                                                device="cpu"))
+        assert opt._plans["matmul"][0] == "bsr" and c.shape == (64, 3)
+        a = gen.generate_banded_csr(1000, 1000, 9, seed=7, device="cpu")
+        p = np.random.default_rng(8).permutation(1000)
+        pa = sp.CSR.from_dense(a.todense()[p][:, p], device="cpu")
+        opt = sp.matrix_opt(pa)
+        c = sp.multiply(gen.generate_dense(2, 1000, seed=9, device="cpu"),
+                        opt)
+        assert opt.flipped()._plans["matmul"][0] == "band_perm"
+        assert c.shape == (2, 1000) and bool(c.isfinite().all())
         assert "jax" not in sys.modules or sys.modules["jax"] is None
         print("ok")
     """)
@@ -265,7 +291,9 @@ def test_native_library_is_built_from_the_ports_sources():
     src = Path(REPO) / "spblas_tpu_torch" / "native" / "src"
     assert native.SRC == src
     h = hashlib.sha1(" ".join(native.GXX_FLAGS).encode())
-    for name in ("route2_pack.cpp", "route_pack.cpp", "sort_util.cpp"):
+    assert native.SOURCES == ("route2_pack.cpp", "route_pack.cpp",
+                              "sort_util.cpp", "spblas_host.cpp")
+    for name in native.SOURCES:
         body = (src / name).read_bytes()
         assert body == (Path(REPO) / "spblas_tpu" / "native" / "src"
                         / name).read_bytes()

@@ -18,7 +18,8 @@ import spblas_tpu_torch as tsp
 from spblas_tpu_torch.kernels import plans as tplans
 
 from tests.torch_util import (  # noqa: F401
-    assert_rows_close, port_csr, one_torch_thread)
+    assert_rows_close, block_dense_csr, permuted_csr, port_csr,
+    one_torch_thread)
 
 MATRICES = {
     "banded": lambda: gen.generate_banded_csr(2000, 2000, 17, seed=1),
@@ -27,6 +28,9 @@ MATRICES = {
     "stencil3d": lambda: gen.generate_stencil_csr((12, 13, 14), seed=4),
     "fem": lambda: gen.generate_fem_graph_csr(30, 120, seed=5),
     "uniform": lambda: gen.generate_csr(1200, 1200, 9600, seed=6),
+    "block_dense": lambda: block_dense_csr(256, 1024, 60, seed=27),
+    "permuted_band": lambda: permuted_csr(
+        gen.generate_banded_csr(1600, 1600, 17, seed=28), seed=29),
 }
 
 
@@ -59,7 +63,9 @@ def test_chooser_kind_matches_jax_on_cpu(name):
                                        ("banded_rect", "band"),
                                        ("stencil2d", "dia"),
                                        ("stencil3d", "dia"),
-                                       ("fem", "dia")])
+                                       ("fem", "dia"),
+                                       ("block_dense", "bsr"),
+                                       ("permuted_band", "band_perm")])
 def test_chooser_kind_matches_jax_with_gates_forced(name, kind, monkeypatch):
     """The JAX TPU gate and the port's CUDA probe both forced on: the
     structured kinds agree, and so do their results (the port's plain
@@ -76,20 +82,23 @@ def test_chooser_kind_matches_jax_with_gates_forced(name, kind, monkeypatch):
 
 
 def test_cuda_ladder_skips_unported_rungs(monkeypatch):
-    """With the CUDA probe forced (and JAX's TPU gate), every matrix
-    takes JAX's kind; only the BSR and RCM-band rungs stay skipped, no
-    matrix gets one of them, and plan_spmv has no path for one."""
+    """The CUDA ladder once skipped the BSR and RCM-band rungs by name;
+    both are ported, so no rung is skipped now.  With the CUDA probe and
+    JAX's TPU gate forced, every matrix takes JAX's kind for matvec and
+    for matmul, the block-dense and permuted-band matrices included, and
+    the structured plans serve both ops."""
     monkeypatch.setattr(tplans, "_on_cuda", lambda t: True)
     monkeypatch.setattr(jplans, "_on_tpu", lambda: True)
-    assert tplans.UNPORTED_KINDS == ("bsr", "band_perm")
+    assert not hasattr(tplans, "UNPORTED_KINDS")
+    kinds = set()
     for name, make in MATRICES.items():
         a = make()
-        kind = tplans.build_matvec_plan(port_csr(a))[0]
-        assert kind not in tplans.UNPORTED_KINDS, name
-        assert kind == jplans.build_matvec_plan(a)[0], name
-    for k in tplans.UNPORTED_KINDS:
-        with pytest.raises(ValueError, match="unknown plan kind"):
-            tplans.plan_spmv((k, None), torch.zeros(3))
+        b = port_csr(a)
+        for build in ("build_matvec_plan", "build_matmul_plan"):
+            kind = getattr(tplans, build)(b)[0]
+            assert kind == getattr(jplans, build)(a)[0], (name, build)
+            kinds.add(kind)
+    assert {"bsr", "band_perm", "band", "dia", "route", "sell"} <= kinds
 
 
 GENERAL = {
@@ -205,15 +214,15 @@ def test_dimension_mismatch_raises():
 
 
 def test_not_ported_ops_raise_with_roadmap_item():
+    """SpGEMM still raises, naming its ROADMAP item; SpMM and dense·sparse
+    (item 9) run now."""
     a = port_csr(gen.generate_csr(30, 30, 100, seed=17))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsp.multiply(a, torch.zeros(30, 4))
     with pytest.raises(NotImplementedError, match="item 10"):
         tsp.multiply(a, a)
     with pytest.raises(NotImplementedError, match="item 10"):
         tsp.multiply_compute(a, a)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tsp.multiply(torch.zeros(4, 30), a)
+    assert tsp.multiply(a, torch.zeros(30, 4)).shape == (30, 4)
+    assert tsp.multiply(torch.zeros(4, 30), a).shape == (4, 30)
 
 
 def test_two_phase_protocol_matches_jax():

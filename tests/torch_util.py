@@ -4,7 +4,9 @@ tolerance the port is held to.
 
 Tolerance: |y_port - y_ref|_i <= 64 * eps_f32 * scale * (|A| . |x|)_i —
 the dot-product form of ``tests/util.py::assert_close``'s 64*eps model,
-since the two packages sum each row in different orders.
+since the two packages sum each row in different orders; for a product
+with a dense matrix B, per entry: |C - C_ref|_ij <= 64 * eps_f32 * scale
+* (|A| . |B|)_ij.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import spblas_tpu as sp
 from spblas_tpu_torch.utils import interop
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -71,3 +74,62 @@ def assert_rows_close(y, y_ref, a, x, scale=1.0, factor=64, eps=EPS32,
     assert not bad.any(), (
         f"{err_msg} {bad.sum()} rows out of bound; worst row {worst}: "
         f"err {err[worst]}, bound {bound[worst]}")
+
+
+def abs_matmul(a, b) -> np.ndarray:
+    """(|A| . |B|) in float64, from the JAX CSR's live entries and a dense
+    (n, k) operand."""
+    m, _ = a.shape
+    nnz = int(a.nnz)
+    rowptr = np.asarray(a.rowptr).astype(np.int64)
+    rows = np.repeat(np.arange(m), np.diff(np.minimum(rowptr, nnz)))
+    cols = np.asarray(a.colind)[:nnz]
+    b = np.abs(to_np(b)).astype(np.float64)
+    out = np.zeros((m, b.shape[1]))
+    np.add.at(out, rows, np.abs(np.asarray(a.values)[:nnz])
+              .astype(np.float64)[:, None] * b[cols])
+    return out
+
+
+def assert_entries_close(c, c_ref, a, b, scale=1.0, factor=64, eps=EPS32,
+                         err_msg=""):
+    """|C - C_ref|_ij <= factor*eps*|scale|*(|A|.|B|)_ij for the JAX CSR
+    ``a`` and the dense operand ``b``."""
+    c = to_np(c).astype(np.complex128)
+    c_ref = to_np(c_ref).astype(np.complex128)
+    assert c.shape == c_ref.shape, f"shape {c.shape} vs {c_ref.shape}"
+    bound = factor * eps * abs(scale) * abs_matmul(a, b)
+    err = np.abs(c - c_ref)
+    bad = err > bound
+    worst = np.unravel_index(int(np.argmax(err - bound)), err.shape)
+    assert not bad.any(), (
+        f"{err_msg} {bad.sum()} entries out of bound; worst {worst}: "
+        f"err {err[worst]}, bound {bound[worst]}")
+
+
+def permuted_csr(a, seed):
+    """The JAX CSR ``a`` under a seeded symmetric random permutation (a
+    band so scrambled reaches the RCM rung)."""
+    m = a.shape[0]
+    nnz = int(a.nnz)
+    inv = np.empty(m, np.int64)
+    inv[np.random.default_rng(seed).permutation(m)] = np.arange(m)
+    rowptr = np.minimum(np.asarray(a.rowptr).astype(np.int64), nnz)
+    rows = inv[np.repeat(np.arange(m), np.diff(rowptr))]
+    cols = inv[np.asarray(a.colind)[:nnz]]
+    order = np.lexsort((cols, rows))
+    rp = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=m))])
+    return sp.CSR.from_arrays(np.asarray(a.values)[:nnz][order], rp,
+                              cols[order], (m, m), nnz=nnz)
+
+
+def block_dense_csr(m, n, nblocks, seed):
+    """Dense 8x128 blocks of standard normal values at seeded places, as
+    a JAX CSR (a matrix the BSR rung takes)."""
+    rng = np.random.default_rng(seed)
+    dense = np.zeros((m, n), np.float32)
+    for _ in range(nblocks):
+        i, j = rng.integers(m // 8), rng.integers(n // 128)
+        dense[i * 8:(i + 1) * 8, j * 128:(j + 1) * 128] = \
+            rng.standard_normal((8, 128))
+    return sp.CSR.from_dense(dense)
