@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import importlib
 import json
 import math
 import subprocess
@@ -58,11 +59,18 @@ from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.convert import bsr_to_csr
 from spblas_tpu_torch.kernels import banded, dia, route2
 from spblas_tpu_torch.kernels import bsr_kernels as bk
+from spblas_tpu_torch.kernels import bsr_spgemm as bsg
 from spblas_tpu_torch.kernels import route2_kernel as r2k
+from spblas_tpu_torch.kernels import route_mul_paned as rmp
 from spblas_tpu_torch.kernels import route_paned as rpn
 from spblas_tpu_torch.kernels import route_plan as rpl
 from spblas_tpu_torch.kernels import route_spmv as rsp
+from spblas_tpu_torch.kernels.route2 import Route2MulPlan
+from spblas_tpu_torch.kernels.route_mul_paned import Route2MulPanedPlan
 from spblas_tpu_torch.utils import generate as gen
+
+# the module (the package exports a function of the same name)
+spgemm_ops = importlib.import_module("spblas_tpu_torch.ops.spgemm")
 
 EPS32 = torch.finfo(torch.float32).eps
 DEVICE = "cuda"   # where the script makes its own operands
@@ -146,6 +154,38 @@ BSR_ONLY = [("bsr_16384_128x128_empty_rows", 128, 128, 3, (128, 128), 4,
 # distinct B operands of a timed SpMM chain, at most this many bytes
 _SPMM_OPERAND_BYTES = 8 << 30
 
+# SpGEMM: bench.py's section_spgemm (bench.py:190, C = A.A on a uniform
+# 2,000^2 matrix of 40,000 entries, seed 0: the resident mul engine) and
+# section_spgemm_large (bench.py:254, 100,000^2, 1,000,000 entries, seed
+# 0: the paned engine), with the structure numbers of the JAX records
+# (BENCH_r03.json, BENCH_r05.json) the port's plans must reproduce
+SPGEMM_MAIN = [
+    ("spgemm_2k", lambda: gen.generate_csr(2000, 2000, 40_000, seed=0),
+     "resident", dict(result_nnz=725_545, chunks=2150)),
+    ("spgemm_large_100k", lambda: gen.generate_csr(
+        100_000, 100_000, 1_000_000, seed=0),
+     "paned", dict(result_nnz=9_997_508, chunks=294_520, panels=10))]
+SPGEMM_FILLS = 20              # timed numeric fills on distinct values
+# hub-slot expansion streams that reach the aux levels (neither bench
+# plan has an aux chunk): (entries, capacity, (slot, entries) hubs,
+# a_len, b_len, seed) and, paned, the panel slots and pane rows
+MUL_HUB = (400_000, 65_536, ((0, 20_000), (777, 50_000), (4096, 5_000)),
+           1501, 1800, 101)
+MUL_PANED_HUB = (600_000, 262_144, ((0, 20_000), (70_000, 30_000),
+                                    (140_000, 8_000)), 20_001, 400_000,
+                 102, dict(panel_slots=65_536, pane_rows=512))
+# block SpGEMM: A = B = 32,768^2 of 128x128 f32 blocks, 8 seeded block
+# columns in each of the 256 block rows (16,384 pairs, 68.7 GFLOP);
+# kernel only, an (8, 128).(128, 128) product with empty block rows:
+# (name, block rows, block columns, blocks a row, block shape, every how
+#  many block rows is empty (0: none), seed) for A, then B's
+BSR_SPGEMM_MAIN = ("bsr_spgemm_32768_128x128",
+                   (256, 256, 8, (128, 128), 0, 111),
+                   (256, 256, 8, (128, 128), 0, 112))
+BSR_SPGEMM_ONLY = ("bsr_spgemm_8x128_128x128_empty_rows",
+                   (512, 64, 4, (8, 128), 3, 113),
+                   (64, 64, 4, (128, 128), 0, 114))
+
 BAND_SOURCE = "spblas_tpu_torch/csrc/band_spmv.cu"
 DIA_SOURCE = "spblas_tpu_torch/csrc/dia_spmv.cu"
 ROUTE_SOURCE = "spblas_tpu_torch/csrc/route2_spmv.cu"
@@ -163,6 +203,12 @@ BAND_SPMM_REPLACES = "spblas_tpu/kernels/banded.py:164"
 BAND_STREAM_REPLACES = "spblas_tpu/kernels/banded.py:403"
 BSR_SPMV_REPLACES = "spblas_tpu/kernels/bsr_pallas.py:128"
 BSR_SPMM_REPLACES = "spblas_tpu/kernels/bsr_pallas.py:33"
+MUL_SOURCE = "spblas_tpu_torch/csrc/route2_mul.cu"
+MUL_PANED_SOURCE = "spblas_tpu_torch/csrc/route_mul_paned.cu"
+BSR_SPGEMM_SOURCE = "spblas_tpu_torch/csrc/bsr_spgemm.cu"
+MUL_REPLACES = "spblas_tpu/kernels/route2_kernel.py:414"
+MUL_PANED_REPLACES = "spblas_tpu/kernels/route_mul_paned.py:274"
+BSR_SPGEMM_REPLACES = "spblas_tpu/kernels/bsr_spgemm.py:114"
 # wrapper -> kernel name, for the launch counts
 WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "dia_spmv": dia.dia_spmv_padded,
@@ -172,7 +218,10 @@ WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "band_spmm": banded.band_spmm_padded,
             "band_spmm_stream": banded.band_spmm_stream_padded,
             "bsr_spmv": bk.bsr_spmv_blocks,
-            "bsr_spmm": bk.bsr_spmm_blocks}
+            "bsr_spmm": bk.bsr_spmm_blocks,
+            "route2_mul": r2k.route2_mul_padded,
+            "route2_mul_paned": rmp.route2_mul_paned_padded,
+            "bsr_spgemm": bsg.bsr_spgemm_blocks}
 # kind -> the kernels its main-path SpMV call must launch
 KIND_KERNELS = {"band": ("band_spmv",), "bsr": ("bsr_spmv",),
                 "band_perm": ("band_spmv",),
@@ -184,6 +233,11 @@ KIND_KERNELS = {"band": ("band_spmv",), "bsr": ("bsr_spmv",),
 # at the spmm_banded shape streams B: its resident B passes 6 MB)
 SPMM_KIND_KERNELS = {"band": ("band_spmm_stream",), "bsr": ("bsr_spmm",),
                      "band_perm": ("band_spmm",), "band_cx": ("band_spmm",)}
+# engine -> the kernels a main-path SpGEMM (compute, then one fill; for
+# BSR the one-shot multiply) must launch
+SPGEMM_KIND_KERNELS = {"resident": ("route2_mul",),
+                       "paned": ("route2_mul_paned",),
+                       "bsr": ("bsr_spgemm",)}
 
 
 class SmokeFailure(RuntimeError):
@@ -794,11 +848,13 @@ def block_csr(mb, nbc, per_row, fill, seed):
 
 def random_bsr(mb, nbc, per_row, block, empty_every, seed):
     """A BSR on the card with ``per_row`` seeded blocks of standard normal
-    values in every block row but each ``empty_every``-th, which stays
-    empty."""
+    values in every block row but each ``empty_every``-th (none for 0),
+    which stays empty."""
     rng = np.random.default_rng(seed)
     bh, bw = block
-    counts = np.where(np.arange(mb) % empty_every == 0, 0, per_row)
+    empty = (np.arange(mb) % empty_every == 0 if empty_every
+             else np.zeros(mb, bool))
+    counts = np.where(empty, 0, per_row)
     cols = np.concatenate([np.sort(rng.choice(nbc, c, replace=False))
                            for c in counts])
     nnzb = len(cols)
@@ -944,6 +1000,392 @@ def main_path_spmm(name, a, kind, k, seed, card, opt=None):
     del bs
     torch.cuda.empty_cache()
     return rec, opt
+
+
+# ------------------------------------------------------------------ #
+# SpGEMM: the mul engines and the block SpGEMM
+# ------------------------------------------------------------------ #
+
+def mul_hub_stream(n_ent, cap, hubs, a_len, b_len, seed):
+    """A slot-sorted expansion stream whose hub slots hold many entries
+    (so the packer spills them into aux levels), and seeded A and B
+    values on the card (A's last slot is the constant 1)."""
+    rng = np.random.default_rng(seed)
+    hub = np.concatenate([np.full(c, sl, np.int64) for sl, c in hubs])
+    slots = np.sort(np.concatenate([hub, rng.integers(
+        0, cap, n_ent - len(hub))]))
+    sa = rng.integers(0, a_len - 1, n_ent)
+    sb = rng.integers(0, b_len, n_ent)
+    a = rng.standard_normal(a_len).astype(np.float32)
+    a[-1] = 1.0
+    b = rng.standard_normal(b_len).astype(np.float32)
+    return (slots, sa, sb, torch.from_numpy(a).to(DEVICE),
+            torch.from_numpy(b).to(DEVICE))
+
+
+def library_spgemm_ms(a, b):
+    """cuSPARSE SpGEMM (``@`` on two torch.sparse_csr_tensors): one call
+    runs its own symbolic pass (and reads C's size to the host) before
+    the numeric one."""
+    nbytes = (a.nnz + b.nnz) * 8 + (a.shape[0] + b.shape[0] + 2) * 4
+
+    def copy(t):
+        return cusparse(dataclasses.replace(t, values=t.values.clone(),
+                                            colind=t.colind.clone()))
+
+    ins = replicas(lambda: (copy(a), copy(b)), nbytes)
+    return device_ms(torch.matmul, ins, reps=len(ins))
+
+
+def mul_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
+    """``route2_mul`` on a resident mul plan against its plain version."""
+    a2, b2 = r2k.pack_mul_panes(plan, a_arr, b_arr)
+    before = r2k.route2_mul_padded.launches
+    y_k = r2k.route2_mul_padded(plan, a2, b2)
+    torch.cuda.synchronize()
+    per_call = r2k.route2_mul_padded.launches - before
+    require(per_call == sum(hi > lo for lo, hi in plan.launch_ranges()),
+            f"route2_mul {name}: {per_call} launches")
+    y_p = r2k.route2_mul_reference(plan, a2, b2)
+    err = row_check(y_k, y_p, r2k.route2_mul_reference(plan, a2.abs(),
+                                                        b2.abs()))
+    log(f"[check] route2_mul {name}: in bound, max |err| {err:.3e}")
+    del y_k, y_p
+    # each input read once (both tiles, the per-chunk scalars ab, bb, yb,
+    # the A and B panes), the out pane written twice (zeroed, then
+    # accumulated)
+    nch = plan.nchunks
+    nbytes = (nch * (8 * 1024 + 12) + (plan.a_rows + plan.b_rows) * 512
+              + 2 * r2k.mul_out_rows(plan) * 512)
+    b_ms, b_by = bound(nbytes, 2 * nch * 1024, rates)
+
+    def copy():
+        return dataclasses.replace(
+            plan, tile1=plan.tile1.clone(), tile2=plan.tile2.clone(),
+            a_base=plan.a_base.clone(), b_base=plan.b_base.clone(),
+            y_base=plan.y_base.clone()), a2.clone(), b2.clone()
+
+    ins = replicas(copy, nbytes)
+    k_ms = device_ms(r2k.route2_mul_padded, ins)
+    p_ms = device_ms(r2k.route2_mul_reference, ins)
+    del ins
+    torch.cuda.empty_cache()
+    return {"kernel": "route2_mul", "case": name, "nchunks": nch,
+            "n_aux_chunks": plan.n_aux_chunks,
+            "aux_levels": len(plan.launch_starts) - 1, "fill": plan.fill,
+            "g_a": plan.g_a, "g_b": plan.g_b, "dist_max": plan.dist_max,
+            "capacity": plan.capacity, "launches_per_call": per_call,
+            "max_abs_err": err, "kernel_ms": k_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "plain_ms": p_ms, "library_ms": lib_ms,
+            "card": card}
+
+
+def mul_paned_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
+    """``route2_mul_paned`` on every panel of a paned mul plan against
+    its plain version, panel by panel."""
+    a2, b2 = rmp.pack_mul_panes(plan, a_arr, b_arr)
+    before = rmp.route2_mul_paned_padded.launches
+    err = 0.0
+    for p in plan.panels:
+        y_k = rmp.route2_mul_paned_padded(plan, p, a2, b2)
+        torch.cuda.synchronize()
+        y_p = rmp.route2_mul_paned_reference(plan, p, a2, b2)
+        err = max(err, row_check(y_k, y_p, rmp.route2_mul_paned_reference(
+            plan, p, a2.abs(), b2.abs())))
+        del y_k, y_p
+    per_call = rmp.route2_mul_paned_padded.launches - before
+    want = sum(hi > lo for p in plan.panels for lo, hi in p.launch_ranges())
+    require(per_call == want, f"route2_mul_paned {name}: {per_call} "
+                              f"launches, want {want}")
+    log(f"[check] route2_mul_paned {name}: in bound, max |err| {err:.3e}")
+    # each input read once (both tiles, the per-chunk scalars ab, bb, yb,
+    # fl, pane, A and B), each panel pane written twice
+    nbytes = (plan.a_rows + plan.b_rows_pad) * 512 + sum(
+        p.nchunks * (8 * 1024 + 20) + 2 * p.out_rows * 512
+        for p in plan.panels)
+    b_ms, b_by = bound(nbytes, 2 * plan.nchunks * 1024, rates)
+
+    def copy():
+        return dataclasses.replace(plan, panels=tuple(
+            dataclasses.replace(
+                p, t1=p.t1.clone(), t2=p.t2.clone(), ab=p.ab.clone(),
+                bb=p.bb.clone(), yb=p.yb.clone(), fl=p.fl.clone(),
+                pane=p.pane.clone()) for p in plan.panels)), a2.clone(), \
+            b2.clone()
+
+    def run_panels(pl, aa, bb, fn=rmp.route2_mul_paned_padded):
+        for p in pl.panels:
+            fn(pl, p, aa, bb)
+
+    ins = replicas(copy, nbytes)
+    k_ms = device_ms(run_panels, ins)
+    p_ms = device_ms(lambda pl, aa, bb: run_panels(
+        pl, aa, bb, rmp.route2_mul_paned_reference), ins)
+    del ins
+    torch.cuda.empty_cache()
+    return {"kernel": "route2_mul_paned", "case": name,
+            "panels": len(plan.panels),
+            "panes": plan.b_rows_pad // plan.pane_rows,
+            "nchunks": plan.nchunks, "fill": plan.fill, "g_a": plan.g_a,
+            "g_b": plan.g_b,
+            "aux_levels": max(len(p.launch_starts) - 1 for p in plan.panels),
+            "panels_with_aux": sum(p.has_aux for p in plan.panels),
+            "launches_per_call": per_call, "max_abs_err": err,
+            "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": p_ms, "library_ms": lib_ms, "card": card}
+
+
+def fill_ms(info, vals, a):
+    """Mean time of ``multiply_fill(info, scaled(2.0, A_i), A)`` over the
+    distinct values ``vals``, host included (CUDA events around the
+    loop)."""
+    ops = [sp.scaled(2.0, dataclasses.replace(a, values=v)) for v in vals]
+    sp.multiply_fill(info, ops[0], a)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for op in ops:
+        sp.multiply_fill(info, op, a)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / len(ops)
+
+
+def spgemm_main(name, a, kind, expect, rates, card, deferred):
+    """``info = multiply_compute(A, A)`` then ``multiply_fill(info,
+    scaled(2.0, A_i), A)`` on distinct values: counts read around the
+    compute and the first fill, C held per entry against the port's
+    float64 torch numeric, result_nnz against cuSPARSE's, then the fills
+    timed.  The symbolic and engine-build seconds are reported apart.
+    Differences from the JAX records' structure numbers go to
+    ``deferred`` (reported at the end)."""
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(len(name))
+    vals = [torch.rand(a.capacity, generator=g, device=DEVICE) * 2 - 1
+            for _ in range(SPGEMM_FILLS)]
+    build = {}
+    orig = spgemm_ops._try_build_route
+
+    def timed_build(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return orig(*args, **kw)
+        finally:
+            build["s"] = time.perf_counter() - t
+
+    for w in WRAPPERS.values():
+        w.launches = 0
+    a0 = dataclasses.replace(a, values=vals[0])
+    spgemm_ops._try_build_route = timed_build
+    try:
+        t0 = time.perf_counter()
+        info = sp.multiply_compute(a, a)
+        torch.cuda.synchronize()
+        compute_s = time.perf_counter() - t0
+    finally:
+        spgemm_ops._try_build_route = orig
+    t0 = time.perf_counter()
+    c = sp.multiply_fill(info, sp.scaled(2.0, a0), a)
+    torch.cuda.synchronize()
+    first_fill_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    route = info.plan.route
+    got = ("resident" if isinstance(route, Route2MulPlan) else
+           "paned" if isinstance(route, Route2MulPanedPlan) else None)
+    nnz = info.result_nnz
+    log(f"[main] {name}: engine {got}, result_nnz {nnz}, launches "
+        f"{launches}")
+    require(got == kind, f"{name}: engine {got!r}, want {kind!r}")
+    require(c.nnz == nnz and c.values.dtype == a.dtype
+            and bool(torch.isfinite(c.values[:nnz]).all()),
+            f"{name}: bad result")
+    # reference: the port's torch numeric in float64 (f64 values take it)
+    a64 = dataclasses.replace(a, values=a.values.double())
+    ref = sp.multiply_fill(info, sp.scaled(2.0, dataclasses.replace(
+        a0, values=a0.values.double())), a64)
+    absd = sp.multiply_fill(info, dataclasses.replace(
+        a0, values=a0.values.abs().double()), dataclasses.replace(
+        a64, values=a64.values.abs()))
+    err = row_check(c.values[:nnz], ref.values[:nnz], absd.values[:nnz],
+                    scale=2.0)
+    del ref, absd, c
+    lib_nnz = int((cusparse(a) @ cusparse(a))._nnz())
+    require(lib_nnz == nnz, f"{name}: result_nnz {nnz}, cuSPARSE {lib_nnz}")
+    ms = fill_ms(info, vals, a)
+    plain = info.update(plan=dataclasses.replace(info.plan, route=None))
+    numeric_ms = fill_ms(plain, vals, a)
+    lib_ms = library_spgemm_ms(a, a)
+    build_s = build.get("s", 0.0)
+    panels = len(route.panels) if got == "paned" else None
+    rec = {"main_path": name, "op": "spgemm", "kind": got,
+           "m": a.shape[0], "n": a.shape[1], "nnz": a.nnz,
+           "result_nnz": nnz, "cusparse_nnz": lib_nnz,
+           "chunks": route.nchunks, "panels": panels, "fill": route.fill,
+           "launches": launches,
+           "launches_per_fill": launches["route2_mul"]
+           + launches["route2_mul_paned"],
+           "max_abs_err_vs_f64": err, "compute_s": compute_s,
+           "symbolic_s": compute_s - build_s, "engine_build_s": build_s,
+           "first_fill_s": first_fill_s, "fill_ms": ms,
+           "torch_numeric_ms": numeric_ms,
+           "cusparse_spgemm_ms_with_symbolic": lib_ms,
+           "fills_timed": SPGEMM_FILLS, "card": card}
+    emit(rec)
+    for key, want in expect.items():
+        have = {"result_nnz": nnz, "chunks": route.nchunks,
+                "panels": panels}[key]
+        if have != want:
+            deferred.append(f"{name}: {key} {have}, JAX record {want}")
+    return rec, info, vals[0]
+
+
+def bsr_spgemm_case(name, a, b, rates, card, dtype=torch.float32):
+    """``bsr_spgemm`` on one block product against its plain version."""
+    plan = bsg.bsr_spgemm_compute(a, b)
+    av = a.values.to(dtype).contiguous()
+    bv = b.values.to(dtype).contiguous()
+    args = (plan.pair_ptr, plan.pair_a, plan.pair_b)
+    c_k = bsg.bsr_spgemm_blocks(*args, av, bv)
+    torch.cuda.synchronize()
+    c_p = bsg.bsr_spgemm_reference(*args, av, bv)
+    err = row_check(c_k, c_p, bsg.bsr_spgemm_reference(*args, av.abs(),
+                                                        bv.abs()))
+    tname = str(dtype).split(".")[-1]
+    log(f"[check] bsr_spgemm {name} {tname}: in bound, max |err| "
+        f"{err:.3e}")
+    del c_k, c_p
+    bh, bk_ = a.block_shape
+    bw = b.block_shape[1]
+    esz = av.element_size()
+    npairs = plan.npairs
+    # the stored A and B blocks, the pair lists and C, each once
+    nbytes = ((a.nnz_blocks * bh * bk_ + b.nnz_blocks * bk_ * bw
+               + plan.nnzb_c * bh * bw) * esz + npairs * 8
+              + (plan.nnzb_c + 1) * 4)
+    flops = 2 * npairs * bh * bk_ * bw
+    # the f32 peak bounds the f32 case; the f64 case reports no bound
+    b_ms, b_by = (bound(nbytes, flops, rates) if dtype == torch.float32
+                  else (None, None))
+    ins = replicas(lambda: args + (av.clone(), bv.clone()), nbytes)
+    k_ms = device_ms(bsg.bsr_spgemm_blocks, ins, reps=10)
+    p_ms = device_ms(bsg.bsr_spgemm_reference, ins[:1], reps=2)
+    del ins
+    torch.cuda.empty_cache()
+    # the f32 case carries the main path's name (and its launch count)
+    return {"kernel": "bsr_spgemm",
+            "case": name if dtype == torch.float32 else f"{name}_{tname}",
+            "m": a.shape[0], "k": a.shape[1], "n": b.shape[1],
+            "blocks": [bh, bk_, bw], "nnzb_a": a.nnz_blocks,
+            "nnzb_b": b.nnz_blocks, "nnzb_c": plan.nnzb_c,
+            "pairs": npairs,
+            "empty_block_rows": int((a.block_rowptr[1:]
+                                     == a.block_rowptr[:-1]).sum()),
+            "max_abs_err": err, "kernel_ms": k_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "plain_ms": p_ms, "library_ms": None,
+            "flop_s": flops / (k_ms * 1e-3), "card": card}
+
+
+def bsr_spgemm_main(name, a, b, card):
+    """``multiply(scaled(2.0, A), B)`` on two BSR operands: counts read
+    around the first call, C held per entry against the float64 plain
+    sums, then 20 calls over distinct A values timed, host (the block
+    symbolic phase) included."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    c = sp.multiply(sp.scaled(2.0, a), b)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    log(f"[main] {name}: launches {launches}")
+    require(isinstance(c, BSR) and c.shape == (a.shape[0], b.shape[1])
+            and c.dtype == a.dtype
+            and bool(torch.isfinite(c.values).all()), f"{name}: bad result")
+    plan = bsg.bsr_spgemm_compute(a, b)
+    args = (plan.pair_ptr, plan.pair_a, plan.pair_b)
+    nc = plan.nnzb_c
+    require(c.nnz_blocks == nc, f"{name}: {c.nnz_blocks} C blocks")
+    ref = bsg.bsr_spgemm_reference(*args, a.values.double(),
+                                   b.values.double())
+    absd = bsg.bsr_spgemm_reference(*args, a.values.abs().double(),
+                                    b.values.abs().double())
+    np.testing.assert_array_equal(c.block_colind[:nc].cpu().numpy(),
+                                  plan.c_colind.cpu().numpy())
+    err = row_check(c.values[:nc], 2.0 * ref, absd, scale=2.0)
+    del ref, absd, c
+    torch.cuda.empty_cache()
+    ops = [sp.scaled(2.0, dataclasses.replace(a, values=a.values * s))
+           for s in (1.0, -0.5, 0.25, 2.0)]
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    reps = 20
+    e0.record()
+    for i in range(reps):
+        sp.multiply(ops[i % len(ops)], b)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / reps
+    bh, bk_ = a.block_shape
+    rec = {"main_path": name, "op": "spgemm", "kind": "bsr",
+           "m": a.shape[0], "k": a.shape[1], "n": b.shape[1],
+           "blocks": [bh, bk_, b.block_shape[1]], "nnzb_c": nc,
+           "pairs": plan.npairs, "launches": launches,
+           "max_abs_err_vs_f64": err, "first_call_s": first_s, "ms": ms,
+           "flop_s": 2 * plan.npairs * bh * bk_ * b.block_shape[1]
+           / (ms * 1e-3), "card": card}
+    emit(rec)
+    return rec
+
+
+def spgemm_phase(rates, card):
+    """The SpGEMM main paths and their kernels; returns (main-path
+    records, kernel records, deferred structure differences)."""
+    main, recs, deferred = [], [], []
+    for name, make, kind, expect in SPGEMM_MAIN:
+        a = make()
+        rec, info, a0_vals = spgemm_main(name, a, kind, expect, rates,
+                                         card, deferred)
+        main.append(rec)
+        a_arr = torch.cat([2.0 * a0_vals, a0_vals.new_ones(1)])
+        case = mul_case if kind == "resident" else mul_paned_case
+        recs.append(case(name, info.plan.route, a_arr, a.values, rates,
+                         card, rec["cusparse_spgemm_ms_with_symbolic"]))
+        del info, a
+        torch.cuda.empty_cache()
+    n_ent, cap, hubs, a_len, b_len, seed = MUL_HUB
+    slots, sa, sb, av, bv = mul_hub_stream(n_ent, cap, hubs, a_len, b_len,
+                                           seed)
+    plan = route2.build_route2_mul_plan(slots, sa, sb, a_len, b_len, cap,
+                                        device=DEVICE)
+    recs.append(mul_case("hub_slots_aux", plan, av, bv, rates, card))
+    require(recs[-1]["aux_levels"] > 1,
+            "route2_mul hub fixture has fewer than two aux levels")
+    n_ent, cap, hubs, a_len, b_len, seed, kw = MUL_PANED_HUB
+    slots, sa, sb, av, bv = mul_hub_stream(n_ent, cap, hubs, a_len, b_len,
+                                           seed)
+    plan = rmp.build_route2_mul_paned_plan(slots, sa, sb, a_len, b_len,
+                                           cap, device=DEVICE, **kw)
+    recs.append(mul_paned_case("hub_slots_paned", plan, av, bv, rates,
+                               card))
+    require(recs[-1]["panels"] > 1 and recs[-1]["panes"] > 1
+            and recs[-1]["panels_with_aux"] > 1,
+            "route2_mul_paned hub fixture misses panels, panes or aux")
+    del plan, slots, sa, sb, av, bv
+    name, sa_args, sb_args = BSR_SPGEMM_MAIN
+    a, b = random_bsr(*sa_args), random_bsr(*sb_args)
+    main.append(bsr_spgemm_main(name, a, b, card))
+    recs.append(bsr_spgemm_case(name, a, b, rates, card))
+    recs.append(bsr_spgemm_case(name, a, b, rates, card, torch.float64))
+    del a, b
+    name, sa_args, sb_args = BSR_SPGEMM_ONLY
+    a, b = random_bsr(*sa_args), random_bsr(*sb_args)
+    recs.append(bsr_spgemm_case(name, a, b, rates, card))
+    require(recs[-1]["empty_block_rows"] > 0,
+            "bsr_spgemm kernel case has no empty block row")
+    del a, b
+    torch.cuda.empty_cache()
+    return main, recs, deferred
 
 
 def run():
@@ -1129,8 +1571,14 @@ def run():
         cname, opt._plans["matmul"][1][0], ck, 99, rates, card,
         csr=dataclasses.replace(ca, values=ca.values.real.contiguous()))
     del ca, opt
+    torch.cuda.empty_cache()
+    # SpGEMM: the two-phase main paths on the mul engines, the block
+    # SpGEMM through multiply, and their kernels
+    spgemm_main_recs, spgemm_recs, deferred = spgemm_phase(rates, card)
+    main += spgemm_main_recs
+    tables = {"spmm": SPMM_KIND_KERNELS, "spgemm": SPGEMM_KIND_KERNELS}
     for r in main:
-        table = SPMM_KIND_KERNELS if r.get("op") == "spmm" else KIND_KERNELS
+        table = tables.get(r.get("op"), KIND_KERNELS)
         for k in table.get(r["kind"], ()):
             require(r["launches"][k] > 0,
                     f"{r['main_path']} ({r['kind']}) did not launch {k}")
@@ -1142,7 +1590,8 @@ def run():
     # main-path call on that matrix (0: a kernel-only shape)
     by_name = {r["main_path"]: r["launches"] for r in main}
     for r in (band_recs + list(dia_recs.values()) + route_recs + [unperm]
-              + v1_recs + paned_recs + spmm_band_recs + bsr_recs):
+              + v1_recs + paned_recs + spmm_band_recs + bsr_recs
+              + spgemm_recs):
         r["launches"] = by_name.get(r["case"], {}).get(r["kernel"], 0)
         emit(r)
 
@@ -1182,8 +1631,18 @@ def run():
         line("bsr_spmm", BSR_SPMM_SOURCE, BSR_SPMM_REPLACES,
              of(bsr_recs, "bsr_spmm", f"{bname}_k{bsr_k}")[0],
              of(bsr_recs, "bsr_spmm")),
+        line("route2_mul", MUL_SOURCE, MUL_REPLACES,
+             of(spgemm_recs, "route2_mul", SPGEMM_MAIN[0][0])[0],
+             of(spgemm_recs, "route2_mul")),
+        line("route2_mul_paned", MUL_PANED_SOURCE, MUL_PANED_REPLACES,
+             of(spgemm_recs, "route2_mul_paned", SPGEMM_MAIN[1][0])[0],
+             of(spgemm_recs, "route2_mul_paned")),
+        line("bsr_spgemm", BSR_SPGEMM_SOURCE, BSR_SPGEMM_REPLACES,
+             of(spgemm_recs, "bsr_spgemm", BSR_SPGEMM_MAIN[0])[0],
+             of(spgemm_recs, "bsr_spgemm")),
     ]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    require(not deferred, "; ".join(deferred))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -1,10 +1,11 @@
 """spblas_tpu_torch — the PyTorch and CUDA port of spblas_tpu.
 
 A second package beside the JAX one, grown slice by slice.  It carries
-SpMV and SpMM end to end: the CSR/CSC/COO/BSR containers, the lazy views
-and the ``matrix_opt`` plan cache, and the matvec and matmul plan
+SpMV, SpMM and SpGEMM end to end: the CSR/CSC/COO/BSR containers, the
+lazy views and the ``matrix_opt`` plan cache, the matvec and matmul plan
 ladders, whose structured and ROUTE rungs run kernels written by hand
-for Hopper (``csrc/``).  The kernels build on their first launch;
+for Hopper (``csrc/``), and the two-phase SpGEMM with its ROUTE2-mul
+engines and the block SpGEMM, on kernels of the same kind.  The kernels build on their first launch;
 importing the package builds nothing.  It imports torch and numpy,
 never JAX or ``spblas_tpu``.
 
@@ -33,6 +34,12 @@ from spblas_tpu_torch.ops.multiply import (
 )
 from spblas_tpu_torch.ops.spmv import spmv
 from spblas_tpu_torch.ops.spmm import spmm
+from spblas_tpu_torch.ops.spgemm import (
+    spgemm, spgemm_chunked, spgemm_compute, spgemm_csc, spgemm_fill,
+    SpgemmState,
+    multiply_symbolic_compute, multiply_symbolic_fill, multiply_numeric,
+    multiply_fused,
+)
 
 __version__ = "0.1.0"
 
@@ -44,5 +51,9 @@ __all__ = [
     "OperationInfo",
     "multiply", "multiply_inspect", "multiply_compute", "multiply_fill",
     "spmv", "spmm",
+    "spgemm", "spgemm_chunked", "spgemm_compute", "spgemm_csc",
+    "spgemm_fill", "SpgemmState",
+    "multiply_symbolic_compute", "multiply_symbolic_fill",
+    "multiply_numeric", "multiply_fused",
     "Config", "DEFAULT_CONFIG", "index_dtype", "real_dtype",
 ]

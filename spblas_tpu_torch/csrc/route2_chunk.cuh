@@ -1,5 +1,6 @@
 // The ROUTE2 chunk body, shared by route2_spmv.cu (resident plans) and
-// route_paned_spmv.cu (paned plans): one (8, 128) chunk of a ROUTE2
+// route_paned_spmv.cu (paned plans), and its slab-row route, which the
+// SpGEMM chunk body (route2_mul_chunk.cuh) shares too: one (8, 128) chunk of a ROUTE2
 // layout (spblas_tpu_torch/kernels/route2.py), run by a 128-thread block
 // whose thread j owns lane column j.  It is the Hopper form of
 // spblas_tpu/kernels/route2_kernel.py::_chunk_body.
@@ -55,6 +56,24 @@ __device__ __forceinline__ int bits(unsigned t, int shift, unsigned mask) {
   return static_cast<int>((t >> shift) & mask);
 }
 
+// The slab-row route of thread j's lane column: dst[a][j] = src[(sb +
+// r2[a, j]) * 128 + j], r2 the 8-bit field at bit `shift` of t[a],
+// bounded by the slab's 8g rows; rows at or past src_rows read 0.  The
+// caller synchronises the block before reading dst across lanes.
+__device__ __forceinline__ void slab_route(float (&dst)[kSubs][kLanes],
+                                           const unsigned (&t)[kSubs],
+                                           int shift, long long sb,
+                                           const float* src,
+                                           long long src_rows, int g) {
+  const int j = threadIdx.x;
+  const int r2_max = kSubs * g - 1;
+#pragma unroll
+  for (int a = 0; a < kSubs; ++a) {
+    const long long row = sb + min(bits(t[a], shift, 255), r2_max);
+    dst[a][j] = row < src_rows ? src[row * kLanes + j] : 0.f;
+  }
+}
+
 // Chunk k: slab base row sb of src, flag 0/1 (the chunk body) or 2 (hub
 // sum), publish window yb of dst.  rho (rotated plans only) holds
 // rho0 | rho1 << 10 per chunk.  All 128 threads of the block must call
@@ -76,13 +95,7 @@ __device__ __forceinline__ void chunk(
     v[a] = val[base + a * kLanes + j];
   }
 
-  // slab-row route: t1[a, j] = src[(sb + r2[a, j]) * 128 + j]
-  const int r2_max = kSubs * g - 1;
-#pragma unroll
-  for (int a = 0; a < kSubs; ++a) {
-    const long long row = sb + min(bits(t[a], 0, 255), r2_max);
-    sh.t1[a][j] = row < src_rows ? src[row * kLanes + j] : 0.f;
-  }
+  slab_route(sh.t1, t, 0, sb, src, src_rows, g);
   __syncthreads();
 
   float rs[kSubs];

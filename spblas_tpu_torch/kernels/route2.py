@@ -1,5 +1,6 @@
-"""ROUTE2 plan: the general-sparsity SpMV layout — the host builder of
-``spblas_tpu/kernels/route2.py`` (SpMV part) for the port.
+"""ROUTE2 plans: the general-sparsity SpMV layout and the fused SpGEMM
+numeric (ROUTE2-mul) — the host builders of
+``spblas_tpu/kernels/route2.py`` for the port.
 
 A plan cuts the matrix into (8, 128) chunks of 1024 slots.  One int32
 tile per chunk carries every routing field (bit layout below) and one f32
@@ -30,6 +31,16 @@ device; there is no python packer fallback (the native library builds or
 raises); and ``_drain_aux`` records the chunk index at which each aux
 level starts, carried as ``Route2Plan.launch_starts``, since CUDA blocks
 run in no order and each aux level is its own launch.
+
+The mul half (``Route2MulPlan``, ``build_route2_mul_plan``) packs a
+slot-sorted SpGEMM expansion stream (slot, A entry, B entry) into chunks
+with two gather chains, one into the A value pane and one into the B
+pane (aux chunks: the out pane), and no value tile; its kernel is
+``csrc/route2_mul.cu`` (wrapper ``route2_kernel.route2_mul``).  Its
+builder is JAX's too, every array bit-equal, with the same three
+differences (no python packer: ``_GatherSide``, ``_MulChunk`` and
+``_pack_mul_cell`` are not carried), and it records the chunk index at
+which each aux level starts as ``Route2MulPlan.launch_starts``.
 """
 
 from __future__ import annotations
@@ -824,3 +835,320 @@ def route2_spmv_numpy(plan: Route2Plan, x: np.ndarray) -> np.ndarray:
                 y2[yb + sw * SUBS: yb + (sw + 1) * SUBS] += \
                     np.where(subw == sw, RS, 0.0)
     return y2.reshape(-1)[:m]
+
+
+# ------------------------------------------------------------------ #
+# ROUTE2-mul: the fused SpGEMM numeric plan (dual gather chains)
+# ------------------------------------------------------------------ #
+#
+# No value tile: values come fresh from the A and B panes every call,
+# so a numeric run with new values needs no update step.  tile1 carries
+# the B chain and the common fields (r2, lf, sd2, dist, pend, vA at the
+# SpMV bit positions); tile2 the A chain:
+#   r2_a [0:8) at (aA, la) | lf_a [8:15) at (aA, jd) | sd2_a [15:18) at
+#   (d, jd)
+
+B2_R2, B2_LF, B2_SD2 = 0, 8, 15
+
+
+@dataclasses.dataclass(frozen=True)
+class Route2MulPlan:
+    """Resident fused SpGEMM numeric plan, its arrays on one device."""
+
+    tile1: torch.Tensor       # (nchunks, 8, 128) int32  B chain + common
+    tile2: torch.Tensor       # (nchunks, 8, 128) int32  A chain
+    a_base: torch.Tensor      # (nchunks,) int32  A slab offset (pane rows)
+    b_base: torch.Tensor      # (nchunks,) int32  B (or out) slab offset
+    src_flag: torch.Tensor    # (nchunks,) int32  0: B pane, 1: out pane
+    y_base: torch.Tensor      # (nchunks,) int32  out window offset
+    g_a: int
+    g_b: int
+    a_rows: int
+    b_rows: int
+    y_rows: int
+    aux_rows: int
+    n_aux_chunks: int
+    capacity: int
+    fill: float
+    dist_max: int = 7
+    # first chunk of each launch: (0,) then one start per aux level; no
+    # chunk of a launch reads a pane row another chunk of it writes
+    launch_starts: Tuple[int, ...] = (0,)
+
+    @property
+    def nchunks(self) -> int:
+        return int(self.tile1.shape[0])
+
+    @property
+    def pane_rows(self) -> int:
+        return self.y_rows + self.aux_rows
+
+    def launch_ranges(self) -> List[Tuple[int, int]]:
+        """[(lo, hi)) chunk range of each launch, in launch order."""
+        ends = self.launch_starts[1:] + (self.nchunks,)
+        return list(zip(self.launch_starts, ends))
+
+
+def mul_pane_g(length: int, max_g: int = MAX_G) -> int:
+    """Window factor spanning a value pane of ``length`` entries (the mul
+    chains address whole panes; shared with the paned builder so every
+    panel's geometry matches)."""
+    g = 1
+    while g * SLOTS < length and g < max_g:
+        g *= 2
+    return g
+
+
+def build_route2_mul_plan(slots, src_a, src_b, a_len: int, b_len: int,
+                          capacity: int, device=None) -> Route2MulPlan:
+    """Build the fused numeric plan from the slot-sorted (valid-only)
+    expansion stream, and place it on ``device`` (default ``cuda``).
+    ``a_len``/``b_len`` size the A/B panes (A has the constant-1 slot at
+    index a_len - 1, appended by the caller)."""
+    dev = _t.resolve_device(device)
+    A = _build_route2_mul_arrays(slots, src_a, src_b, a_len, b_len,
+                                 capacity)
+
+    def put(arr):
+        return torch.as_tensor(arr).to(dev)
+
+    return Route2MulPlan(
+        tile1=put(A["t1"]), tile2=put(A["t2"]), a_base=put(A["ab"]),
+        b_base=put(A["bb"]), src_flag=put(A["flags"]), y_base=put(A["yb"]),
+        g_a=A["g_a"], g_b=A["g_b"], a_rows=A["a_rows"], b_rows=A["b_rows"],
+        y_rows=A["y_rows"], aux_rows=A["aux_rows"],
+        n_aux_chunks=A["n_aux_chunks"], capacity=capacity, fill=A["fill"],
+        dist_max=A["dist_max"], launch_starts=A["launch_starts"])
+
+
+def _build_route2_mul_arrays(slots, src_a, src_b, a_len: int, b_len: int,
+                             capacity: int, g_a: Optional[int] = None,
+                             g_b: Optional[int] = None) -> dict:
+    """Host phase of :func:`build_route2_mul_plan`: sort, pack, aux
+    drain and flag alignment, as numpy arrays plus static fields and the
+    aux levels' ``launch_starts``.  The paned builder
+    (``kernels/route_mul_paned.py``) calls it per output-slot panel with
+    a common (g_a, g_b)."""
+    slots = np.asarray(slots, np.int64)
+    src_a = np.asarray(src_a, np.int64)
+    src_b = np.asarray(src_b, np.int64)
+
+    # both panes are covered whole (windows grow to span the full A / B
+    # value arrays, capped at g = 32)
+    if g_a is None:
+        g_a = mul_pane_g(a_len)
+    if g_b is None:
+        g_b = mul_pane_g(b_len)
+    win_a = g_a * SLOTS
+    win_b = g_b * SLOTS
+
+    y_rows = -(-max(capacity, 1) // ROW_WINDOW) * SUBS
+    stripe = slots // ROW_WINDOW
+    ka = src_a // win_a
+    kb = src_b // win_b
+    # packed single-key argsort (stripe, kb, ka, slots)
+    n_ka = int(ka.max()) + 2 if len(ka) else 1
+    n_kb = int(kb.max()) + 2 if len(kb) else 1
+    n_sl = int(slots.max()) + 2 if len(slots) else 1
+    key = ((stripe * n_kb + kb) * n_ka + ka)
+    srt = native.argsort_i64(key * n_sl + slots)
+    order = srt[0] if srt is not None else \
+        np.argsort(key * n_sl + slots, kind="stable")
+    slots, src_a, src_b = slots[order], src_a[order], src_b[order]
+    cell_key = key[order]
+
+    state = _MulBuildState(max(g_a, g_b), y_rows)
+    if len(slots):
+        bounds = np.flatnonzero(np.diff(cell_key)) + 1
+        starts = np.concatenate([[0], bounds])
+        _pack_mul_stream(slots, src_a, src_b, starts, win_a, win_b, state,
+                         src_flag=0)
+
+    # aux levels: reduction chunks reading the out pane; the A chain
+    # reads the constant-1 slot (index a_len - 1).  Each level reads slots
+    # only earlier levels wrote, so each starts a launch.
+    n_aux_chunks = 0
+    level = 0
+    level_starts = []
+    while state.aux_pending and level < 8:
+        level += 1
+        aux = state.aux_pending
+        state.aux_pending = []
+        a_slots = np.concatenate([p[0] for p in aux])
+        tgts = np.concatenate([p[1] for p in aux])
+        n_as = int(a_slots.max()) + 1 if len(a_slots) else 1
+        if len(tgts) and (int(tgts.max()) + 1) * n_as < (1 << 62):
+            srt2 = native.argsort_i64(tgts * n_as + a_slots)
+            order2 = srt2[0] if srt2 is not None else \
+                np.lexsort((a_slots, tgts))
+        else:
+            order2 = np.lexsort((a_slots, tgts))
+        first = state.n
+        level_starts.append(first)
+        # out-pane slots play the B-column role; windows sized win_b
+        key2 = (tgts[order2] // ROW_WINDOW
+                * (int(a_slots.max()) // win_b + 2)
+                + a_slots[order2] // win_b)
+        bounds2 = np.flatnonzero(np.diff(key2)) + 1
+        starts2 = np.concatenate([[0], bounds2])
+        _pack_mul_stream(tgts[order2],
+                         np.full(len(a_slots), a_len - 1, np.int64),
+                         a_slots[order2], starts2, win_a, win_b, state,
+                         src_flag=1)
+        n_aux_chunks += state.n - first
+    if state.aux_pending:
+        raise RuntimeError("route2-mul: aux levels did not drain in 8")
+
+    if not state.n:
+        state.append_empty()
+
+    t1_np = state.t1[0] if len(state.t1) == 1 else np.concatenate(state.t1)
+    t2_np = state.t2[0] if len(state.t2) == 1 else np.concatenate(state.t2)
+    ab_np = state.ab.stack()
+    bb_np = state.bb.stack()
+    yb_np = state.yb.stack()
+    flags_np = state.flags.stack()
+
+    # align the flag transition to a CB (= 8) chunk-group boundary, as the
+    # TPU kernel's grid wants; the zero pad chunks publish nothing
+    trans = np.flatnonzero(flags_np == 1)
+    if len(trans):
+        t0 = int(trans[0])
+        pad_n = (-t0) % 8
+        if pad_n:
+            zblk = np.zeros((pad_n, SUBS, LANES), np.int32)
+            t1_np = np.concatenate([t1_np[:t0], zblk, t1_np[t0:]])
+            t2_np = np.concatenate([t2_np[:t0], zblk, t2_np[t0:]])
+            at = [t0] * pad_n
+            ab_np = np.insert(ab_np, at, 0)
+            bb_np = np.insert(bb_np, at, 0)
+            yb_np = np.insert(yb_np, at, 0)
+            flags_np = np.insert(flags_np, at, 0)
+            level_starts = [s + pad_n for s in level_starts]
+
+    nchunks = t1_np.shape[0]
+    a_rows = -(-max(a_len, 1) // LANES)
+    a_rows = -(-a_rows // (SUBS * g_a)) * (SUBS * g_a)
+    b_rows = -(-max(b_len, 1) // LANES)
+    b_rows = -(-b_rows // (SUBS * g_b)) * (SUBS * g_b)
+    dist_max = _tile_dist_max(t1_np) if nchunks else 0
+    return dict(
+        t1=t1_np, t2=t2_np, ab=ab_np, bb=bb_np, flags=flags_np, yb=yb_np,
+        g_a=g_a, g_b=g_b, a_rows=a_rows, b_rows=b_rows, y_rows=y_rows,
+        aux_rows=(len(state.aux_windows) * SUBS + SUBS * max(g_a, g_b)
+                  if state.aux_windows else 0),
+        n_aux_chunks=n_aux_chunks,
+        fill=len(slots) / max(nchunks * SLOTS, 1), dist_max=dist_max,
+        launch_starts=(0,) + tuple(level_starts))
+
+
+def _pack_mul_stream(slots, sa, sb, starts, win_a, win_b,
+                     state: "_MulBuildState", src_flag: int) -> None:
+    """Pack a cell-sorted mul stream with the native packer
+    (``native/src/route2_pack.cpp`` spblas_route2_mul_pack)."""
+    ne = len(slots)
+    cell_start = np.concatenate([starts, [ne]]).astype(np.int64)
+    ls = (slots % ROW_WINDOW).astype(np.int32)
+    la_ = (sa % win_a).astype(np.int32)
+    lb_ = (sb % win_b).astype(np.int32)
+    (nch, t1, t2, chunk_cell, chunk_auxwin, n_windows, aux_slot,
+     aux_lslot, aux_cell) = native.route2_mul_pack(
+        ne, len(starts), cell_start, ls, la_, lb_,
+        aux_windows_in=len(state.aux_windows))
+    starts = np.asarray(starts, np.int64)
+    cell_ab = ((sa[starts] // win_a) * (win_a // LANES)).astype(np.int32)
+    cell_bb = ((sb[starts] // win_b) * (win_b // LANES)).astype(np.int32)
+    cell_yb = ((slots[starts] // ROW_WINDOW) * SUBS).astype(np.int32)
+    if state.aux_windows == [] and n_windows:
+        state.aux_base = state.y_rows
+    while len(state.aux_windows) < n_windows:
+        state.aux_windows.append(np.full(LANES, SUBS, np.int64))
+    yb = np.where(chunk_auxwin < 0, cell_yb[chunk_cell],
+                  state.aux_base + chunk_auxwin * SUBS).astype(np.int32)
+    state.t1.append(np.ascontiguousarray(t1))
+    state.t2.append(np.ascontiguousarray(t2))
+    state.n += int(nch)
+    state.ab.extend(cell_ab[chunk_cell])
+    state.bb.extend(cell_bb[chunk_cell])
+    state.yb.extend(yb)
+    state.flags.extend_const(src_flag, nch)
+    if len(aux_slot):
+        state.aux_pending.append((
+            state.aux_base * LANES + np.asarray(aux_slot, np.int64),
+            cell_yb[aux_cell].astype(np.int64) * LANES
+            + np.asarray(aux_lslot, np.int64)))
+
+
+class _MulBuildState:
+    """t1/t2 hold blocks of chunks ((k, 8, 128) each, one per packer
+    call); ``n`` counts chunks.  aux_pending holds (abs_slots, targets)
+    int64 array pairs."""
+
+    def __init__(self, g, y_rows):
+        self.g = g
+        self.y_rows = y_rows
+        self.t1, self.t2 = [], []
+        self.n = 0
+        self.ab = _RunList((), np.int32)
+        self.bb = _RunList((), np.int32)
+        self.yb = _RunList((), np.int32)
+        self.flags = _RunList((), np.int32)
+        self.aux_windows = []
+        self.aux_base = 0
+        self.aux_pending = []
+
+    def append_empty(self):
+        self.t1.append(np.zeros((1, SUBS, LANES), np.int32))
+        self.t2.append(np.zeros((1, SUBS, LANES), np.int32))
+        self.n += 1
+        for runs in (self.ab, self.bb, self.yb, self.flags):
+            runs.append_fill(1)
+
+
+def route2_mul_numpy(plan: Route2MulPlan, a_arr, b_arr) -> np.ndarray:
+    """Exact numpy mirror of the mul kernel on an in-order grid (aux
+    chunks read the out pane as earlier chunks left it; the prefix's
+    wrapped rows are zero)."""
+    A = np.zeros((plan.a_rows, LANES), np.float32)
+    A.reshape(-1)[: len(a_arr)] = np.asarray(a_arr, np.float32)
+    B = np.zeros((plan.b_rows, LANES), np.float32)
+    B.reshape(-1)[: len(b_arr)] = np.asarray(b_arr, np.float32)
+    O = np.zeros((plan.pane_rows, LANES), np.float32)
+    t1s, t2s = _t.to_numpy(plan.tile1), _t.to_numpy(plan.tile2)
+    abs_, bbs = _t.to_numpy(plan.a_base), _t.to_numpy(plan.b_base)
+    ybs, fls = _t.to_numpy(plan.y_base), _t.to_numpy(plan.src_flag)
+    jj = np.broadcast_to(np.arange(LANES)[None, :], (SUBS, LANES))
+    ii = np.broadcast_to(np.arange(SUBS)[:, None], (SUBS, LANES))
+
+    def chain(t, slab, g, b_r2, b_lf, b_sd2):
+        r2 = (t >> b_r2) & 255
+        u = slab[np.minimum(r2, SUBS * g - 1), jj]
+        u = u[ii, (t >> b_lf) & 127]
+        return u[(t >> b_sd2) & 7, jj]
+
+    def slab_of(pane, base, g):
+        s = np.zeros((SUBS * g, LANES), np.float32)
+        avail = min(SUBS * g, pane.shape[0] - base)
+        if avail > 0:
+            s[:avail] = pane[base:base + avail]
+        return s
+
+    for k in range(plan.nchunks):
+        t1 = t1s[k].astype(np.int64)
+        t2 = t2s[k].astype(np.int64)
+        pane_b = B if fls[k] == 0 else O
+        ta = chain(t2, slab_of(A, int(abs_[k]), plan.g_a), plan.g_a,
+                   B2_R2, B2_LF, B2_SD2)
+        tb = chain(t1, slab_of(pane_b, int(bbs[k]), plan.g_b), plan.g_b,
+                   B_R2, B_LF, B_SD2)
+        c = ta * tb
+        dist = (t1 >> B_DIST) & 7
+        P = c.copy()
+        for d in (1, 2, 4):
+            sh = np.roll(P, d, axis=0)
+            sh[:d] = 0
+            P = P + np.where(dist >= d, sh, 0.0)
+        RS = P[(t1 >> B_PEND) & 7, jj] * ((t1 >> B_VA) & 1)
+        yb = int(ybs[k])
+        O[yb:yb + SUBS] += RS
+    return O.reshape(-1)[: plan.capacity]

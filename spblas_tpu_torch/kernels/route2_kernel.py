@@ -1,5 +1,6 @@
-"""ROUTE2 chunk SpMV — counterpart of ``spblas_tpu/kernels/route2_kernel.py``
-(``route2_spmv``, ``route2_dispatch``).
+"""ROUTE2 chunk SpMV and the fused SpGEMM numeric — counterpart of
+``spblas_tpu/kernels/route2_kernel.py`` (``route2_spmv``,
+``route2_dispatch``, ``route2_mul``).
 
 On a CUDA tensor :func:`route2_spmv_padded` launches the hand-written
 kernel ``csrc/route2_spmv.cu`` (which replaces the TPU kernel
@@ -16,6 +17,12 @@ pane.  No chunk of a launch reads a pane row another chunk of the same
 launch writes, so each launch may run its chunks in any order; chunks
 publish with atomic adds, so sums into one row are taken in another
 order than the TPU's.
+
+The SpGEMM numeric (:func:`route2_mul`) runs a ``Route2MulPlan`` the same
+way: :func:`route2_mul_padded` launches ``csrc/route2_mul.cu`` (which
+replaces ``route2_kernel.py::_route2_mul_kernel``) once over the flag-0
+chunks, reading the B pane, then once per aux level, reading the out
+pane; CPU tensors take :func:`route2_mul_reference`.
 """
 
 from __future__ import annotations
@@ -27,9 +34,11 @@ import torch.nn.functional as F
 
 from spblas_tpu_torch import _build
 from spblas_tpu_torch import types as _t
-from spblas_tpu_torch.kernels.route2 import (B_DIST, B_LF, B_LSRC, B_PEND,
-                                             B_R2, B_SD2, B_SEL, B_SUBW,
-                                             B_VA, LANES, SUBS, Route2Plan)
+from spblas_tpu_torch.kernels.route2 import (B2_LF, B2_R2, B2_SD2, B_DIST,
+                                             B_LF, B_LSRC, B_PEND, B_R2,
+                                             B_SD2, B_SEL, B_SUBW, B_VA,
+                                             LANES, SUBS, Route2MulPlan,
+                                             Route2Plan)
 
 
 def pack_x2(plan: Route2Plan, x: torch.Tensor) -> torch.Tensor:
@@ -53,6 +62,16 @@ def _field(t: torch.Tensor, bit: int, mask: int) -> torch.Tensor:
     return (t >> bit) & mask
 
 
+def _slab_route(r2, base, src, g: int) -> torch.Tensor:
+    """u[k, a, l] = src[base[k] + r2[k, a, l], l]; slab rows bounded by
+    the slab's 8g rows, rows past ``src`` read 0."""
+    jj = torch.arange(LANES, device=r2.device).view(1, 1, LANES)
+    row = base.long().view(-1, 1, 1) + r2.clamp(max=SUBS * g - 1)
+    inside = row < src.shape[0]
+    return torch.where(inside, src[row.clamp(max=src.shape[0] - 1), jj],
+                       0.0)
+
+
 def chunk_reference(tile: torch.Tensor, val: torch.Tensor,
                     slab_base: torch.Tensor, y_base: torch.Tensor,
                     src_flag: torch.Tensor, rho, src: torch.Tensor,
@@ -70,11 +89,7 @@ def chunk_reference(tile: torch.Tensor, val: torch.Tensor,
     ii = torch.arange(SUBS, device=dev).view(1, SUBS, 1)
     jj = torch.arange(LANES, device=dev).view(1, 1, LANES)
 
-    # t1[a, l] = src[sb + r2[a, l], l]; rows past the pane read 0
-    r2 = _field(t, B_R2, 255).clamp(max=SUBS * g - 1)
-    row = slab_base.long().view(k, 1, 1) + r2
-    inside = row < src.shape[0]
-    t1 = torch.where(inside, src[row.clamp(max=src.shape[0] - 1), jj], 0.0)
+    t1 = _slab_route(_field(t, B_R2, 255), slab_base, src, g)
     va = _field(t, B_VA, 1).float()
 
     t2 = torch.gather(t1, 2, _field(t, B_LF, 127))       # lane gather
@@ -202,3 +217,157 @@ def route2_spmv(plan: Route2Plan, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x through a ROUTE2 plan, in x's dtype (computed in f32)."""
     pane = route2_spmv_padded(plan, pack_x2(plan, x))
     return pane.view(-1)[: plan.shape[0]].to(x.dtype)
+
+
+# ------------------------------------------------------------------ #
+# ROUTE2-mul: the fused SpGEMM numeric (dual gather chains)
+# ------------------------------------------------------------------ #
+
+# chunks per step of the plain versions
+_REF_BLOCK = 4096
+
+
+def _gather_chain(t, base, src, g: int, b_r2: int, b_lf: int,
+                  b_sd2: int) -> torch.Tensor:
+    u = _slab_route(_field(t, b_r2, 255), base, src, g)
+    u = torch.gather(u, 2, _field(t, b_lf, 127))          # lane gather
+    return torch.gather(u, 1, _field(t, b_sd2, 7))        # depth drop
+
+
+def mul_chunk_reference(tile1: torch.Tensor, tile2: torch.Tensor,
+                        a_base: torch.Tensor, b_base: torch.Tensor,
+                        y_base: torch.Tensor, a2: torch.Tensor,
+                        src: torch.Tensor, out: torch.Tensor, *, g_a: int,
+                        g_b: int, dist_max: int) -> None:
+    """The ROUTE2-mul chunk body over k chunks at once (``tile1``,
+    ``tile2`` (k, 8, 128); ``a_base``, ``b_base``, ``y_base`` (k,)):
+    gather from the A pane ``a2`` and from ``src`` (rows, 128) as they
+    stand, then publish into ``out`` (rows, 128).  The plain version of
+    ``csrc/route2_mul_chunk.cuh``."""
+    t1, t2 = tile1.long(), tile2.long()
+    k = t1.shape[0]
+    ii = torch.arange(SUBS, device=t1.device).view(1, SUBS, 1)
+    jj = torch.arange(LANES, device=t1.device).view(1, 1, LANES)
+    p = (_gather_chain(t2, a_base, a2, g_a, B2_R2, B2_LF, B2_SD2)
+         * _gather_chain(t1, b_base, src, g_b, B_R2, B_LF, B_SD2))
+    dist = _field(t1, B_DIST, 7)
+    for d in (1, 2, 4):
+        if d > dist_max:
+            break
+        sh = torch.roll(p, d, dims=1)
+        sh[:, :d] = 0
+        p = p + torch.where(dist >= d, sh, 0.0)
+    rs = torch.gather(p, 1, _field(t1, B_PEND, 7))
+    dest_row = y_base.long().view(k, 1, 1) + ii
+    keep = (_field(t1, B_VA, 1) == 1) & (dest_row < out.shape[0])
+    dest = (dest_row * LANES + jj).expand(k, SUBS, LANES)
+    out.view(-1).index_add_(0, dest[keep], rs[keep])
+
+
+def mul_out_rows(plan: Route2MulPlan) -> int:
+    """Rows of the out pane: at least one B slab tall, as the TPU
+    kernel's (rows past the plan's pane stay 0)."""
+    return max(plan.pane_rows, SUBS * plan.g_b)
+
+
+def pad_pane(values: torch.Tensor, rows: int) -> torch.Tensor:
+    """A value array as a mul kernel reads it: the flat f32 pane of
+    ``rows`` rows of 128, zeros past the values."""
+    return F.pad(values.float(), (0, rows * LANES - values.shape[0])
+                 ).contiguous()
+
+
+def pack_mul_panes(plan: Route2MulPlan, a_arr: torch.Tensor,
+                   b_arr: torch.Tensor):
+    """The A and B panes of a resident plan (``a_rows``, ``b_rows``)."""
+    return pad_pane(a_arr, plan.a_rows), pad_pane(b_arr, plan.b_rows)
+
+
+def route2_mul_reference(plan: Route2MulPlan, a2: torch.Tensor,
+                         b2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the zeroed out pane, then
+    each launch range in blocks of chunks (advanced indexing for the
+    gathers, ``roll`` and a mask for the prefix, ``index_add_`` for the
+    publish), in launch order.  Returns the (rows, 128) f32 out pane."""
+    a_s, b_s = a2.view(-1, LANES), b2.view(-1, LANES)
+    out = torch.zeros(mul_out_rows(plan), LANES, dtype=torch.float32,
+                      device=a2.device)
+    for i, (lo, hi) in enumerate(plan.launch_ranges()):
+        src = b_s if i == 0 else out
+        for b0 in range(lo, hi, _REF_BLOCK):
+            b1 = min(b0 + _REF_BLOCK, hi)
+            mul_chunk_reference(
+                plan.tile1[b0:b1], plan.tile2[b0:b1], plan.a_base[b0:b1],
+                plan.b_base[b0:b1], plan.y_base[b0:b1], a_s, src, out,
+                g_a=plan.g_a, g_b=plan.g_b, dist_max=plan.dist_max)
+    return out
+
+
+def _check_mul_operands(plan: Route2MulPlan, a2: torch.Tensor,
+                        b2: torch.Tensor) -> None:
+    ints = (plan.tile1, plan.tile2, plan.a_base, plan.b_base,
+            plan.y_base, plan.src_flag)
+    if any(t.device != a2.device for t in ints + (b2,)):
+        raise ValueError(f"plan on {plan.tile1.device}, panes on "
+                         f"{a2.device} and {b2.device}")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError("plan arrays must be int32")
+    if a2.dtype != torch.float32 or b2.dtype != torch.float32:
+        raise TypeError(f"panes must be float32, got {a2.dtype} and "
+                        f"{b2.dtype}")
+    nc = plan.nchunks
+    if plan.tile1.shape != (nc, SUBS, LANES) \
+            or plan.tile2.shape != plan.tile1.shape \
+            or any(t.shape != (nc,) for t in ints[2:]) \
+            or a2.shape != (plan.a_rows * LANES,) \
+            or b2.shape != (plan.b_rows * LANES,):
+        raise ValueError(f"bad shapes: tile1 {tuple(plan.tile1.shape)}, "
+                         f"a2 {tuple(a2.shape)}, b2 {tuple(b2.shape)}")
+    if not all(t.is_contiguous() for t in ints + (a2, b2)):
+        raise ValueError("plan arrays and panes must be contiguous")
+
+
+# (tile1, tile2, a_base, b_base, y_base, lo, hi, A, a_rows, src,
+#  src_rows, out, out_rows, g_a, g_b, dist_max, stream) of route2_mul_f32
+_MUL_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_longlong,) * 2 + (
+    ctypes.c_void_p, ctypes.c_longlong) * 3 + (
+    ctypes.c_int,) * 3 + (ctypes.c_void_p,)
+
+
+def route2_mul_padded(plan: Route2MulPlan, a2: torch.Tensor,
+                      b2: torch.Tensor) -> torch.Tensor:
+    """The plan over the packed panes ``a2`` and ``b2`` (from
+    :func:`pack_mul_panes`); returns the (rows, 128) f32 out pane.  CUDA
+    tensors launch ``route2_mul.cu`` once per launch range, on the
+    current stream; CPU tensors take :func:`route2_mul_reference`."""
+    _check_mul_operands(plan, a2, b2)
+    if not _t.on_cuda(a2):
+        return route2_mul_reference(plan, a2, b2)
+    rows = mul_out_rows(plan)
+    out = torch.zeros(rows, LANES, dtype=torch.float32, device=a2.device)
+    stream = torch.cuda.current_stream(a2.device).cuda_stream
+    fn = _build.function("route2_mul", "route2_mul_f32", _MUL_ARGTYPES)
+    for i, (lo, hi) in enumerate(plan.launch_ranges()):
+        if hi <= lo:
+            continue
+        src, src_rows = (b2, plan.b_rows) if i == 0 else (out, rows)
+        _build.check(fn(
+            plan.tile1.data_ptr(), plan.tile2.data_ptr(),
+            plan.a_base.data_ptr(), plan.b_base.data_ptr(),
+            plan.y_base.data_ptr(), lo, hi, a2.data_ptr(), plan.a_rows,
+            src.data_ptr(), src_rows, out.data_ptr(), rows, plan.g_a,
+            plan.g_b, plan.dist_max, stream), "route2_mul")
+        route2_mul_padded.launches += 1
+    return out
+
+
+route2_mul_padded.launches = 0
+
+
+def route2_mul(plan: Route2MulPlan, a_arr: torch.Tensor,
+               b_arr: torch.Tensor) -> torch.Tensor:
+    """c_values (capacity,) f32 = the slot sums of A_arr[sa] * B_arr[sb]
+    (values fresh from the panes, so a new-values run needs no update
+    step)."""
+    out = route2_mul_padded(plan, *pack_mul_panes(plan, a_arr, b_arr))
+    return out.view(-1)[: plan.capacity]

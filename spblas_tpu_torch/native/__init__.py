@@ -127,6 +127,14 @@ def _declare(lib):
     lib.spblas_expand_rowptr.argtypes = [i64, i64, i64p, i64p]
     lib.spblas_rcm.restype = i64
     lib.spblas_rcm.argtypes = [i64, i64, i64p, i32p, i64p]
+    lib.spblas_mul_expand.restype = i64
+    lib.spblas_mul_expand.argtypes = [
+        i64, i64, i64p, i32p, i64, i64p, i32p, i64, i64p, i32p,
+        i64, i64, i64, i64p, i64p, i64p]
+    lib.spblas_route2_mul_pack.restype = i64
+    lib.spblas_route2_mul_pack.argtypes = [
+        i64, i64, i64p, i32p, i32p, i32p, i64, i64,
+        i32p, i32p, i32p, i32p, i64p, i64p, i32p, i32p]
 
 
 def route2_pack(ne, ncells, cell_start, lrow, lcol, aux_windows_in=0,
@@ -185,6 +193,77 @@ def route2_pack(ne, ncells, cell_start, lrow, lcol, aux_windows_in=0,
                 int(aux_info[1]), aux_slot[:na], aux_lrow[:na],
                 aux_cell[:na], spill_idx, chunk_rho[:nch])
     raise RuntimeError("spblas_route2_pack: chunk buffer kept overflowing")
+
+
+def route2_mul_pack(ne, ncells, cell_start, lslot, la, lb,
+                    aux_windows_in=0):
+    """Native ROUTE2-mul chunk packing (the mul builder's hot loop).
+
+    Returns (nch, t1, t2, chunk_cell, chunk_auxwin, n_aux_windows,
+    aux_slot, aux_lslot, aux_cell)."""
+    lib = get_lib()
+    cell_start = np.ascontiguousarray(cell_start, np.int64)
+    lslot = np.ascontiguousarray(lslot, np.int32)
+    la = np.ascontiguousarray(la, np.int32)
+    lb = np.ascontiguousarray(lb, np.int32)
+    max_chunks = int(ne // 256 + 4 * ncells + 16)
+    for _ in range(4):
+        # np.empty: see route2_pack
+        t1 = np.empty(max_chunks * 1024, np.int32)
+        t2 = np.empty(max_chunks * 1024, np.int32)
+        chunk_cell = np.empty(max_chunks, np.int32)
+        chunk_auxwin = np.empty(max_chunks, np.int32)
+        aux_info = np.zeros(2, np.int64)
+        aux_slot = np.empty(max(ne, 1), np.int64)
+        aux_lslot = np.empty(max(ne, 1), np.int32)
+        aux_cell = np.empty(max(ne, 1), np.int32)
+        rc = lib.spblas_route2_mul_pack(
+            ne, ncells, cell_start, lslot, la, lb, max_chunks,
+            int(aux_windows_in), t1, t2, chunk_cell, chunk_auxwin,
+            aux_info, aux_slot, aux_lslot, aux_cell)
+        if rc == -1:
+            max_chunks *= 4
+            continue
+        if rc < 0:
+            raise RuntimeError(
+                f"spblas_route2_mul_pack failed with code {rc}")
+        nch = int(rc)
+        na = int(aux_info[0])
+        return (nch, t1[: nch * 1024].reshape(nch, 8, 128),
+                t2[: nch * 1024].reshape(nch, 8, 128),
+                chunk_cell[:nch], chunk_auxwin[:nch],
+                int(aux_info[1]), aux_slot[:na], aux_lslot[:na],
+                aux_cell[:na])
+    raise RuntimeError(
+        "spblas_route2_mul_pack: chunk buffer kept overflowing")
+
+
+def mul_expand(m, a_nnz, a_rowptr, a_colind, b_nnz, b_rowptr, b_colind,
+               d_nnz, d_rowptr, d_colind, a_cap, b_cap, e_total):
+    """Fused SpGEMM expansion stream for the mul engine build: (slots,
+    sa, sb, result_nnz) in (row, col)-sorted order, stable within a
+    (row, col) group (A·B expansion entries first, then D, whose entries
+    read A's constant-1 slot ``a_cap`` and B-side slot ``b_cap + t``)."""
+    lib = get_lib()
+    a_rowptr = np.ascontiguousarray(a_rowptr, np.int64)
+    a_colind = np.ascontiguousarray(a_colind, np.int32)
+    b_rowptr = np.ascontiguousarray(b_rowptr, np.int64)
+    b_colind = np.ascontiguousarray(b_colind, np.int32)
+    d_rowptr = np.ascontiguousarray(
+        d_rowptr if d_nnz else np.zeros(1, np.int64), np.int64)
+    d_colind = np.ascontiguousarray(
+        d_colind if d_nnz else np.zeros(1, np.int32), np.int32)
+    slots = np.zeros(max(e_total, 1), np.int64)
+    sa = np.zeros(max(e_total, 1), np.int64)
+    sb = np.zeros(max(e_total, 1), np.int64)
+    rc = lib.spblas_mul_expand(
+        m, a_nnz, a_rowptr, a_colind, b_nnz, b_rowptr, b_colind,
+        d_nnz, d_rowptr, d_colind, a_cap, b_cap, e_total,
+        slots, sa, sb)
+    if rc < 0:
+        raise RuntimeError(f"spblas_mul_expand: the expansion does not "
+                           f"have {e_total} entries")
+    return slots[:e_total], sa[:e_total], sb[:e_total], int(rc)
 
 
 def route_pack(ne, ncells, cell_start, lrow, lcol):

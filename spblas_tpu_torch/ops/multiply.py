@@ -2,9 +2,9 @@
 protocol, counterpart of ``spblas_tpu/ops/multiply.py``.
 
 Sparse times a dense vector runs SpMV, sparse (or dense) times a dense
-matrix SpMM, and dense times sparse the transpose identity over SpMM.
-SpGEMM raises ``NotImplementedError`` naming the ROADMAP item that ports
-it.
+matrix SpMM, dense times sparse the transpose identity over SpMM, and
+sparse times sparse SpGEMM (``ops/spgemm.py``), whose two phases are
+``multiply_compute`` and ``multiply_fill``.
 """
 
 from __future__ import annotations
@@ -17,11 +17,10 @@ from spblas_tpu_torch.formats.convert import to_csr
 from spblas_tpu_torch.formats.csc import CSC
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.info import OperationInfo
+from spblas_tpu_torch.ops.spgemm import spgemm, spgemm_compute, spgemm_fill
 from spblas_tpu_torch.ops.spmm import spmm
 from spblas_tpu_torch.ops.spmv import spmv
 from spblas_tpu_torch.utils.logging import traced
-
-_NOT_PORTED = {"spgemm": "SpGEMM is ROADMAP Queue 1 item 10"}
 
 
 def _kind(a_view, b_view):
@@ -39,12 +38,6 @@ def _kind(a_view, b_view):
     return "spmm"  # sparse·dense and dense·dense both go to spmm
 
 
-def _not_ported(kind):
-    raise NotImplementedError(
-        f"{kind} is not ported to spblas_tpu_torch yet: "
-        f"{_NOT_PORTED[kind]}")
-
-
 def _debug_validate(*tensors):
     """SPBLAS_DEBUG=1 -> host-side structural checks before dispatch."""
     if os.environ.get("SPBLAS_DEBUG") != "1":
@@ -58,14 +51,14 @@ def _debug_validate(*tensors):
 @traced
 def multiply(a, b, c_capacity: Optional[int] = None):
     """c = a @ b with views folded, on the operands' device; the result
-    is a dense vector or matrix.  Sparse·sparse (SpGEMM) is not ported
-    yet."""
+    type follows the operand types (dense vector, dense matrix, or a
+    sparse matrix for sparse·sparse)."""
     _debug_validate(a, b)
     kind = _kind(a, b)
     if kind == "spmv":
         return spmv(a, b)
     if kind == "spgemm":
-        _not_ported(kind)
+        return spgemm(a, b, c_capacity=c_capacity)
     if kind == "dense_sparse":
         return _dense_sparse(a, b)
     return spmm(a, b)
@@ -98,13 +91,18 @@ def multiply_inspect(a, b) -> OperationInfo:
 @traced
 def multiply_compute(a, b, c_capacity: Optional[int] = None
                      ) -> OperationInfo:
-    """Symbolic phase: the inspect no-op for SpMV and SpMM."""
+    """Symbolic phase.  For SpGEMM this runs the sort-based structure
+    pass and reads result_nnz to the host; for SpMV and SpMM it is the
+    inspect no-op."""
     if _kind(a, b) == "spgemm":
-        _not_ported("spgemm")
+        return spgemm_compute(a, b, c_capacity=c_capacity)
     return multiply_inspect(a, b)
 
 
 @traced
 def multiply_fill(info: OperationInfo, a, b, c=None):
-    """Numeric phase (fill == numeric multiply)."""
+    """Numeric phase (fill == numeric multiply); SpGEMM fills the
+    structure ``info`` carries."""
+    if _kind(a, b) == "spgemm":
+        return spgemm_fill(info, a, b, c=c)
     return multiply(a, b)

@@ -8,14 +8,18 @@ bit.  With these, both packages run on the same matrix and the same plan.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.kernels.banded import BandPlan, PermutedBandPlan
+from spblas_tpu_torch.kernels.bsr_spgemm import BsrSpgemmPlan
 from spblas_tpu_torch.kernels.dia import DiaPlan
 from spblas_tpu_torch.kernels.plans import SortedRoutePlan
-from spblas_tpu_torch.kernels.route2 import SUBS, Route2Plan
+from spblas_tpu_torch.kernels.route2 import SUBS, Route2MulPlan, Route2Plan
+from spblas_tpu_torch.kernels.route_mul_paned import (MulPanedPanel,
+                                                      Route2MulPanedPlan)
 from spblas_tpu_torch.kernels.route_paned import (CB, PanedPanel,
                                                   RoutePanedPlan)
 from spblas_tpu_torch.kernels.route_plan import RoutePlan
@@ -194,3 +198,55 @@ def route_paned_plan_from_numpy(panels: list, static: dict, device=None
             **{k: _t.as_tensor(v, dev) for k, v in a.items()}, **pstatic,
             launch_starts=tuple(sorted(set(starts)))))
     return RoutePanedPlan(panels=tuple(out), **static)
+
+
+def route2_mul_plan_from_numpy(arrays: dict, static: dict,
+                               device=None) -> Route2MulPlan:
+    """A Route2MulPlan over a JAX one's arrays (as numpy, keyed by field
+    name: tile1, tile2, a_base, b_base, src_flag, y_base) and its static
+    fields (g_a, g_b, a_rows, b_rows, y_rows, aux_rows, n_aux_chunks,
+    capacity, fill, dist_max).  The carried plan records no aux levels,
+    so its launch starts come from :func:`route2_launch_starts` over the
+    B-side slabs (8 * g_b rows) and the 8-row out windows."""
+    dev = _t.resolve_device(device)
+    starts = route2_launch_starts(arrays["src_flag"], arrays["b_base"],
+                                  arrays["y_base"], int(static["g_b"]), 1)
+    return Route2MulPlan(
+        **{k: _t.as_tensor(np.asarray(v), dev) for k, v in arrays.items()},
+        **static, launch_starts=starts)
+
+
+def route2_mul_paned_plan_from_numpy(panels: list, static: dict,
+                                     device=None) -> Route2MulPanedPlan:
+    """A Route2MulPanedPlan over a JAX one: ``panels`` one (arrays,
+    static) pair per panel (t1, t2, ab, bb, yb, fl, eva, evb, evw, evs;
+    slots, out_rows, has_aux, dist_max), ``static`` the plan's (g_a, g_b,
+    a_rows, b_rows_pad, pane_rows, capacity, fill).  Each chunk's B pane
+    comes from the event streams (:func:`paned_chunk_panes`) and the
+    launch starts conservatively from :func:`route2_launch_starts`."""
+    dev = _t.resolve_device(device)
+    out = []
+    for arrays, pstatic in panels:
+        a = {k: np.asarray(v) for k, v in arrays.items()}
+        a["pane"] = paned_chunk_panes(a["fl"], a["eva"], a["evb"], a["evs"])
+        starts = route2_launch_starts(a["fl"], a["bb"], a["yb"],
+                                      int(static["g_b"]), 1)
+        out.append(MulPanedPanel(
+            **{k: _t.as_tensor(v, dev) for k, v in a.items()}, **pstatic,
+            launch_starts=tuple(sorted(set(starts)))))
+    return Route2MulPanedPlan(panels=tuple(out), **static)
+
+
+def bsr_spgemm_plan_from_numpy(pair_ptr, pair_a, pair_b, c_rowptr,
+                               c_colind, shape, block_shape,
+                               device=None) -> BsrSpgemmPlan:
+    """A BsrSpgemmPlan over a JAX one's pair lists and C structure."""
+    dev = _t.resolve_device(device)
+    return BsrSpgemmPlan(
+        pair_ptr=_t.as_tensor(np.asarray(pair_ptr), dev, torch.int32),
+        pair_a=_t.as_tensor(np.asarray(pair_a), dev, torch.int32),
+        pair_b=_t.as_tensor(np.asarray(pair_b), dev, torch.int32),
+        c_rowptr=_t.as_tensor(np.asarray(c_rowptr), dev, _t.offset_dtype),
+        c_colind=_t.as_tensor(np.asarray(c_colind), dev, _t.index_dtype),
+        shape=(int(shape[0]), int(shape[1])),
+        block_shape=(int(block_shape[0]), int(block_shape[1])))

@@ -18,14 +18,19 @@ from spblas_tpu.formats.bsr import BSR as JBSR
 from spblas_tpu.formats.convert import bsr_to_csr as jax_bsr_to_csr
 from spblas_tpu.kernels.bsr_pallas import bsr_spmm as jax_bsr_spmm
 from spblas_tpu.kernels.bsr_pallas import bsr_spmv as jax_bsr_spmv
+from spblas_tpu.kernels.bsr_spgemm import (bsr_spgemm_compute as
+                                           jax_bsr_spgemm_compute,
+                                           bsr_spgemm_numeric as
+                                           jax_bsr_spgemm_numeric)
 
 import spblas_tpu_torch as tsp
+from spblas_tpu_torch.kernels import bsr_spgemm as tbs
 from spblas_tpu_torch.formats.convert import to_csr as port_to_csr
 from spblas_tpu_torch.kernels import bsr_kernels as bk
 from spblas_tpu_torch.utils import interop
 
 from tests.torch_util import (  # noqa: F401
-    assert_entries_close, assert_rows_close, one_torch_thread, to_np)
+    EPS32, assert_entries_close, assert_rows_close, one_torch_thread, to_np)
 
 # (m, n, block shape, stored blocks): the chooser's 8x128 blocks, and
 # the 8x8 and 128x128 blocks the base path receives
@@ -231,3 +236,124 @@ def test_bsr_kernel_wrappers_check_operands():
         bk.bsr_spmm_blocks(b.values, b.block_rowptr, b.block_colind, x)
     with pytest.raises(ValueError, match="bsr_spmv"):
         bk.bsr_spmv(b, torch.zeros(47))
+
+
+# ------------------------------------------------------------------ #
+# block SpGEMM
+# ------------------------------------------------------------------ #
+
+# tests/test_bsr.py's block SpGEMM shapes: (A: m, k, block, stored
+# blocks, seed; B: n, block, stored blocks, seed)
+SPGEMM_SHAPES = {"8x128_128x128": ((64, 512, (8, 128), 16, 1),
+                                   (384, (128, 128), 10, 2)),
+                 "reuse_8x128": ((32, 256, (8, 128), 8, 3),
+                                 (256, (128, 128), 4, 4))}
+
+
+def _spgemm_pair(name, empty_rows=()):
+    (m, k, ablk, na, sa), (n, bblk, nb, sb) = SPGEMM_SHAPES[name]
+    da = _block_dense(m, k, *ablk, na, seed=sa, empty_rows=empty_rows)
+    db = _block_dense(k, n, *bblk, nb, seed=sb)
+    ja, ta = _pair(da, ablk)
+    jb, tb = _pair(db, bblk)
+    return da, db, ja, jb, ta, tb
+
+
+def _assert_blocks_close(c, c_ref, da, db, scale=1.0):
+    """Per entry 64 * eps_f32 * |scale| * (|A| . |B|) on the dense
+    products."""
+    bound = 64 * EPS32 * abs(scale) * (np.abs(da).astype(np.float64)
+                                       @ np.abs(db))
+    err = np.abs(to_np(c).astype(np.float64) - np.asarray(c_ref,
+                                                          np.float64))
+    assert (err <= bound).all(), f"{(err > bound).sum()} entries out"
+
+
+@pytest.mark.parametrize("name", list(SPGEMM_SHAPES))
+def test_bsr_spgemm_matches_jax(name):
+    """The block-symbolic plan bit-equal to JAX's, and the numeric
+    (plain version of the kernel) against JAX's Pallas kernel in
+    interpret mode."""
+    da, db, ja, jb, ta, tb = _spgemm_pair(name, empty_rows=(2,))
+    jp = jax_bsr_spgemm_compute(ja, jb)
+    tp = tbs.bsr_spgemm_compute(ta, tb)
+    for f in ("pair_ptr", "pair_a", "pair_b", "c_rowptr", "c_colind"):
+        np.testing.assert_array_equal(to_np(getattr(tp, f)),
+                                      np.asarray(getattr(jp, f)), f)
+    assert tp.shape == jp.shape and tp.block_shape == jp.block_shape
+    jc = jax_bsr_spgemm_numeric(jp, ja, jb, interpret=True)
+    tc = tbs.bsr_spgemm_numeric(tp, ta, tb)
+    assert tc.nnz_blocks == int(jc.nnz_blocks)
+    assert tc.capacity == jc.capacity
+    np.testing.assert_array_equal(to_np(tc.block_colind),
+                                  np.asarray(jc.block_colind))
+    _assert_blocks_close(tc.todense(), np.asarray(jc.todense()), da, db)
+    # numeric reuse with new values over the same plan
+    ta3 = dataclasses.replace(ta, values=ta.values * 3.0)
+    _assert_blocks_close(tbs.bsr_spgemm_numeric(tp, ta3, tb).todense(),
+                         3.0 * np.asarray(jc.todense()), da, db, 3.0)
+    carried = interop.bsr_spgemm_plan_from_numpy(
+        *(np.asarray(getattr(jp, f)) for f in
+          ("pair_ptr", "pair_a", "pair_b", "c_rowptr", "c_colind")),
+        jp.shape, jp.block_shape, device="cpu")
+    np.testing.assert_array_equal(
+        to_np(tbs.bsr_spgemm_numeric(carried, ta, tb).values),
+        to_np(tc.values))
+
+
+def test_bsr_spgemm_through_multiply_and_errors():
+    """multiply on two BSR operands returns a BSR (alpha folded in);
+    block and shape mismatches raise as in JAX; an empty product keeps
+    the JAX layout."""
+    da = _block_dense(64, 256, 8, 128, 10, seed=7)
+    db = _block_dense(256, 256, 128, 128, 3, seed=8)
+    ja, ta = _pair(da, (8, 128))
+    jb, tb = _pair(db, (128, 128))
+    c = tsp.multiply(tsp.scaled(2.0, ta), tb)
+    assert isinstance(c, tsp.BSR) and c.block_shape == (8, 128)
+    jc = sp.multiply(sp.scaled(2.0, ja), jb)
+    _assert_blocks_close(c.todense(), np.asarray(jc.todense()), da, db, 2.0)
+    _, bad = _pair(_block_dense(256, 256, 8, 128, 4, seed=6), (8, 128))
+    with pytest.raises(ValueError, match="block mismatch"):
+        tbs.bsr_spgemm_compute(ta, bad)
+    with pytest.raises(ValueError, match="bsr_spgemm"):
+        tbs.bsr_spgemm_compute(ta, ta)
+    # A's stored blocks meet no stored block of B: C is empty
+    _, tz = _pair(_block_dense(256, 256, 128, 128, 0, seed=9), (128, 128))
+    ce = tbs.bsr_spgemm(ta, tz)
+    assert ce.nnz_blocks == 0 and ce.values.shape == (1, 8, 128)
+    assert not bool(ce.todense().any())
+
+
+def test_bsr_spgemm_f64_and_complex_take_their_dtype():
+    da = _block_dense(32, 256, 8, 128, 8, seed=3)
+    db = _block_dense(256, 256, 128, 128, 4, seed=4)
+    a64 = tsp.BSR.from_dense(da.astype(np.float64), (8, 128), device="cpu")
+    b64 = tsp.BSR.from_dense(db.astype(np.float64), (128, 128),
+                             device="cpu")
+    c = tbs.bsr_spgemm(a64, b64)
+    assert c.dtype == torch.float64
+    np.testing.assert_allclose(to_np(c.todense()),
+                               da.astype(np.float64) @ db, rtol=1e-12,
+                               atol=1e-12)
+    acx = dataclasses.replace(a64, values=(a64.values * (1 + 2j)).to(
+        torch.complex128))
+    ccx = tbs.bsr_spgemm(acx, b64)
+    assert ccx.dtype == torch.complex128
+    np.testing.assert_allclose(to_np(ccx.todense()),
+                               (1 + 2j) * (da.astype(np.float64) @ db),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_bsr_spgemm_wrapper_checks_operands():
+    _, _, _, _, ta, tb = _spgemm_pair("reuse_8x128")
+    p = tbs.bsr_spgemm_compute(ta, tb)
+    with pytest.raises(TypeError, match="int32"):
+        tbs.bsr_spgemm_blocks(p.pair_ptr.long(), p.pair_a, p.pair_b,
+                              ta.values, tb.values)
+    with pytest.raises(TypeError, match="float32/float64"):
+        tbs.bsr_spgemm_blocks(p.pair_ptr, p.pair_a, p.pair_b, ta.values,
+                              tb.values.double())
+    with pytest.raises(ValueError, match="bad shapes"):
+        tbs.bsr_spgemm_blocks(p.pair_ptr, p.pair_a, p.pair_b, ta.values,
+                              tb.values[:, :8])

@@ -229,7 +229,11 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                 "spblas_tpu_torch.kernels.route_paned",
                 "spblas_tpu_torch.kernels.bsr_kernels",
                 "spblas_tpu_torch.formats.bsr",
-                "spblas_tpu_torch.ops.spmm"} <= seen, seen
+                "spblas_tpu_torch.ops.spmm",
+                "spblas_tpu_torch.ops.spgemm",
+                "spblas_tpu_torch.backend.engine",
+                "spblas_tpu_torch.kernels.route_mul_paned",
+                "spblas_tpu_torch.kernels.bsr_spgemm"} <= seen, seen
         from spblas_tpu_torch.kernels import plans
         from spblas_tpu_torch.utils import generate as gen
         a = gen.generate_banded_csr(500, 500, 9, seed=0, device="cpu")
@@ -268,6 +272,22 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                         opt)
         assert opt.flipped()._plans["matmul"][0] == "band_perm"
         assert c.shape == (2, 1000) and bool(c.isfinite().all())
+        # two-phase SpGEMM on the forced resident and paned engines
+        # (native expander and packer, plain kernel versions), and the
+        # block SpGEMM
+        import os
+        os.environ["SPBLAS_FORCE_ROUTE_SPGEMM"] = "1"
+        a = gen.generate_csr(300, 300, 2400, seed=10, device="cpu")
+        for paned in ("0", "1"):
+            os.environ["SPBLAS_FORCE_PANED_SPGEMM"] = paned
+            info = sp.multiply_compute(a, a)
+            assert info.plan.route is not None
+            c = sp.multiply_fill(info, sp.scaled(2.0, a), a)
+            assert c.nnz == info.result_nnz
+            assert bool(c.values.isfinite().all())
+        b = sp.BSR.from_dense(d, (8, 128), device="cpu")
+        bt = sp.BSR.from_dense(d.T.copy(), (128, 8), device="cpu")
+        assert isinstance(sp.multiply(b, bt), sp.BSR)
         assert "jax" not in sys.modules or sys.modules["jax"] is None
         print("ok")
     """)

@@ -392,5 +392,6 @@ def test_spmm_errors():
         tsp.multiply(a, torch.zeros(30, 3))
     with pytest.raises(ValueError, match="dimension mismatch"):
         tsp.multiply(tsp.matrix_opt(a), torch.zeros(41, 2))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # sparse·sparse is SpGEMM now, with its own dimension check
+    with pytest.raises(ValueError, match="spgemm dimension mismatch"):
         tsp.multiply(a, a)

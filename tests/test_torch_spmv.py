@@ -18,8 +18,8 @@ import spblas_tpu_torch as tsp
 from spblas_tpu_torch.kernels import plans as tplans
 
 from tests.torch_util import (  # noqa: F401
-    assert_rows_close, block_dense_csr, permuted_csr, port_csr,
-    one_torch_thread)
+    abs_spgemm, assert_rows_close, assert_spgemm_close, block_dense_csr,
+    permuted_csr, port_csr, one_torch_thread)
 
 MATRICES = {
     "banded": lambda: gen.generate_banded_csr(2000, 2000, 17, seed=1),
@@ -213,13 +213,19 @@ def test_dimension_mismatch_raises():
         tsp.multiply(tsp.matrix_opt(a), torch.zeros(41))
 
 
-def test_not_ported_ops_raise_with_roadmap_item():
-    """SpGEMM still raises, naming its ROADMAP item; SpMM and dense·sparse
-    (item 9) run now."""
-    a = port_csr(gen.generate_csr(30, 30, 100, seed=17))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsp.multiply(a, a)
-    with pytest.raises(NotImplementedError, match="item 10"):
+def test_not_ported_ops_raise_with_roadmap_item(monkeypatch):
+    """The ROUTE v1 SpGEMM engine (``SPBLAS_ROUTE_SPGEMM=1``) still
+    raises, naming its ROADMAP item; SpGEMM (item 10), SpMM and
+    dense·sparse (item 9) run now."""
+    ja = gen.generate_csr(30, 30, 100, seed=17)
+    a = port_csr(ja)
+    c = tsp.multiply(a, a)
+    assert isinstance(c, tsp.CSR) and c.shape == (30, 30)
+    assert_spgemm_close(c, sp.multiply(ja, ja), abs_spgemm(ja, ja))
+    assert tsp.multiply_compute(a, a).result_nnz == c.nnz
+    monkeypatch.setenv("SPBLAS_FORCE_ROUTE_SPGEMM", "1")
+    monkeypatch.setenv("SPBLAS_ROUTE_SPGEMM", "1")
+    with pytest.raises(NotImplementedError, match="item 13"):
         tsp.multiply_compute(a, a)
     assert tsp.multiply(a, torch.zeros(30, 4)).shape == (30, 4)
     assert tsp.multiply(torch.zeros(4, 30), a).shape == (4, 30)

@@ -133,3 +133,41 @@ def block_dense_csr(m, n, nblocks, seed):
         dense[i * 8:(i + 1) * 8, j * 128:(j + 1) * 128] = \
             rng.standard_normal((8, 128))
     return sp.CSR.from_dense(dense)
+
+
+def csr_dense(c) -> np.ndarray:
+    """Dense (m, n) of a JAX or port CSR's live entries, duplicates
+    summed, in complex128."""
+    m, n = c.shape
+    nnz = int(c.nnz)
+    rowptr = np.minimum(to_np(c.rowptr).astype(np.int64), nnz)
+    rows = np.repeat(np.arange(m), np.diff(rowptr))
+    out = np.zeros((m, n), np.complex128)
+    np.add.at(out, (rows, to_np(c.colind)[:nnz].astype(np.int64)),
+              to_np(c.values)[:nnz])
+    return out
+
+
+def abs_spgemm(a, b, d=None, alpha=1.0, beta=1.0) -> np.ndarray:
+    """|alpha| (|A| . |B|) + |beta| |D| in float64, dense, from JAX (or
+    port) CSRs."""
+    out = abs(alpha) * (np.abs(csr_dense(a)) @ np.abs(csr_dense(b)))
+    if d is not None:
+        out = out + abs(beta) * np.abs(csr_dense(d))
+    return out
+
+
+def assert_spgemm_close(c, c_ref, bound, factor=64, eps=EPS32,
+                        err_msg=""):
+    """|C - C_ref|_ij <= factor*eps*bound_ij per entry, with ``bound``
+    from :func:`abs_spgemm`: the SpGEMM form of the dot-product model,
+    since the two sides sum each entry's products in different
+    orders."""
+    got, want = csr_dense(c), csr_dense(c_ref)
+    err = np.abs(got - want)
+    lim = factor * eps * bound
+    bad = err > lim
+    worst = np.unravel_index(int(np.argmax(err - lim)), err.shape)
+    assert not bad.any(), (
+        f"{err_msg} {bad.sum()} entries out of bound; worst {worst}: "
+        f"err {err[worst]}, bound {lim[worst]}")
