@@ -23,12 +23,19 @@ matrix of half-full 8x128 blocks and the headline band under a random
 symmetric permutation.  SpMM cells: the headline band at k = 256, uniform
 100k degree 10 at k = 256 and 64, the block matrix at k = 256, the
 permuted band at k = 64, the stencil at k = 64 and a complex64 band at
-k = 32.
+k = 32.  SpGEMM cells: bench.py's 2k and 100k A.A products (the ROUTE2-mul
+engines), the 2k one again on the ROUTE v1 engine, and a BSR.BSR
+product.  The headline band laid out on the card from random diagonals
+runs 10 power iterations.  SpTRSV cells: bench.py's 20k triangular factor
+and its 1M-row 15,625-level chain, and a 1.2M-row chain that takes the
+blocked solve.
 
 Tolerance everywhere: |y - y_ref| <= 64 * eps_f32 * scale * (|A|.|x|)
 per row (per entry of C against (|A|.|B|) for SpMM), the dot-product
 form of the test suite's 64*eps model, since the two sides sum in
-different orders.
+different orders.  A solve is held to the componentwise backward error
+|2 A x - b| <= 64 * eps_f32 * (2 |A| |x| + |b|) per row and to the
+forward error it implies against the float64 sweep.
 
 Output: progress lines, one JSON line per kernel shape and per main-path
 matrix, the card's name and power limit, one ``{"kernels": [...]}`` line,
@@ -61,6 +68,8 @@ from spblas_tpu_torch.kernels import banded, dia, route2
 from spblas_tpu_torch.kernels import bsr_kernels as bk
 from spblas_tpu_torch.kernels import bsr_spgemm as bsg
 from spblas_tpu_torch.kernels import route2_kernel as r2k
+from spblas_tpu_torch.kernels import route_mul as rml
+from spblas_tpu_torch.kernels import route_mul_kernel as rmk
 from spblas_tpu_torch.kernels import route_mul_paned as rmp
 from spblas_tpu_torch.kernels import route_paned as rpn
 from spblas_tpu_torch.kernels import route_plan as rpl
@@ -74,10 +83,12 @@ spgemm_ops = importlib.import_module("spblas_tpu_torch.ops.spgemm")
 
 EPS32 = torch.finfo(torch.float32).eps
 DEVICE = "cuda"   # where the script makes its own operands
-# data-sheet memory bandwidth (bytes/s) and non-tensor-core f32 peak
-# (flop/s) by part; the first name fragment found in the card's name wins
-_PARTS = (("H100 PCIe", 2.0e12, 51e12), ("H100 NVL", 3.9e12, 60e12),
-          ("H100", 3.35e12, 67e12), ("H200", 4.8e12, 67e12))
+# data-sheet memory bandwidth (bytes/s) and non-tensor-core f32 and f64
+# peaks (flop/s) by part; the first name fragment found in the card's
+# name wins
+_PARTS = (("H100 PCIe", 2.0e12, 51e12, 26e12),
+          ("H100 NVL", 3.9e12, 60e12, 30e12),
+          ("H100", 3.35e12, 67e12, 34e12), ("H200", 4.8e12, 67e12, 34e12))
 _SLEEP_CYCLES = 50_000_000   # ~25 ms of device sleep ahead of a chain
 _REPLICA_BYTES = 256 << 20   # distinct inputs per chain exceed the 50 MB L2
 
@@ -186,6 +197,37 @@ BSR_SPGEMM_ONLY = ("bsr_spgemm_8x128_128x128_empty_rows",
                    (512, 64, 4, (8, 128), 3, 113),
                    (64, 64, 4, (128, 128), 0, 114))
 
+# SpGEMM on the ROUTE v1 engine (SPBLAS_ROUTE_SPGEMM=1): bench.py's 2k
+# A.A product again; kernel only, a heavily duplicated stream whose out
+# windows overlap (~330 chunks a window, past 10,000 chunks; the dup = 40
+# stream of tests/test_route_mul.py at 32,768 slots):
+# (slots, mean duplicates, a_len, b_len, seed)
+V1_MAIN = ("spgemm_2k_v1", lambda: gen.generate_csr(2000, 2000, 40_000,
+                                                    seed=0),
+           dict(result_nnz=725_545))
+V1_OVERLAP = ("dup40_overlap", (32_768, 40, 50, 60, 103))
+
+# SpTRSV: bench.py's section_sptrsv (bench.py:410-417: 20,000 rows,
+# generate_triangular_csr, density 0.0005, lower, seed 0) and
+# section_sptrsv_deep (bench.py:467-482: 1,000,000 rows,
+# generate_block_chain_lower, block 64, deg 4, seed 0: 15,625 levels), and
+# the same generator at 1,200,000 rows, the smallest size the one-pane cap
+# (m / 128 > 9,000) sends to the blocked solve (two blocks of 2^20 rows):
+# (name, make, executor, levels)
+TRSV_MAIN = [
+    ("sptrsv_20k", lambda: gen.generate_triangular_csr(
+        20_000, seed=0, lower=True, density=0.0005), "route", None),
+    ("sptrsv_deep_1m", lambda: gen.generate_block_chain_lower(
+        1_000_000, block=64, deg=4, seed=0), "route", 15_625),
+    ("sptrsv_blocked_1_2m", lambda: gen.generate_block_chain_lower(
+        1_200_000, block=64, deg=4, seed=0), "blocked", 18_750)]
+TRSV_SOLVES = 20               # timed solves on distinct right-hand sides
+
+# band power iterations on the headline band built on the card from
+# random diagonals (bench.py:66-86, _device_band_plan): (name, rows, half
+# bandwidth, iterations)
+POWER_MAIN = ("band_power_409600_h50", 409_600, 50, 10)
+
 BAND_SOURCE = "spblas_tpu_torch/csrc/band_spmv.cu"
 DIA_SOURCE = "spblas_tpu_torch/csrc/dia_spmv.cu"
 ROUTE_SOURCE = "spblas_tpu_torch/csrc/route2_spmv.cu"
@@ -209,6 +251,12 @@ BSR_SPGEMM_SOURCE = "spblas_tpu_torch/csrc/bsr_spgemm.cu"
 MUL_REPLACES = "spblas_tpu/kernels/route2_kernel.py:414"
 MUL_PANED_REPLACES = "spblas_tpu/kernels/route_mul_paned.py:274"
 BSR_SPGEMM_REPLACES = "spblas_tpu/kernels/bsr_spgemm.py:114"
+V1_MUL_SOURCE = "spblas_tpu_torch/csrc/route_mul.cu"
+V1_MUL_REPLACES = "spblas_tpu/kernels/route_mul_kernel.py:69"
+POWER_SOURCE = "spblas_tpu_torch/csrc/band_power.cu"
+POWER_REPLACES = "spblas_tpu/kernels/banded.py:474"
+SOLVE_SOURCE = "spblas_tpu_torch/csrc/route2_spmv.cu"
+SOLVE_REPLACES = "spblas_tpu/kernels/route2_kernel.py:119"
 # wrapper -> kernel name, for the launch counts
 WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "dia_spmv": dia.dia_spmv_padded,
@@ -221,7 +269,10 @@ WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "bsr_spmm": bk.bsr_spmm_blocks,
             "route2_mul": r2k.route2_mul_padded,
             "route2_mul_paned": rmp.route2_mul_paned_padded,
-            "bsr_spgemm": bsg.bsr_spgemm_blocks}
+            "bsr_spgemm": bsg.bsr_spgemm_blocks,
+            "route_mul": rmk.route_mul_padded,
+            "band_power": banded.band_power_padded,
+            "route2_solve": r2k.route2_solve_padded}
 # kind -> the kernels its main-path SpMV call must launch
 KIND_KERNELS = {"band": ("band_spmv",), "bsr": ("bsr_spmv",),
                 "band_perm": ("band_spmv",),
@@ -237,7 +288,11 @@ SPMM_KIND_KERNELS = {"band": ("band_spmm_stream",), "bsr": ("bsr_spmm",),
 # BSR the one-shot multiply) must launch
 SPGEMM_KIND_KERNELS = {"resident": ("route2_mul",),
                        "paned": ("route2_mul_paned",),
-                       "bsr": ("bsr_spgemm",)}
+                       "bsr": ("bsr_spgemm",), "v1": ("route_mul",)}
+# executor -> the kernels a main-path solve must launch; the power chain
+TRSV_KIND_KERNELS = {"route": ("route2_solve",),
+                     "blocked": ("route2_solve",)}
+POWER_KIND_KERNELS = {"band": ("band_power",)}
 
 
 class SmokeFailure(RuntimeError):
@@ -266,17 +321,18 @@ def card_line() -> str:
 
 
 def part_rates(name: str):
-    for frag, bw, f32 in _PARTS:
+    """(memory rate, f32 peak, f64 peak) of the card."""
+    for frag, bw, f32, f64 in _PARTS:
         if frag in name:
-            return bw, f32
+            return bw, f32, f64
     raise SmokeFailure(f"no data-sheet rates for {name!r}")
 
 
-def bound(nbytes, flops, rates):
+def bound(nbytes, flops, rates, f64=False):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    operations over the f32 peak."""
-    bw, f32 = rates
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / f32 * 1e3
+    operations over the f32 (or, with ``f64``, the f64) peak."""
+    bw, peak = rates[0], rates[2 if f64 else 1]
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -339,10 +395,12 @@ def library_ms(a, x):
 # phase 2: each kernel against its plain version on the card
 # ------------------------------------------------------------------ #
 
-def band_case(name, m, n, bandwidth, dtype, seed, rates, card, csr=None):
+def band_case(name, m, n, bandwidth, dtype, seed, rates, card, csr=None,
+              plan=None):
     a = csr if csr is not None else gen.generate_banded_csr(
         m, n, bandwidth, seed=seed)
-    plan = banded.build_band_plan(a, dtype=dtype)
+    if plan is None:
+        plan = banded.build_band_plan(a, dtype=dtype)
     x = gen.generate_vector(n, seed=seed + 1)
     xp = banded.pad_x(plan, x)
     y_k = banded.band_spmv_padded(plan.panels, xp)
@@ -1152,6 +1210,13 @@ def fill_ms(info, vals, a):
     return e0.elapsed_time(e1) / len(ops)
 
 
+def engine_kind(route):
+    """The SpGEMM engine a compute-time plan carries, by name."""
+    return ("resident" if isinstance(route, Route2MulPlan) else
+            "paned" if isinstance(route, Route2MulPanedPlan) else
+            "v1" if isinstance(route, rml.RouteMulPlan) else None)
+
+
 def spgemm_main(name, a, kind, expect, rates, card, deferred):
     """``info = multiply_compute(A, A)`` then ``multiply_fill(info,
     scaled(2.0, A_i), A)`` on distinct values: counts read around the
@@ -1191,8 +1256,7 @@ def spgemm_main(name, a, kind, expect, rates, card, deferred):
     first_fill_s = time.perf_counter() - t0
     launches = {k: w.launches for k, w in WRAPPERS.items()}
     route = info.plan.route
-    got = ("resident" if isinstance(route, Route2MulPlan) else
-           "paned" if isinstance(route, Route2MulPanedPlan) else None)
+    got = engine_kind(route)
     nnz = info.result_nnz
     log(f"[main] {name}: engine {got}, result_nnz {nnz}, launches "
         f"{launches}")
@@ -1224,7 +1288,7 @@ def spgemm_main(name, a, kind, expect, rates, card, deferred):
            "chunks": route.nchunks, "panels": panels, "fill": route.fill,
            "launches": launches,
            "launches_per_fill": launches["route2_mul"]
-           + launches["route2_mul_paned"],
+           + launches["route2_mul_paned"] + launches["route_mul"],
            "max_abs_err_vs_f64": err, "compute_s": compute_s,
            "symbolic_s": compute_s - build_s, "engine_build_s": build_s,
            "first_fill_s": first_fill_s, "fill_ms": ms,
@@ -1264,9 +1328,8 @@ def bsr_spgemm_case(name, a, b, rates, card, dtype=torch.float32):
                + plan.nnzb_c * bh * bw) * esz + npairs * 8
               + (plan.nnzb_c + 1) * 4)
     flops = 2 * npairs * bh * bk_ * bw
-    # the f32 peak bounds the f32 case; the f64 case reports no bound
-    b_ms, b_by = (bound(nbytes, flops, rates) if dtype == torch.float32
-                  else (None, None))
+    # the f32 peak bounds the f32 case, the f64 peak the f64 one
+    b_ms, b_by = bound(nbytes, flops, rates, f64=dtype == torch.float64)
     ins = replicas(lambda: args + (av.clone(), bv.clone()), nbytes)
     k_ms = device_ms(bsg.bsr_spgemm_blocks, ins, reps=10)
     p_ms = device_ms(bsg.bsr_spgemm_reference, ins[:1], reps=2)
@@ -1386,6 +1449,382 @@ def spgemm_phase(rates, card):
     del a, b
     torch.cuda.empty_cache()
     return main, recs, deferred
+
+
+def route_mul_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
+    """``route_mul`` (the ROUTE v1 SpGEMM numeric) on a plan against its
+    plain version."""
+    a2 = rmk.pad_pane(a_arr, plan.a_rows)
+    b2 = rmk.pad_pane(b_arr, plan.b_rows)
+    y_k = rmk.route_mul_padded(plan, a2, b2)
+    torch.cuda.synchronize()
+    y_p = rmk.route_mul_reference(plan, a2, b2)
+    err = row_check(y_k, y_p, rmk.route_mul_reference(plan, a2.abs(),
+                                                      b2.abs()))
+    log(f"[check] route_mul {name}: in bound, max |err| {err:.3e}")
+    del y_k, y_p
+    ob = plan.o_base.long()
+    per_window = int(torch.bincount(ob).max())
+    # each input read once (three tiles, the per-chunk scalars ab, bb,
+    # ob, the A and B panes), the out pane written twice (zeroed, then
+    # accumulated)
+    nch = plan.nchunks
+    nbytes = (nch * (12 * 1024 + 12) + (plan.a_rows + plan.b_rows) * 512
+              + 2 * plan.out_rows * 512)
+    b_ms, b_by = bound(nbytes, 2 * nch * 1024, rates)
+
+    def copy():
+        return dataclasses.replace(
+            plan, tile1=plan.tile1.clone(), tile2=plan.tile2.clone(),
+            tile3=plan.tile3.clone(), a_base=plan.a_base.clone(),
+            b_base=plan.b_base.clone(), o_base=plan.o_base.clone()), \
+            a2.clone(), b2.clone()
+
+    ins = replicas(copy, nbytes)
+    k_ms = device_ms(rmk.route_mul_padded, ins)
+    p_ms = device_ms(rmk.route_mul_reference, ins)
+    del ins
+    torch.cuda.empty_cache()
+    return {"kernel": "route_mul", "case": name, "nchunks": nch,
+            "fill": plan.fill, "g_a": plan.g_a, "g_b": plan.g_b,
+            "capacity": plan.capacity, "max_chunks_per_window": per_window,
+            "launches_per_call": 1, "max_abs_err": err, "kernel_ms": k_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "plain_ms": p_ms,
+            "library_ms": lib_ms, "card": card}
+
+
+def v1_phase(rates, card):
+    """The SpGEMM main path on the ROUTE v1 engine (bench.py's 2k A.A
+    under SPBLAS_ROUTE_SPGEMM=1) and its kernel, then the kernel on a
+    heavily overlapping stream; returns (main record, kernel records,
+    deferred structure differences)."""
+    import os
+    deferred = []
+    name, make, expect = V1_MAIN
+    a = make()
+    os.environ["SPBLAS_ROUTE_SPGEMM"] = "1"
+    try:
+        rec, info, a0_vals = spgemm_main(name, a, "v1", expect, rates,
+                                         card, deferred)
+    finally:
+        del os.environ["SPBLAS_ROUTE_SPGEMM"]
+    a_arr = torch.cat([2.0 * a0_vals, a0_vals.new_ones(1)])
+    recs = [route_mul_case(name, info.plan.route, a_arr, a.values, rates,
+                           card, rec["cusparse_spgemm_ms_with_symbolic"])]
+    del info, a
+    oname, (n_slots, dup, a_len, b_len, seed) = V1_OVERLAP
+    rng = np.random.default_rng(seed)
+    slots = np.repeat(np.arange(n_slots), rng.poisson(dup, n_slots) + 1)
+    sa = rng.integers(0, a_len, len(slots))
+    sb = rng.integers(0, b_len, len(slots))
+    t0 = time.perf_counter()
+    plan = rml.build_route_mul_plan(slots, sa, sb, a_len, b_len, n_slots,
+                                    device=DEVICE)
+    log(f"[build] route_mul {oname}: {plan.nchunks} chunks in "
+        f"{time.perf_counter() - t0:.1f} s")
+    av = torch.from_numpy(rng.standard_normal(a_len).astype(np.float32))
+    bv = torch.from_numpy(rng.standard_normal(b_len).astype(np.float32))
+    recs.append(route_mul_case(oname, plan, av.to(DEVICE), bv.to(DEVICE),
+                               rates, card))
+    require(recs[-1]["nchunks"] > 10_000
+            and recs[-1]["max_chunks_per_window"] > 100,
+            "route_mul overlap case has too few chunks or overlaps")
+    return rec, recs, deferred
+
+
+def abs_csr(a, dtype=torch.float64, diag_sign=1.0):
+    """``a`` with |values| in ``dtype``; ``diag_sign`` -1 negates the
+    off-diagonal ones (the comparison matrix of a triangular factor)."""
+    v = a.values.abs().to(dtype)
+    if diag_sign != 1.0:
+        on = a.colind.long() == a.row_ids().long()
+        v = torch.where(on, v, -v)
+    return dataclasses.replace(a, values=v)
+
+
+def trsv_checks(a, info, x, b, alpha):
+    """The solve ``x`` of (alpha A) x = b held, per row and in float64,
+    to the componentwise backward error |alpha A x - b| <= 64 eps_f32
+    (|alpha| |A| |x| + |b|), and to the forward error that bound implies
+    against the float64 ragged sweep: |x - x64| <= M^{-1} lim, M the
+    comparison matrix (|diagonal|, -|off-diagonal|), whose inverse bounds
+    |A^{-1}| for a triangular A.  Returns (backward ratio, max |x -
+    x64|)."""
+    a64 = dataclasses.replace(a, values=a.values.double())
+    x64h, b64 = x.double(), b.double()
+    r = (alpha * sp.multiply(a64, x64h) - b64).abs()
+    lim = 64 * EPS32 * (abs(alpha) * sp.multiply(abs_csr(a), x64h.abs())
+                        + b64.abs())
+    bad = int((r > lim).sum())
+    require(bad == 0, f"{bad} rows past the backward bound 64 eps (|a||A|"
+                      f"|x| + |b|) (max ratio {float((r / lim).max()):.3f})")
+    x64 = sp.triangular_solve(sp.scaled(alpha, a64), b64, info=info)
+    fwd = sp.triangular_solve(sp.scaled(abs(alpha), abs_csr(
+        a, diag_sign=-1.0)), lim, info=info)
+    err = (x64h - x64).abs()
+    bad = int((err > fwd).sum())
+    require(bad == 0, f"{bad} rows past the forward bound against the "
+                      f"float64 sweep (max err {float(err.max()):.3e})")
+    return float((r / lim).max()), float(err.max())
+
+
+def solve_pane(plan, y0):
+    rows = r2k.solve_pane_rows(plan)
+    return torch.nn.functional.pad(
+        y0.float(), (0, rows * 128 - y0.shape[0])).contiguous()
+
+
+def route2_solve_case(name, a, info, b, rates, card, lib_ms):
+    """``route2_solve`` (the solve mode of route2_spmv.cu) on the main
+    path's plan against its plain version, level by level: the two may
+    differ per row by twice (I - |C|)^{-1} 64 eps (|y0| + |C| |x|), C
+    the baked coefficients -a_ij/d_i, since both round each level's sums
+    and feed them to the next."""
+    plan = info.plan.route
+    d = a.values[info.plan.route_diag.long()]
+    pane = solve_pane(plan, b / d)
+    before = r2k.route2_solve_padded.launches
+    x_k = r2k.route2_solve_padded(plan, pane)
+    torch.cuda.synchronize()
+    per_call = r2k.route2_solve_padded.launches - before
+    require(per_call == len(r2k.solve_ranges(plan)),
+            f"route2_solve {name}: {per_call} launches")
+    # the plain version is host-bound (one Python step per level): one
+    # call, timed with events, is its time
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    x_p = r2k.route2_solve_reference(plan, pane)
+    e1.record()
+    torch.cuda.synchronize()
+    p_ms = e0.elapsed_time(e1)
+    m = a.shape[0]
+    xp = x_p.view(-1)[:m]
+    off = abs_csr(a, torch.float32)
+    off = dataclasses.replace(off, values=torch.where(
+        a.colind.long() == a.row_ids().long(), 0.0, off.values))
+    cx = sp.multiply(off, xp.abs()) / d.abs()
+    z = r2k.route2_solve_reference(dataclasses.replace(
+        plan, val=plan.val.abs()), solve_pane(
+        plan, 64 * EPS32 * (pane[:m].abs() + cx)))
+    err_v = (x_k - x_p).abs().view(-1)[:m].double()
+    lim = 2 * z.view(-1)[:m].double()
+    bad = int((err_v > lim).sum())
+    require(bad == 0, f"route2_solve {name}: {bad} rows past the bound")
+    err = float(err_v.max())
+    log(f"[check] route2_solve {name}: in bound, max |err| {err:.3e}")
+    del x_k, x_p, z
+    # each input read once (tile and values, the per-chunk scalars, y0),
+    # x written once
+    nch = plan.nchunks
+    rows = r2k.solve_pane_rows(plan)
+    nbytes = nch * (8 * 1024 + 12) + 2 * rows * 512
+    b_ms, b_by = bound(nbytes, 2 * nch * 1024, rates)
+    panes = [solve_pane(plan, gen.generate_vector(m, seed=300 + i) / d)
+             for i in range(4)]
+    ins = [(plan, p) for p in panes]
+    k_ms = device_ms(r2k.route2_solve_padded, ins, reps=8)
+    return {"kernel": "route2_solve", "case": name, "m": m,
+            "nchunks": nch, "levels": info.plan.num_levels,
+            "launch_ranges": len(plan.launch_starts),
+            "n_aux_chunks": plan.n_aux_chunks, "fill": plan.fill,
+            "g": plan.g, "launches_per_call": per_call,
+            "max_abs_err": err, "kernel_ms": k_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "plain_ms": p_ms, "library_ms": lib_ms,
+            "card": card}
+
+
+def library_trsv_ms(a, b):
+    """torch.triangular_solve on a sparse-CSR A (cuSPARSE's SpSV, its
+    analysis inside every call), timed as a yardstick; None with the
+    reason when the installed torch refuses it."""
+    def copy():
+        return (b[:, None].clone(), cusparse(dataclasses.replace(
+            a, values=a.values.clone())))
+
+    try:
+        ins = replicas(copy, a.nnz * 8 + a.shape[0] * 8)
+        ms = device_ms(lambda bb, aa: torch.triangular_solve(
+            bb, aa, upper=False), ins, reps=len(ins))
+        return ms, None
+    except (RuntimeError, NotImplementedError) as e:
+        return None, f"{type(e).__name__}: {str(e)[:200]}"
+
+
+def trsv_main(name, a, kind, levels, rates, card):
+    """``info = triangular_solve_inspect(A)`` then ``triangular_solve(
+    scaled(2.0, A), b, info=info)``: counts read around the first solve,
+    the solve held to the backward and forward bounds, 20 solves on
+    distinct b timed end to end; then the kernel on the main path's own
+    plan."""
+    m = a.shape[0]
+    t0 = time.perf_counter()
+    info = sp.triangular_solve_inspect(a)
+    torch.cuda.synchronize()
+    inspect_s = time.perf_counter() - t0
+    plan = info.plan
+    if kind == "route":
+        require(plan.route is not None, f"{name}: no route solve plan")
+    else:
+        require(plan.route is None and plan.blocked is not None
+                and all(s.route is not None for s in plan.blocked.subs),
+                f"{name}: not the blocked solve over route plans")
+    if levels is not None:
+        require(plan.num_levels == levels,
+                f"{name}: {plan.num_levels} levels, want {levels}")
+    bs = [gen.generate_vector(m, seed=200 + i) for i in range(4)]
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    x = sp.triangular_solve(sp.scaled(2.0, a), bs[0], info=info)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    log(f"[main] {name}: {kind}, {plan.num_levels} levels, launches "
+        f"{launches}")
+    require(x.shape == (m,) and x.dtype == torch.float32
+            and bool(torch.isfinite(x).all()), f"{name}: bad result")
+    ratio, fwd_err = trsv_checks(a, info, x, bs[0], 2.0)
+    del x
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()                 # end to end: host overhead included
+    for i in range(TRSV_SOLVES):
+        sp.triangular_solve(sp.scaled(2.0, a), bs[i % 4], info=info)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / TRSV_SOLVES
+    lib_ms, lib_why = library_trsv_ms(a, bs[0])
+    subs = [plan.route] if kind == "route" else [
+        s.route for s in plan.blocked.subs]
+    rec = {"main_path": name, "op": "trsv", "kind": kind, "m": m,
+           "nnz": a.nnz, "levels": plan.num_levels,
+           "chunks": sum(r.nchunks for r in subs),
+           "launch_ranges": sum(len(r.launch_starts) for r in subs),
+           "launches": launches,
+           "launches_per_solve": launches["route2_solve"],
+           "backward_ratio": ratio, "max_abs_err_vs_f64": fwd_err,
+           "inspect_s": inspect_s, "first_solve_s": first_s, "ms": ms,
+           "rows_s": m / (ms * 1e-3),
+           "ms_per_1k_levels": ms / (plan.num_levels / 1e3),
+           "cusparse_trsv_ms_with_analysis": lib_ms,
+           "cusparse_note": lib_why, "solves_timed": TRSV_SOLVES,
+           "card": card}
+    emit(rec)
+    kern = None
+    if kind == "route":
+        kern = route2_solve_case(name, a, info, bs[0], rates, card, lib_ms)
+    return rec, kern
+
+
+def trsv_phase(rates, card):
+    """The SpTRSV main paths and the solve kernel; returns (main-path
+    records, kernel records)."""
+    main, recs = [], []
+    for name, make, kind, levels in TRSV_MAIN:
+        a = make()
+        rec, kern = trsv_main(name, a, kind, levels, rates, card)
+        main.append(rec)
+        if kern is not None:
+            recs.append(kern)
+        del a
+        torch.cuda.empty_cache()
+    return main, recs
+
+
+def diag_band(m, half, seed):
+    """The bench's device band: 2*half + 1 diagonals of U[0.1, 1) /
+    (0.55 * ndiag), zero out of range, made on the card; returns the
+    diagonals, the offsets and the same matrix as a CSR on the card."""
+    offsets = tuple(range(-half, half + 1))
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    d = (torch.rand(len(offsets), m, generator=g, device=DEVICE) * 0.9
+         + 0.1) / (0.55 * len(offsets))
+    i = torch.arange(m, device=DEVICE)[None, :]
+    o = torch.tensor(offsets, device=DEVICE)[:, None]
+    inside = (i + o >= 0) & (i + o < m)
+    d = torch.where(inside, d, 0.0)
+    rows = i.expand(len(offsets), m)[inside]
+    cols = (i + o)[inside]
+    vals = d[inside]
+    order = torch.argsort(rows * m + cols)
+    rowptr = torch.zeros(m + 1, dtype=torch.int64, device=DEVICE)
+    rowptr[1:] = torch.cumsum(torch.bincount(rows, minlength=m), 0)
+    csr = CSR.from_arrays(vals[order], rowptr, cols[order], (m, m),
+                          nnz=int(vals.numel()), device=DEVICE)
+    return d, offsets, csr
+
+
+def power_phase(rates, card):
+    """``band_power_iterations`` on the headline band laid out on the
+    card by ``band_plan_from_diags``: its panels against
+    ``build_band_plan``'s on the same matrix, ``band_spmv`` on the plan
+    against its plain version, then the power chain (counts read around
+    it) against 10 chained plain steps, per row within iters * 64 eps
+    (|A|^iters |x|); returns (main record, kernel records)."""
+    name, m, half, iters = POWER_MAIN
+    d, offsets, csr = diag_band(m, half, 121)
+    t0 = time.perf_counter()
+    plan = banded.band_plan_from_diags(d, offsets, (m, m))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hp = banded.build_band_plan(csr)
+    require(hp.pad_l == plan.pad_l and torch.equal(hp.panels, plan.panels),
+            f"{name}: from-diags panels differ from build_band_plan's")
+    del hp, d
+    spmv_rec = band_case(f"{name}_from_diags", m, m, 2 * half, None, 122,
+                         rates, card, csr=csr, plan=plan)
+    x = gen.generate_vector(m, seed=123)
+    xp = banded.pad_x(plan, x)
+    for w in WRAPPERS.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    y = banded.band_power_iterations(plan, x, iters)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    log(f"[main] {name}: launches {launches}")
+    require(y.shape == (m,) and y.dtype == torch.float32
+            and bool(torch.isfinite(y).all()), f"{name}: bad result")
+    h = plan.pad_l
+    y_p = banded.band_power_reference(plan.panels, xp, iters, h)[h:h + m]
+    absd = banded.band_power_reference(plan.panels.abs(), xp.abs(), iters,
+                                       h)[h:h + m]
+    err = row_check(y, y_p, iters * absd)
+    log(f"[check] band_power {name}: in bound, max |err| {err:.3e}")
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    xs = [gen.generate_vector(m, seed=124 + i) for i in range(4)]
+    e0.record()                 # end to end: host overhead included
+    for i in range(20):
+        banded.band_power_iterations(plan, xs[i % 4], iters)
+    e1.record()
+    torch.cuda.synchronize()
+    ms = e0.elapsed_time(e1) / 20
+    nnz = csr.nnz
+    main = {"main_path": name, "op": "power", "kind": "band", "m": m,
+            "nnz": nnz, "iters": iters, "width": plan.width,
+            "launches": launches, "max_abs_err_vs_plain": err,
+            "plan_build_s": build_s, "first_call_s": first_s, "ms": ms,
+            "nnz_s": iters * nnz / (ms * 1e-3), "card": card}
+    emit(main)
+    # the kernel: iters band SpMVs' bytes and flops
+    nbytes = iters * (plan.panels.numel() * 4 + xp.numel() * 4 + m * 4)
+    b_ms, b_by = bound(nbytes, iters * 2 * plan.panels.numel(), rates)
+    ins = replicas(lambda: (plan.panels.clone(), xp.clone(), iters, h),
+                   plan.panels.numel() * 4)
+    k_ms = device_ms(banded.band_power_padded, ins)
+    p_ms = device_ms(banded.band_power_reference, ins[:2], reps=4)
+    lib_ms = iters * spmv_rec["library_ms"]
+    del ins
+    torch.cuda.empty_cache()
+    rec = {"kernel": "band_power", "case": name, "m": m, "iters": iters,
+           "width": plan.width, "nnz": nnz, "max_abs_err": err,
+           "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "plain_ms": p_ms, "library_ms": lib_ms,
+           "nnz_s": iters * nnz / (k_ms * 1e-3), "card": card}
+    return main, [spmv_rec, rec]
 
 
 def run():
@@ -1576,7 +2015,16 @@ def run():
     # SpGEMM through multiply, and their kernels
     spgemm_main_recs, spgemm_recs, deferred = spgemm_phase(rates, card)
     main += spgemm_main_recs
-    tables = {"spmm": SPMM_KIND_KERNELS, "spgemm": SPGEMM_KIND_KERNELS}
+    # the ROUTE v1 SpGEMM engine, the band power chain, and SpTRSV
+    rec, v1_recs_mul, v1_deferred = v1_phase(rates, card)
+    main.append(rec)
+    deferred += v1_deferred
+    rec, power_recs = power_phase(rates, card)
+    main.append(rec)
+    trsv_main_recs, solve_recs = trsv_phase(rates, card)
+    main += trsv_main_recs
+    tables = {"spmm": SPMM_KIND_KERNELS, "spgemm": SPGEMM_KIND_KERNELS,
+              "trsv": TRSV_KIND_KERNELS, "power": POWER_KIND_KERNELS}
     for r in main:
         table = tables.get(r.get("op"), KIND_KERNELS)
         for k in table.get(r["kind"], ()):
@@ -1591,7 +2039,7 @@ def run():
     by_name = {r["main_path"]: r["launches"] for r in main}
     for r in (band_recs + list(dia_recs.values()) + route_recs + [unperm]
               + v1_recs + paned_recs + spmm_band_recs + bsr_recs
-              + spgemm_recs):
+              + spgemm_recs + v1_recs_mul + power_recs + solve_recs):
         r["launches"] = by_name.get(r["case"], {}).get(r["kernel"], 0)
         emit(r)
 
@@ -1611,7 +2059,7 @@ def run():
     log(card)
     emit({"kernels": [
         line("band_spmv", BAND_SOURCE, BAND_REPLACES,
-             band_recs[len(BAND_CASES)], band_recs),
+             band_recs[len(BAND_CASES)], band_recs + power_recs[:1]),
         line("dia_spmv", DIA_SOURCE, DIA_REPLACES, dia_recs[DIA_MAIN[0][0]],
              list(dia_recs.values())),
         line("route2_spmv", ROUTE_SOURCE, ROUTE_REPLACES, route_recs[0],
@@ -1640,6 +2088,14 @@ def run():
         line("bsr_spgemm", BSR_SPGEMM_SOURCE, BSR_SPGEMM_REPLACES,
              of(spgemm_recs, "bsr_spgemm", BSR_SPGEMM_MAIN[0])[0],
              of(spgemm_recs, "bsr_spgemm")),
+        line("route_mul", V1_MUL_SOURCE, V1_MUL_REPLACES,
+             of(v1_recs_mul, "route_mul", V1_MAIN[0])[0],
+             of(v1_recs_mul, "route_mul")),
+        line("band_power", POWER_SOURCE, POWER_REPLACES,
+             of(power_recs, "band_power")[0], of(power_recs, "band_power")),
+        line("route2_solve", SOLVE_SOURCE, SOLVE_REPLACES,
+             of(solve_recs, "route2_solve", TRSV_MAIN[1][0])[0],
+             of(solve_recs, "route2_solve")),
     ]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     require(not deferred, "; ".join(deferred))

@@ -1,11 +1,13 @@
 """spblas_tpu_torch — the PyTorch and CUDA port of spblas_tpu.
 
 A second package beside the JAX one, grown slice by slice.  It carries
-SpMV, SpMM and SpGEMM end to end: the CSR/CSC/COO/BSR containers, the
-lazy views and the ``matrix_opt`` plan cache, the matvec and matmul plan
-ladders, whose structured and ROUTE rungs run kernels written by hand
-for Hopper (``csrc/``), and the two-phase SpGEMM with its ROUTE2-mul
-engines and the block SpGEMM, on kernels of the same kind.  The kernels build on their first launch;
+SpMV, SpMM, SpGEMM and SpTRSV end to end: the CSR/CSC/COO/BSR
+containers, the lazy views and the ``matrix_opt`` plan cache, the matvec
+and matmul plan ladders, whose structured and ROUTE rungs run kernels
+written by hand for Hopper (``csrc/``), the two-phase SpGEMM with its
+ROUTE2-mul and ROUTE v1 engines and the block SpGEMM, and the
+level-scheduled triangular solve with its ROUTE2 substitution, on
+kernels of the same kind.  The kernels build on their first launch;
 importing the package builds nothing.  It imports torch and numpy,
 never JAX or ``spblas_tpu``.
 
@@ -40,6 +42,9 @@ from spblas_tpu_torch.ops.spgemm import (
     multiply_symbolic_compute, multiply_symbolic_fill, multiply_numeric,
     multiply_fused,
 )
+from spblas_tpu_torch.ops.triangular_solve import (
+    triangular_solve, triangular_solve_inspect,
+)
 
 __version__ = "0.1.0"
 
@@ -55,5 +60,6 @@ __all__ = [
     "spgemm_fill", "SpgemmState",
     "multiply_symbolic_compute", "multiply_symbolic_fill",
     "multiply_numeric", "multiply_fused",
+    "triangular_solve", "triangular_solve_inspect",
     "Config", "DEFAULT_CONFIG", "index_dtype", "real_dtype",
 ]

@@ -11,74 +11,27 @@
 // plus xp and y; at the headline shape (409,600 rows, W = 232, f32) that
 // is 380 MB, about 114 us at 3.35 TB/s.
 //
-// Design: one warp per panel row.  The 32 lanes stride over the W
-// columns, so each load instruction of the warp reads consecutive panel
-// and window addresses (coalesced); the f32 sum finishes with a
-// __shfl_down_sync tree.  x is read straight from global memory (the
-// window of one block is shared by its 128 rows, so L1/L2 serve the
-// re-reads), which lets any W work; staging the window in shared memory
-// is later work.  Every output row has exactly one writer: no atomics,
-// and no reliance on the TPU's in-order grid.
+// Design: one warp per panel row (band_row.cuh, shared with
+// band_power.cu).  Every output row has exactly one writer: no atomics,
+// and no reliance on the TPU's in-order grid.  Staging the window in
+// shared memory is later work.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-
-namespace {
-
-constexpr int kRowsPerBlock = 128;   // panel rows per row block
-constexpr int kThreads = 256;        // 8 warps, 8 panel rows per CUDA block
-
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__global__ void band_spmv_kernel(const T* __restrict__ panels,
-                                 const float* __restrict__ xp,
-                                 float* __restrict__ y, int rows, int w) {
-  // 64-bit: blockIdx.x * kThreads overflows 32 bits past 2^27 rows
-  const long long row =
-      (static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;  // uniform across the warp
-  const T* prow = panels + row * w;
-  const float* xwin = xp + (row / kRowsPerBlock) * kRowsPerBlock;
-  float acc = 0.f;
-  for (int c = lane; c < w; c += 32) {
-    acc += to_float(prow[c]) * xwin[c];
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    acc += __shfl_down_sync(0xffffffffu, acc, off);
-  }
-  if (lane == 0) y[row] = acc;
-}
-
-template <typename T>
-int launch(const void* panels, const void* xp, void* y, int rows, int w,
-           void* stream) {
-  const int warps_per_block = kThreads / 32;
-  const int blocks = (rows + warps_per_block - 1) / warps_per_block;
-  if (blocks > 0) {
-    band_spmv_kernel<T><<<blocks, kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const T*>(panels), static_cast<const float*>(xp),
-        static_cast<float*>(y), rows, w);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
+#include "band_row.cuh"
 
 // panels: (rows, w) f32 or bf16, row-major; xp: f32 of length
 // >= rows - 128 + w; y: (rows,) f32.  rows is a multiple of 128.
 extern "C" int band_spmv_f32(const void* panels, const void* xp, void* y,
                              int rows, int w, void* stream) {
-  return launch<float>(panels, xp, y, rows, w, stream);
+  return band::launch_rows(static_cast<const float*>(panels),
+                           static_cast<const float*>(xp),
+                           static_cast<float*>(y), rows, w,
+                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int band_spmv_bf16(const void* panels, const void* xp, void* y,
                               int rows, int w, void* stream) {
-  return launch<__nv_bfloat16>(panels, xp, y, rows, w, stream);
+  return band::launch_rows(static_cast<const __nv_bfloat16*>(panels),
+                           static_cast<const float*>(xp),
+                           static_cast<float*>(y), rows, w,
+                           static_cast<cudaStream_t>(stream));
 }

@@ -30,6 +30,19 @@
 // Design: one 128-thread block per chunk, thread j owning lane column j
 // (route2_chunk.cuh); the tile and value columns are read coalesced (one
 // 512-byte row per depth).
+//
+// Solve mode (route2_solve_f32) replaces the same TPU kernel run with
+// init_from_x (route2_kernel.py::route2_solve): level-scheduled
+// triangular substitution over one pane that starts at y0 = b/(alpha*d),
+// every chunk gathering from the pane and publishing into it, with
+// values baked as -a_ij/d_i.  The TPU grid makes each level's publishes
+// visible to the next level's gathers; here each dependency level (and
+// each aux level of a hub level, right after its main chunks) is its
+// own launch, at most max_chunks chunks each, issued in order from one
+// C call with no host op between them.  A chunk's used slots read only
+// rows of earlier levels; its unused slots (value 0) may read a row
+// another block of the level is publishing to, a finite value either
+// way, so their product stays 0.
 
 #include "route2_chunk.cuh"
 
@@ -72,4 +85,38 @@ extern "C" int route2_spmv_f32(const void* tile, const void* val,
         dst_rows, g, dist_max, any_lane, ww, rotated);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Solve mode: the launch ranges [starts[r], starts[r + 1]) (the last one
+// ends at nchunks), each cut into launches of at most max_chunks chunks,
+// all over the one pane (rows, 128) f32, which holds y0 on entry and x
+// on exit.  starts is a host array.  *launches counts the launches made;
+// returns the first launch error, or 0.
+extern "C" int route2_solve_f32(const void* tile, const void* val,
+                                const void* slab_base, const void* y_base,
+                                const void* src_flag, const void* starts,
+                                long long nstarts, long long nchunks,
+                                long long max_chunks, void* pane,
+                                long long rows, int g, int dist_max,
+                                int any_lane, void* launches, void* stream) {
+  const long long* st = static_cast<const long long*>(starts);
+  long long* count = static_cast<long long*>(launches);
+  float* p = static_cast<float*>(pane);
+  for (long long r = 0; r < nstarts; ++r) {
+    const long long hi = r + 1 < nstarts ? st[r + 1] : nchunks;
+    for (long long lo = st[r]; lo < hi; lo += max_chunks) {
+      const long long n = hi - lo < max_chunks ? hi - lo : max_chunks;
+      route2_spmv_kernel<<<static_cast<unsigned>(n), route2::kLanes, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int*>(tile), static_cast<const float*>(val),
+          static_cast<const int*>(slab_base),
+          static_cast<const int*>(y_base),
+          static_cast<const int*>(src_flag), nullptr, lo, p, rows, p, rows,
+          g, dist_max, any_lane, 1, 0);
+      const int err = static_cast<int>(cudaGetLastError());
+      if (err != 0) return err;
+      ++*count;
+    }
+  }
+  return 0;
 }

@@ -14,6 +14,11 @@ tensor they run the plain PyTorch version of the same sum:
   band_spmm_padded         csrc/band_spmm.cu   (replaces _spmm_kernel)
   band_spmm_stream_padded  csrc/band_spmm.cu,  (replaces
                            second entry point   _spmm_stream_kernel)
+  band_power_padded        csrc/band_power.cu  (replaces _power_kernel)
+
+:func:`band_plan_from_diags` lays a band out from DIA storage on the
+diagonals' own device (torch ops, no host traffic), the device-side plan
+builder of the bench's headline band.
 
 :class:`PermutedBandPlan` is the RCM-reordered band of a general square
 matrix (kind ``band_perm``); its permutations are ``index_select`` by
@@ -172,6 +177,37 @@ def band_spmv(plan: BandPlan, x: torch.Tensor) -> torch.Tensor:
         torch.promote_types(plan.panels.dtype, x.dtype))
 
 
+def band_plan_from_diags(diags: torch.Tensor, offsets, shape,
+                         dtype=None) -> BandPlan:
+    """Plan from DIA storage, built on the diagonals' device with no host
+    traffic: ``diags[k, i] = A[i, i + offsets[k]]`` (0 where out of
+    range), offsets distinct.  Panel row r of block b holds diagonal k at
+    column ``r % 128 + h + offsets[k]`` (h the largest |offset|, pad_l =
+    h), so the panels equal :func:`build_band_plan`'s on the same matrix
+    whenever its outermost diagonals hold an entry.  One indexed store
+    writes every (row phase, diagonal) slot."""
+    offs = [int(o) for o in offsets]
+    ndiag = len(offs)
+    m, n = shape
+    if tuple(diags.shape) != (ndiag, m):
+        raise ValueError(f"diags shape {tuple(diags.shape)} != "
+                         f"({ndiag}, {m})")
+    h = max(max(offs), -min(offs), 0)
+    w = -(-(_R + 2 * h) // 8) * 8
+    nblk = -(-m // _R)
+    nblk = -(-nblk // _G) * _G
+    mp = nblk * _R
+    out_dtype = dtype or diags.dtype
+    dev = diags.device
+    dt = F.pad(diags.t().to(out_dtype), (0, 0, 0, mp - m))
+    r = torch.arange(_R, device=dev).view(_R, 1)
+    cols = r + h + torch.tensor(offs, device=dev).view(1, ndiag)
+    panels = torch.zeros(nblk, _R, w, dtype=out_dtype, device=dev)
+    panels[:, r, cols] = dt.view(nblk, _R, ndiag)
+    return BandPlan(panels=panels.view(nblk * _R, w), pad_l=h,
+                    shape=(m, n))
+
+
 def band_spmm_reference(panels: torch.Tensor,
                         bp: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of both SpMM kernels over the same windows
@@ -265,6 +301,67 @@ def band_spmm_stream(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
     c = band_spmm_stream_padded(plan.panels, pad_b(plan, b))
     return c[: plan.shape[0]].to(
         torch.promote_types(plan.panels.dtype, b.dtype))
+
+
+def band_power_reference(panels: torch.Tensor, xp: torch.Tensor,
+                         iters: int, h: int) -> torch.Tensor:
+    """Plain PyTorch version of the power kernel: ``iters`` chained
+    :func:`band_spmv_reference` steps, each writing its y into rows
+    [h, h + nblk*128) of a fresh zero buffer of xp's length (the padded
+    slot of the next step).  Returns the last (L,) f32 buffer."""
+    rows = panels.shape[0]
+    for _ in range(iters):
+        y = band_spmv_reference(panels, xp)
+        xp = torch.zeros_like(xp)
+        xp[h:h + rows] = y
+    return xp
+
+
+# (panels, buf0, buf1, rows, w, h, iters, stream) of band_power_{f32,bf16}
+_POWER_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 4 + (
+    ctypes.c_void_p,)
+
+
+def band_power_padded(panels: torch.Tensor, xp: torch.Tensor, iters: int,
+                      h: int) -> torch.Tensor:
+    """y = A^iters x over pre-padded f32 x (length L = nblk*128 - 128 +
+    W, x at [h, h + n), zeros elsewhere); returns the padded (L,) f32
+    result, y at [h, h + nblk*128).  CUDA tensors launch
+    ``band_power.cu``: one C call issues the ``iters`` launches over two
+    ping-pong buffers; CPU tensors take :func:`band_power_reference`."""
+    _check_operands(panels, xp)
+    rows, w = panels.shape
+    if xp.shape[0] < h + rows + h:
+        raise ValueError(f"xp length {xp.shape[0]} < {rows + 2 * h}")
+    if not _t.on_cuda(panels):
+        return band_power_reference(panels, xp, iters, h)
+    bufs = (xp.clone(), torch.zeros_like(xp))
+    stream = torch.cuda.current_stream(panels.device).cuda_stream
+    symbol = ("band_power_bf16" if panels.dtype == torch.bfloat16
+              else "band_power_f32")
+    _build.check(_build.function("band_power", symbol, _POWER_ARGTYPES)(
+        panels.data_ptr(), bufs[0].data_ptr(), bufs[1].data_ptr(), rows, w,
+        h, iters, stream), "band_power")
+    band_power_padded.launches += iters
+    return bufs[iters % 2]
+
+
+band_power_padded.launches = 0
+
+
+def band_power_iterations(plan: BandPlan, x: torch.Tensor,
+                          iters: int) -> torch.Tensor:
+    """y = A^iters · x over a square plan, the vector in f32 throughout;
+    ``iters <= 0`` returns x.  The result has the dtype of
+    ``promote_types(panels.dtype, x.dtype)``."""
+    m, n = plan.shape
+    if m != n:
+        raise ValueError("band_power_iterations requires a square plan")
+    if iters <= 0:
+        return x
+    h = plan.pad_l
+    out = band_power_padded(plan.panels, pad_x(plan, x), int(iters), h)
+    return out[h:h + m].to(torch.promote_types(plan.panels.dtype, x.dtype))
 
 
 @dataclasses.dataclass(frozen=True)

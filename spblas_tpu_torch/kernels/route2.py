@@ -1,6 +1,6 @@
-"""ROUTE2 plans: the general-sparsity SpMV layout and the fused SpGEMM
-numeric (ROUTE2-mul) — the host builders of
-``spblas_tpu/kernels/route2.py`` for the port.
+"""ROUTE2 plans: the general-sparsity SpMV layout, the fused SpGEMM
+numeric (ROUTE2-mul) and the level-scheduled triangular solve — the host
+builders of ``spblas_tpu/kernels/route2.py`` for the port.
 
 A plan cuts the matrix into (8, 128) chunks of 1024 slots.  One int32
 tile per chunk carries every routing field (bit layout below) and one f32
@@ -142,6 +142,24 @@ class Route2Plan:
                         values[src].to(self.val.dtype), self.val)
         return dataclasses.replace(self, val=v)
 
+    def update_solve_values(self, values: torch.Tensor,
+                            diag_of_entry=None) -> "Route2Plan":
+        """Re-bake a solve plan's coefficients ``-a_ij/d_i`` from new CSR
+        values, same sparsity, on the values' device (numeric re-runs
+        stay on the substitution kernel).  ``diag_of_entry`` maps entry
+        k to its row's diagonal entry (None for an implicit unit
+        diagonal).  Non-entry slots keep their baked values (aux
+        reduction carriers 1.0, padding 0)."""
+        coeff = -values
+        if diag_of_entry is not None:
+            coeff = coeff / values[diag_of_entry.long()]
+        if coeff.numel() == 0:
+            coeff = coeff.new_zeros(1)
+        src = self.val_src.clamp(min=0).long()
+        v = torch.where(self.val_src >= 0,
+                        coeff[src].to(self.val.dtype), self.val)
+        return dataclasses.replace(self, val=v)
+
 
 # ------------------------------------------------------------------ #
 # builder
@@ -182,22 +200,25 @@ def pick_row_window_mult(e_cell: float,
     return ww
 
 
-def pick_window_g(m: int, n: int, nnz: int) -> int:
+def pick_window_g(m: int, n: int, nnz: int, max_g: int = MAX_G) -> int:
     """Window factor targeting ~2k elements per (1024-row x g*1024-col)
-    cell: g >= 2*m*n/(nnz*SLOTS), a power of two up to MAX_G, and no
-    wider than n needs."""
+    cell: g >= 2*m*n/(nnz*SLOTS), a power of two up to ``max_g``, and no
+    wider than n needs.  The solve builder caps it at 16 (its chunks
+    gather from the output pane, whose geometry is the level schedule)."""
     want = max(1, (2 * m * n) // (max(nnz, 1) * SLOTS) + 1)
     g = 1
-    while g < want and g < MAX_G:
+    while g < want and g < max_g:
         g *= 2
-    return min(g, _pick_g(max(n, 1)))
+    return min(g, _pick_g(max(n, 1), max_g))
 
 
-def _pick_g(n: int) -> int:
+def _pick_g(n: int, max_g: int = MAX_G) -> int:
     for g in (1, 2, 4, 8, 16, 32):
+        if g > max_g:
+            break
         if g * SLOTS >= n:
             return g
-    return MAX_G
+    return max_g
 
 
 def _host(arr) -> np.ndarray:
@@ -557,6 +578,7 @@ class _BuildState:
         self.n_aux_windows = 0        # aux windows of 1024 slots, closed
         self.aux_base = 0             # pane row where aux slots start
         self.aux_pending: list = []   # (abs slot array, row array) pairs
+        self.chunk_levels: list = []  # solve: per packer call, chunk levels
 
     def aux_rows(self) -> int:
         # slack of one full slab (8g rows) so flag-1 chunks can read an
@@ -584,12 +606,16 @@ class _BuildState:
 def _pack_stream(rows, cols, vals, ent, g, window, state: _BuildState,
                  src_flag: int = 0, spill: bool = False,
                  any_lane: bool = True, row_window: int = ROW_WINDOW,
-                 rotate: bool = False):
+                 rotate: bool = False, cell_level=None):
     """Sort a (row, col) element stream into cells and pack each cell.
 
     Targets are the element rows (direct y accumulation).  With
     ``spill=True`` each cell's Poisson-tail overflow comes back as
-    (rows, cols, vals, ent) subarrays for window-major repacking."""
+    (rows, cols, vals, ent) subarrays for window-major repacking.  With
+    ``cell_level`` (one dependency level per element, the solve builder)
+    the level is the most significant part of the cell key, so chunks
+    come out level by level, and each chunk's level is appended to
+    ``state.chunk_levels``."""
     if len(rows) == 0:
         return None
     # packed single-key argsort ordering by (cell, local row, local col);
@@ -599,10 +625,13 @@ def _pack_stream(rows, cols, vals, ent, g, window, state: _BuildState,
     w_bits = (window - 1).bit_length()
     nstripe = (int(rows.max()) >> lrow_bits) + 1
     ncellc = (int(cols.max()) >> w_bits) + 1
-    max_cell = nstripe * ncellc
+    lvl_mult = nstripe * ncellc
+    max_cell = lvl_mult
+    if cell_level is not None:
+        max_cell = lvl_mult * (int(cell_level.max()) + 1)
     if max_cell << (15 + lrow_bits) < (1 << 62):
         key = native.route2_keys(rows, cols, lrow_bits, w_bits, ncellc,
-                                 lvl_mult=max_cell)
+                                 lvl=cell_level, lvl_mult=lvl_mult)
         srt = native.argsort_i64(key)
         if srt is None:
             order = np.argsort(key, kind="stable")
@@ -614,6 +643,8 @@ def _pack_stream(rows, cols, vals, ent, g, window, state: _BuildState,
         cell_key = key_s >> (15 + lrow_bits)
     else:  # astronomically many cells: sort by a lexsort instead
         cell_id = (rows // row_window) * ncellc + cols // window
+        if cell_level is not None:
+            cell_id = cell_id + cell_level * lvl_mult
         order = np.lexsort((cols, rows, cell_id))
         cell_key = cell_id[order]
         lrow_s = (rows[order] % row_window).astype(np.int32)
@@ -631,7 +662,9 @@ def _pack_stream(rows, cols, vals, ent, g, window, state: _BuildState,
                                    ends, cell_sb, cell_yb, g, window,
                                    state, src_flag, spill=spill,
                                    any_lane=any_lane,
-                                   row_window=row_window, rotate=rotate)
+                                   row_window=row_window, rotate=rotate,
+                                   cell_level=(None if cell_level is None
+                                               else cell_ids // lvl_mult))
     if spill and len(spill_idx):
         ck = cell_key[spill_idx]
         r_sp = (((ck // ncellc) % nstripe) * row_window
@@ -647,11 +680,11 @@ def _pack_cells_native(lrow, lcol, vals, ent, starts, ends, cell_sb,
                        src_flag: int, spill: bool = False,
                        any_lane: bool = True,
                        row_window: int = ROW_WINDOW,
-                       rotate: bool = False):
+                       rotate: bool = False, cell_level=None):
     """Native cell packer over the cell-sorted stream (``lrow``/``lcol``
     window-local int32 coordinates, ``cell_sb``/``cell_yb`` the per-cell
-    slab and pane bases); returns the spilled stream indices (possibly
-    empty)."""
+    slab and pane bases, ``cell_level`` the per-cell dependency level of
+    a solve); returns the spilled stream indices (possibly empty)."""
     ne = len(lrow)
     ncells = len(starts)
     cell_start = np.concatenate([starts, [ne]]).astype(np.int64)
@@ -676,6 +709,8 @@ def _pack_cells_native(lrow, lcol, vals, ent, starts, ends, cell_sb,
     state.yb.extend(yb)
     state.flags.extend_const(src_flag, nch)
     state.rho.extend(chunk_rho)
+    if cell_level is not None:
+        state.chunk_levels.append(cell_level[chunk_cell])
     if len(aux_slot):
         state.aux_pending.append(
             (state.aux_base * LANES + aux_slot.astype(np.int64),
@@ -741,6 +776,183 @@ def _pack_spill_native(rows, cols, vals, ent, g, window,
         state.aux_pending.append(
             (state.aux_base * LANES + aux_slot.astype(np.int64),
              aux_lrow.astype(np.int64)))       # target = global row
+
+
+# ------------------------------------------------------------------ #
+# the one-launch-per-level triangular solve plan
+# ------------------------------------------------------------------ #
+
+# (row, x-window) pairs with more entries than this are hub segments, the
+# only source of aux spills (HUB_T in native/src/route2_pack.cpp)
+_HUB_T = 16
+
+
+def build_route2_solve_plan(rowptr, colind, values, shape, nnz: int,
+                            levels, diag_pos, unit_diag: bool,
+                            lower: bool, any_lane: bool = False,
+                            device=None) -> Route2Plan:
+    """Level-scheduled triangular solve plan, placed on ``device``
+    (default ``cuda``).
+
+    Solving (aA) x = b row by row gives x_i = b_i/(a d_i) - sum_j
+    (a_ij/d_i) x_j, so the solve is the accumulation y <- y0 + sum
+    (-a_ij/d_i) y[j] with y0 = b/(a d): a ROUTE2 plan whose chunks all
+    gather from the output pane (flag 1) and are packed in dependency
+    level order.  Values are baked (coefficients -a_ij/d_i);
+    :meth:`Route2Plan.update_solve_values` re-bakes them.
+
+    The arrays are the JAX builder's, bit for bit: consecutive non-hub
+    levels pack in one native call with the level folded into the cell
+    key (the packer flushes at every cell boundary, so a chunk holds one
+    level), and a level with hub rows packs alone, its aux reductions
+    right after it.  The port also records where each level's chunks and
+    each aux level start, as ``launch_starts``: the TPU runs the chunks
+    in grid order, CUDA runs one launch per range."""
+    dev = _t.resolve_device(device)
+    A = _build_route2_solve_arrays(_host(rowptr), _host(colind),
+                                   _host(values), shape, nnz,
+                                   np.asarray(levels),
+                                   np.asarray(diag_pos), unit_diag, lower,
+                                   any_lane)
+
+    def put(arr):
+        return torch.as_tensor(arr).to(dev)
+
+    return Route2Plan(
+        tile=put(A["tiles"]), val=put(A["vals"]), slab_base=put(A["sb"]),
+        y_base=put(A["yb"]), src_flag=put(A["flags"]),
+        val_src=put(A["srcs"]), ext_cols=put(np.zeros(0, np.int32)),
+        g=A["g"], shape=A["shape"], nat_slots=A["x_rows"] * LANES,
+        x_rows=A["x_rows"], y_rows=A["y_rows"], aux_rows=A["aux_rows"],
+        n_aux_chunks=A["n_aux_chunks"], fill=A["fill"],
+        dist_max=A["dist_max"], any_lane=bool(any_lane),
+        launch_starts=A["launch_starts"])
+
+
+def _build_route2_solve_arrays(rowptr, colind, values, shape, nnz: int,
+                               levels, diag_pos, unit_diag: bool,
+                               lower: bool, any_lane: bool) -> dict:
+    """Host phase of :func:`build_route2_solve_plan`."""
+    m = int(shape[0])
+    rowptr = np.asarray(rowptr).astype(np.int64)
+    colind = np.asarray(colind).astype(np.int64)[:nnz]
+    vals_h = np.asarray(values)[:nnz].astype(np.float64)
+    levels = np.asarray(levels).astype(np.int64)
+    lo = np.minimum(rowptr[:-1], nnz)
+    hi = np.minimum(rowptr[1:], nnz)
+    rows = np.repeat(np.arange(m, dtype=np.int64), hi - lo)
+    ent = np.arange(nnz, dtype=np.int64)
+    off = (colind < rows) if lower else (colind > rows)
+    d = np.ones(m, np.float64)
+    if not unit_diag:
+        d = vals_h[np.asarray(diag_pos).astype(np.int64)]
+    coeff = -(vals_h / d[rows])
+
+    g = pick_window_g(m, m, nnz, max_g=16)
+    window = g * SLOTS
+
+    y_rows = -(-max(m, 1) // ROW_WINDOW) * SUBS
+    state = _BuildState(g, y_rows)
+    starts = []
+
+    e_rows = rows[off]
+    e_cols = colind[off]
+    e_coeff = coeff[off].astype(np.float32)
+    e_ent = ent[off]
+    e_lv = levels[e_rows] if len(e_rows) else np.zeros(0, np.int64)
+    order = np.argsort(e_lv, kind="stable")
+    e_rows, e_cols = e_rows[order], e_cols[order]
+    e_coeff, e_ent, e_lv = e_coeff[order], e_ent[order], e_lv[order]
+    n_aux_chunks = 0
+    if len(e_lv):
+        # hub levels: any (row, window) with more than _HUB_T entries
+        rw_key = e_rows * ((m // window) + 2) + e_cols // window
+        _, rw_inv, rw_cnt = np.unique(rw_key, return_inverse=True,
+                                      return_counts=True)
+        hub_lv = np.unique(e_lv[rw_cnt[rw_inv] > _HUB_T])
+        is_hub_lv = np.isin(e_lv, hub_lv)
+        bounds = np.flatnonzero((np.diff(e_lv) != 0)
+                                & (is_hub_lv[1:] | is_hub_lv[:-1])) + 1
+        b_starts = np.concatenate([[0], bounds])
+        b_ends = np.concatenate([bounds, [len(e_lv)]])
+        for s0, s1 in zip(b_starts, b_ends):
+            first = len(state.tiles)
+            _pack_stream(e_rows[s0:s1], e_cols[s0:s1], e_coeff[s0:s1],
+                         e_ent[s0:s1], g, window, state, src_flag=1,
+                         any_lane=any_lane, cell_level=e_lv[s0:s1])
+            lv = state.chunk_levels.pop()
+            if (np.diff(lv) < 0).any():
+                raise RuntimeError("solve chunks left level order")
+            starts += [first + int(i) for i in np.concatenate(
+                [[0], np.flatnonzero(np.diff(lv)) + 1])]
+            if state.aux_pending and lv[0] != lv[-1]:
+                # aux partial sums land after the whole batch: a later
+                # level of it would gather an incomplete row
+                raise RuntimeError("a multi-level solve batch spilled to "
+                                   "the aux region")
+            n_aux, aux_starts = _drain_aux(state, g, window,
+                                           any_lane=any_lane)
+            n_aux_chunks += n_aux
+            starts += aux_starts
+
+    if not len(state.tiles):
+        state.append_empty()
+    nchunks = len(state.tiles)
+    aux_rows = state.aux_rows()
+    pane_rows = y_rows + aux_rows
+    # whole slab windows: a chunk reads 8g pane rows from its slab base
+    x_rows = max(pane_rows, SUBS * g)
+    x_rows = -(-x_rows // (SUBS * g)) * (SUBS * g)
+    tiles_np = state.tiles.stack()
+    return dict(
+        tiles=tiles_np, vals=state.vals.stack(), srcs=state.srcs.stack(),
+        sb=state.sb.stack(), yb=state.yb.stack(),
+        flags=state.flags.stack(), g=g, shape=(m, m), x_rows=x_rows,
+        y_rows=y_rows, aux_rows=aux_rows, n_aux_chunks=n_aux_chunks,
+        fill=float(len(e_rows) / max(nchunks * SLOTS, 1)),
+        dist_max=_tile_dist_max(tiles_np),
+        launch_starts=tuple(starts) if starts else (0,))
+
+
+def route2_solve_numpy(plan: Route2Plan, y0: np.ndarray) -> np.ndarray:
+    """Numpy oracle of the solve: the SpMV simulator with the output pane
+    initialised from y0 and every chunk reading it, sequential over
+    chunks (the JAX package's)."""
+    m = plan.shape[0]
+    y2 = np.zeros((max(plan.pane_rows, plan.x_rows), LANES), np.float32)
+    y2.reshape(-1)[:m] = np.asarray(y0, np.float32)
+    g = plan.g
+    tiles = _t.to_numpy(plan.tile)
+    vals = _t.to_numpy(plan.val)
+    sbs = _t.to_numpy(plan.slab_base)
+    ybs = _t.to_numpy(plan.y_base)
+    jj = np.broadcast_to(np.arange(LANES)[None, :], (SUBS, LANES))
+    ii = np.broadcast_to(np.arange(SUBS)[:, None], (SUBS, LANES))
+    for k in range(plan.nchunks):
+        t = tiles[k].astype(np.int64)
+        sb = int(sbs[k])
+        slab = np.zeros((SUBS * g, LANES), np.float32)
+        avail = min(SUBS * g, y2.shape[0] - sb)
+        if avail > 0:
+            slab[:avail] = y2[sb:sb + avail]
+        r2 = (t >> B_R2) & 255
+        t1 = slab[np.minimum(r2, SUBS * g - 1), jj]
+        t2 = t1[ii, (t >> B_LF) & 127]
+        t3 = t2[(t >> B_SD2) & 7, jj]
+        c = t3 * vals[k]
+        dist = (t >> B_DIST) & 7
+        P = c.copy()
+        for dd in (1, 2, 4):
+            sh = np.roll(P, dd, axis=0)
+            sh[:dd] = 0
+            P = P + np.where(dist >= dd, sh, 0.0)
+        RS = P[(t >> B_PEND) & 7, jj]
+        if plan.any_lane:
+            RS = RS[ii, (t >> B_LSRC) & 127]
+        RS = RS * ((t >> B_VA) & 1)
+        yb = int(ybs[k])
+        y2[yb:yb + SUBS] += RS
+    return y2.reshape(-1)[:m]
 
 
 # ------------------------------------------------------------------ #

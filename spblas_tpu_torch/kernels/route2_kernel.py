@@ -18,6 +18,15 @@ launch writes, so each launch may run its chunks in any order; chunks
 publish with atomic adds, so sums into one row are taken in another
 order than the TPU's.
 
+The solve mode (:func:`route2_solve`, the TPU kernel run with
+``init_from_x``) runs a plan from ``route2.build_route2_solve_plan``
+over one pane that starts at y0 = b/(alpha*d): every chunk gathers from
+the pane and publishes into it.  :func:`route2_solve_padded` launches
+the same chunk kernel through the solve entry point of
+``csrc/route2_spmv.cu``, one launch per dependency level (and per aux
+level of a hub level), cut at ``_SOLVE_CHUNKS_PER_DISPATCH`` chunks, all
+issued from one C call; CPU tensors take :func:`route2_solve_reference`.
+
 The SpGEMM numeric (:func:`route2_mul`) runs a ``Route2MulPlan`` the same
 way: :func:`route2_mul_padded` launches ``csrc/route2_mul.cu`` (which
 replaces ``route2_kernel.py::_route2_mul_kernel``) once over the flag-0
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -153,7 +163,8 @@ def route2_spmv_reference(plan: Route2Plan,
     return pane
 
 
-def _check_operands(plan: Route2Plan, x2: torch.Tensor) -> None:
+def _check_operands(plan: Route2Plan, x2: torch.Tensor,
+                    x_rows=None) -> None:
     arrays = (plan.tile, plan.val, plan.slab_base, plan.y_base,
               plan.src_flag) + ((plan.rho,) if plan.rotated else ())
     if any(a.device != x2.device for a in arrays):
@@ -165,7 +176,7 @@ def _check_operands(plan: Route2Plan, x2: torch.Tensor) -> None:
                         f" and {x2.dtype}")
     if plan.tile.shape != (plan.nchunks, SUBS, LANES) \
             or plan.val.shape != plan.tile.shape \
-            or x2.shape != (plan.x_rows * LANES,):
+            or x2.shape != ((x_rows or plan.x_rows) * LANES,):
         raise ValueError(f"bad shapes: tile {tuple(plan.tile.shape)}, "
                          f"val {tuple(plan.val.shape)}, "
                          f"x2 {tuple(x2.shape)}")
@@ -220,11 +231,103 @@ def route2_spmv(plan: Route2Plan, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ #
-# ROUTE2-mul: the fused SpGEMM numeric (dual gather chains)
+# solve mode: level-scheduled triangular substitution over one pane
 # ------------------------------------------------------------------ #
+
+# the most chunks one launch takes (the TPU's scalar-memory chunk budget
+# of one dispatch, kept for parity; ROADMAP Queue 1 item 18)
+_SOLVE_CHUNKS_PER_DISPATCH = 60_000
 
 # chunks per step of the plain versions
 _REF_BLOCK = 4096
+
+
+def solve_pane_rows(plan: Route2Plan) -> int:
+    """Rows of the solve pane: the plan's pane, rounded to whole slabs."""
+    return max(plan.pane_rows, plan.x_rows)
+
+
+def solve_ranges(plan: Route2Plan):
+    """The [lo, hi) chunk range of each solve launch, in order: the
+    plan's level and aux-level ranges, each cut at
+    ``_SOLVE_CHUNKS_PER_DISPATCH`` chunks."""
+    cap = _SOLVE_CHUNKS_PER_DISPATCH
+    return [(lo, min(lo + cap, hi)) for lo, hi in plan.launch_ranges()
+            for lo in range(lo, hi, cap)]
+
+
+def route2_solve_reference(plan: Route2Plan,
+                           pane: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the solve kernel: a copy of the flat y0
+    pane, then the launch ranges in order, each through
+    :func:`chunk_reference` reading and publishing into the pane (in
+    blocks of chunks: no chunk of a range reads a slot another one
+    writes).  Returns the (rows, 128) f32 pane."""
+    p = pane.clone().view(-1, LANES)
+    for lo, hi in solve_ranges(plan):
+        for b0 in range(lo, hi, _REF_BLOCK):
+            b1 = min(b0 + _REF_BLOCK, hi)
+            chunk_reference(
+                plan.tile[b0:b1], plan.val[b0:b1], plan.slab_base[b0:b1],
+                plan.y_base[b0:b1], plan.src_flag[b0:b1], None, p, p,
+                g=plan.g, dist_max=plan.dist_max, any_lane=plan.any_lane,
+                ww=1, rotated=False)
+    return p
+
+
+# (tile, val, slab_base, y_base, src_flag, starts, nstarts, nchunks,
+#  max_chunks, pane, rows, g, dist_max, any_lane, launches, stream) of
+# route2_solve_f32
+_SOLVE_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) * 3 + (
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
+
+
+def route2_solve_padded(plan: Route2Plan,
+                        pane: torch.Tensor) -> torch.Tensor:
+    """The solve over the flat f32 pane ``pane`` (y0 in front, zeros to
+    :func:`solve_pane_rows` rows of 128); returns a new (rows, 128) f32
+    pane holding x in front.  CUDA tensors launch the solve entry point
+    of ``route2_spmv.cu`` (one C call issues every launch, on the
+    current stream); CPU tensors take :func:`route2_solve_reference`."""
+    rows = solve_pane_rows(plan)
+    if plan.rotated or plan.row_window_mult != 1:
+        raise ValueError("a solve plan has no rotations or supercells")
+    _check_operands(plan, pane, x_rows=rows)
+    if not _t.on_cuda(pane):
+        return route2_solve_reference(plan, pane)
+    out = pane.clone()
+    starts = np.asarray(plan.launch_starts, np.int64)
+    count = np.zeros(1, np.int64)
+    stream = torch.cuda.current_stream(pane.device).cuda_stream
+    fn = _build.function("route2_spmv", "route2_solve_f32", _SOLVE_ARGTYPES)
+    code = fn(plan.tile.data_ptr(), plan.val.data_ptr(),
+              plan.slab_base.data_ptr(), plan.y_base.data_ptr(),
+              plan.src_flag.data_ptr(), starts.ctypes.data, len(starts),
+              plan.nchunks, _SOLVE_CHUNKS_PER_DISPATCH, out.data_ptr(), rows,
+              plan.g, plan.dist_max, int(plan.any_lane), count.ctypes.data,
+              stream)
+    route2_solve_padded.launches += int(count[0])
+    _build.check(code, "route2_solve")
+    return out.view(rows, LANES)
+
+
+route2_solve_padded.launches = 0
+
+
+def route2_solve(plan: Route2Plan, y0: torch.Tensor) -> torch.Tensor:
+    """x = the level-scheduled substitution of a solve plan from
+    ``route2.build_route2_solve_plan``, the pane starting at ``y0``
+    (= b/(alpha*d)); in y0's dtype (computed in f32)."""
+    m = plan.shape[0]
+    rows = solve_pane_rows(plan)
+    pane = F.pad(y0.float(), (0, rows * LANES - m)).contiguous()
+    return route2_solve_padded(plan, pane).view(-1)[:m].to(y0.dtype)
+
+
+# ------------------------------------------------------------------ #
+# ROUTE2-mul: the fused SpGEMM numeric (dual gather chains)
+# ------------------------------------------------------------------ #
 
 
 def _gather_chain(t, base, src, g: int, b_r2: int, b_lf: int,

@@ -135,6 +135,13 @@ def _declare(lib):
     lib.spblas_route2_mul_pack.argtypes = [
         i64, i64, i64p, i32p, i32p, i32p, i64, i64,
         i32p, i32p, i32p, i32p, i64p, i64p, i32p, i32p]
+    lib.spblas_route_mul_pack.restype = i64
+    lib.spblas_route_mul_pack.argtypes = [
+        i64, i64, i64p, i32p, i32p, i32p, i64, i32p, i32p, i32p, i32p]
+    lib.spblas_level_schedule.restype = i64
+    lib.spblas_level_schedule.argtypes = [i64, i64, i64p, i32p,
+                                          ctypes.c_int32, ctypes.c_int32,
+                                          i32p, i64p]
 
 
 def route2_pack(ne, ncells, cell_start, lrow, lcol, aux_windows_in=0,
@@ -236,6 +243,60 @@ def route2_mul_pack(ne, ncells, cell_start, lslot, la, lb,
                 aux_cell[:na])
     raise RuntimeError(
         "spblas_route2_mul_pack: chunk buffer kept overflowing")
+
+
+def route_mul_pack(ne, ncells, cell_start, lo, la, lb):
+    """Native ROUTE v1 mul chunk packing (``kernels/route_mul.py``'s hot
+    loop).  ``lo``/``la``/``lb`` are the window-local slot, src_a and
+    src_b of each element of the cell-sorted SpGEMM expansion stream.
+
+    Returns (nchunks, t1, t2, t3, chunk_cell)."""
+    lib = get_lib()
+    cell_start = np.ascontiguousarray(cell_start, np.int64)
+    lo = np.ascontiguousarray(lo, np.int32)
+    la = np.ascontiguousarray(la, np.int32)
+    lb = np.ascontiguousarray(lb, np.int32)
+    max_chunks = int(ne // 256 + 4 * ncells + 16)
+    for _ in range(4):
+        t1 = np.zeros(max_chunks * 1024, np.int32)
+        t2 = np.zeros(max_chunks * 1024, np.int32)
+        t3 = np.zeros(max_chunks * 1024, np.int32)
+        chunk_cell = np.zeros(max_chunks, np.int32)
+        rc = lib.spblas_route_mul_pack(
+            ne, ncells, cell_start, lo, la, lb, max_chunks,
+            t1, t2, t3, chunk_cell)
+        if rc == -1:
+            max_chunks *= 4
+            continue
+        if rc < 0:
+            raise RuntimeError(
+                f"spblas_route_mul_pack failed with code {rc}")
+        nch = int(rc)
+        return (nch,
+                t1[: nch * 1024].reshape(nch, 8, 128),
+                t2[: nch * 1024].reshape(nch, 8, 128),
+                t3[: nch * 1024].reshape(nch, 8, 128),
+                chunk_cell[:nch])
+    raise RuntimeError(
+        "spblas_route_mul_pack: chunk buffer kept overflowing")
+
+
+def level_schedule(m, nnz, rowptr, colind, lower: bool, unit: bool):
+    """Level-set analysis of a triangular matrix: (levels int32[m],
+    diag int64[m] (the diagonal's entry index, -1 when absent),
+    num_levels).  Raises ValueError when an explicit-diagonal row lacks
+    its diagonal."""
+    lib = get_lib()
+    rowptr = np.ascontiguousarray(rowptr, dtype=np.int64)
+    colind = np.ascontiguousarray(colind, dtype=np.int32)
+    levels = np.zeros(m, np.int32)
+    diag = np.full(m, -1, np.int64)
+    nl = int(lib.spblas_level_schedule(
+        m, nnz, rowptr, colind, int(lower), int(unit), levels, diag))
+    if nl < 0:
+        raise ValueError(
+            "explicit-diagonal solve but a row has no diagonal entry")
+    return levels, diag, nl
 
 
 def mul_expand(m, a_nnz, a_rowptr, a_colind, b_nnz, b_rowptr, b_colind,

@@ -8,3 +8,5 @@ from spblas_tpu_torch.ops.spgemm import (
     multiply_symbolic_compute, multiply_symbolic_fill, multiply_numeric,
     multiply_fused,
 )
+from spblas_tpu_torch.ops.triangular_solve import (triangular_solve,
+                                                   triangular_solve_inspect)

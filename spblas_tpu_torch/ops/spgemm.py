@@ -21,7 +21,9 @@ C = alpha*A*B + beta*D.  On CUDA operands (or with
 also builds a ROUTE2-mul engine plan (``kernels/route2.py``, paned past
 the resident envelope: ``kernels/route_mul_paned.py``), and the numeric
 phase then runs the hand-written kernel ``csrc/route2_mul.cu`` or
-``csrc/route_mul_paned.cu``; otherwise it is the torch numeric
+``csrc/route_mul_paned.cu``; ``SPBLAS_ROUTE_SPGEMM=1`` selects the ROUTE
+v1 engine for a resident product instead (``kernels/route_mul.py``,
+kernel ``csrc/route_mul.cu``); otherwise it is the torch numeric
 (gather-multiply-``index_add_``).  The engine gates are the JAX
 package's, kept for parity (ROADMAP Queue 1 item 18 re-derives them for
 the card).  BSR·BSR one-shot products go to the block SpGEMM
@@ -155,6 +157,8 @@ def _numeric(plan: SpgemmPlan, a_values, b_values, d_values, alpha, beta):
     if plan.route is not None:
         from spblas_tpu_torch.kernels.route2 import Route2MulPlan
         from spblas_tpu_torch.kernels.route2_kernel import route2_mul
+        from spblas_tpu_torch.kernels.route_mul import RouteMulPlan
+        from spblas_tpu_torch.kernels.route_mul_kernel import route_mul
         from spblas_tpu_torch.kernels.route_mul_paned import route2_mul_paned
         one = a_values.new_ones(1)
         a_arr = torch.cat([alpha * a_values, one])
@@ -162,6 +166,8 @@ def _numeric(plan: SpgemmPlan, a_values, b_values, d_values, alpha, beta):
                  if d_values is not None else b_values)
         if isinstance(plan.route, Route2MulPlan):
             out = route2_mul(plan.route, a_arr, b_arr)
+        elif isinstance(plan.route, RouteMulPlan):
+            out = route_mul(plan.route, a_arr, b_arr)
         else:
             out = route2_mul_paned(plan.route, a_arr, b_arr)
         # the plan may have been re-targeted at another output capacity
@@ -275,10 +281,10 @@ def _build_route_packer(slots, sa, sb, a_len, b_len, c_capacity,
         return build_route2_mul_paned_plan(slots, sa, sb, a_len, b_len,
                                            c_capacity, device=device)
     if os.environ.get("SPBLAS_ROUTE_SPGEMM") == "1":
-        raise NotImplementedError(
-            "SPBLAS_ROUTE_SPGEMM=1 selects the ROUTE v1 SpGEMM engine, "
-            "which is not ported to spblas_tpu_torch yet: ROADMAP Queue 2 "
-            "item 13 (route_mul)")
+        # the ROUTE v1 engine, kept selectable for comparison
+        from spblas_tpu_torch.kernels.route_mul import build_route_mul_plan
+        return build_route_mul_plan(slots, sa, sb, a_len, b_len,
+                                    c_capacity, device=device)
     from spblas_tpu_torch.kernels.route2 import build_route2_mul_plan
     return build_route2_mul_plan(slots, sa, sb, a_len, b_len, c_capacity,
                                  device=device)

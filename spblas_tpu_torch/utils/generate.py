@@ -212,3 +212,79 @@ def generate_rmat_csr(n, nnz, seed=0, a=0.57, b=0.19, c=0.19,
         max(len(rows) / max(n, 1), 1.0)
     return CSR.from_arrays(vals, _rows_to_rowptr(rows, n), cols, (n, n),
                            nnz=len(rows), device=device)
+
+
+def generate_triangular_csr(m, seed=0, lower=True, unit_diag=False,
+                            density=0.05, dtype=np.float32, capacity=None,
+                            device=None) -> CSR:
+    """Well-conditioned random triangular factor for SpTRSV: each row
+    draws Binomial(span, density) distinct off-diagonal columns of its
+    triangle, values U[-1, 1); the diagonal (unless ``unit_diag``) is
+    m + U[1, 2), so substitution is stable."""
+    rng = np.random.default_rng(seed)
+    rows_l, cols_l, vals_l = [], [], []
+    for r in range(m):
+        lo, hi = (0, r) if lower else (r + 1, m)
+        span = hi - lo
+        k = min(span, rng.binomial(span, density)) if span > 0 else 0
+        if k > 0:
+            cs = np.sort(rng.choice(np.arange(lo, hi), size=k,
+                                    replace=False))
+            rows_l.append(np.full(k, r, dtype=np.int64))
+            cols_l.append(cs)
+            vals_l.append(rng.uniform(-1, 1, k).astype(dtype))
+        if not unit_diag:
+            rows_l.append(np.array([r], dtype=np.int64))
+            cols_l.append(np.array([r], dtype=np.int64))
+            vals_l.append(np.array([m + rng.uniform(1, 2)], dtype=dtype))
+    if rows_l:
+        rows = np.concatenate(rows_l)
+        cols = np.concatenate(cols_l)
+        vals = np.concatenate(vals_l)
+        order = np.lexsort((cols, rows))
+        rows, cols, vals = rows[order], cols[order], vals[order]
+    else:  # strictly-unit-diagonal factor with no off-diagonal entries
+        rows = np.zeros(0, np.int64)
+        cols = np.zeros(0, np.int64)
+        vals = np.zeros(0, dtype)
+    return CSR.from_arrays(vals, _rows_to_rowptr(rows, m), cols, (m, m),
+                           nnz=len(rows), capacity=capacity, device=device)
+
+
+def generate_block_chain_arrays(m, block=64, deg=4, seed=0,
+                                dtype=np.float32):
+    """Host (numpy) arrays ``(vals, rowptr, cols)`` of
+    :func:`generate_block_chain_lower`."""
+    rng = np.random.default_rng(seed)
+    rows_i = np.arange(m, dtype=np.int64)
+    blk = rows_i // block
+    dep_rows = np.repeat(rows_i[blk > 0], deg)
+    prev_base = (blk[blk > 0] - 1) * block
+    dep_cols = (np.repeat(prev_base, deg)
+                + rng.integers(0, block, len(dep_rows)))
+    dep_vals = rng.uniform(-0.1, 0.1, len(dep_rows))
+    rows = np.concatenate([dep_rows, rows_i])
+    cols = np.concatenate([dep_cols, rows_i])
+    vals = np.concatenate([dep_vals, rng.uniform(2.0, 3.0, m)])
+    # coalesce duplicate deps, keep sorted CSR
+    key = rows * np.int64(m) + cols
+    order = np.argsort(key, kind="stable")
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    head = np.concatenate([[True], key[order][1:] != key[order][:-1]])
+    grp = np.cumsum(head) - 1
+    out_vals = np.zeros(int(grp[-1]) + 1, np.float64)
+    np.add.at(out_vals, grp, vals)
+    rows, cols = rows[head], cols[head]
+    return (out_vals.astype(dtype), _rows_to_rowptr(rows, m), cols)
+
+
+def generate_block_chain_lower(m, block=64, deg=4, seed=0,
+                               dtype=np.float32, device=None) -> CSR:
+    """Lower-triangular with a long dependency chain: every row of block
+    k depends on ``deg`` random rows of block k-1, so the level schedule
+    has exactly ceil(m/block) levels of ``block`` rows each.  Diagonal
+    dominant (U[2, 3) against U[-0.1, 0.1) off the diagonal)."""
+    vals, rowptr, cols = generate_block_chain_arrays(m, block, deg, seed,
+                                                     dtype)
+    return CSR.from_arrays(vals, rowptr, cols, (m, m), nnz=len(vals),
+                           device=device)

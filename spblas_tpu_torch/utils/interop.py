@@ -18,6 +18,7 @@ from spblas_tpu_torch.kernels.bsr_spgemm import BsrSpgemmPlan
 from spblas_tpu_torch.kernels.dia import DiaPlan
 from spblas_tpu_torch.kernels.plans import SortedRoutePlan
 from spblas_tpu_torch.kernels.route2 import SUBS, Route2MulPlan, Route2Plan
+from spblas_tpu_torch.kernels.route_mul import RouteMulPlan
 from spblas_tpu_torch.kernels.route_mul_paned import (MulPanedPanel,
                                                       Route2MulPanedPlan)
 from spblas_tpu_torch.kernels.route_paned import (CB, PanedPanel,
@@ -115,8 +116,10 @@ def route2_plan_from_numpy(arrays: dict, static: dict,
     ext_cols and rho, None when not rotated) and its static fields (g,
     shape, nat_slots, x_rows, y_rows, aux_rows, n_aux_chunks, fill,
     dist_max, any_lane, row_window_mult, has_hub, rotated).  The carried
-    plan records no aux levels, so its launch starts come from
-    :func:`route2_launch_starts`."""
+    plan records no aux or dependency levels, so its launch starts come
+    from :func:`route2_launch_starts`; for a solve plan (every chunk
+    flag 1) they split wherever a chunk's slab meets a window the
+    current launch writes, more launches than the builder's levels."""
     dev = _t.resolve_device(device)
     put = {k: (None if v is None else _t.as_tensor(np.asarray(v), dev))
            for k, v in arrays.items()}
@@ -126,6 +129,17 @@ def route2_plan_from_numpy(arrays: dict, static: dict,
         arrays["src_flag"], arrays["slab_base"], arrays["y_base"],
         int(static["g"]), int(static.get("row_window_mult", 1)))
     return Route2Plan(**put, **static, launch_starts=starts)
+
+
+def route_mul_plan_from_numpy(arrays: dict, static: dict,
+                              device=None) -> RouteMulPlan:
+    """A RouteMulPlan over a JAX one's arrays (as numpy, keyed by field
+    name: tile1, tile2, tile3, a_base, b_base, o_base) and its static
+    fields (g_a, g_b, a_rows, b_rows, out_rows, capacity, fill)."""
+    dev = _t.resolve_device(device)
+    return RouteMulPlan(
+        **{k: _t.as_tensor(np.asarray(v), dev) for k, v in arrays.items()},
+        **static)
 
 
 def route_plan_from_numpy(arrays: dict, static: dict,

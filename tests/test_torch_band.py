@@ -125,3 +125,82 @@ def test_band_wrapper_rejects_bad_operands(bad):
         panels = panels.to("meta")
     with pytest.raises((TypeError, ValueError)):
         tband.band_spmv_padded(panels, xp)
+
+
+def _diags(m, offsets, seed):
+    """Seeded diagonals (U[0.1, 1) / (0.55 * ndiag), zero out of range),
+    the bench's device band construction."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(0.1, 1.0, (len(offsets), m)) / (0.55 * len(offsets))
+    i = np.arange(m)[None, :]
+    o = np.asarray(offsets)[:, None]
+    return np.where((i + o >= 0) & (i + o < m), d, 0).astype(np.float32)
+
+
+@pytest.mark.parametrize("m,half,bf16", [(700, 11, False), (2000, 50, False),
+                                         (1000, 7, True)])
+def test_band_plan_from_diags_bit_equal(m, half, bf16):
+    """The panels laid out from DIA storage are JAX's bit for bit, and
+    ``build_band_plan``'s on the same matrix as a CSR (pad_l = h both)."""
+    offsets = tuple(range(-half, half + 1))
+    d = _diags(m, offsets, seed=m)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if bf16 else (None, None)
+    jp = jband.band_plan_from_diags(jnp.asarray(d), offsets, (m, m),
+                                    dtype=jdt)
+    tp = tband.band_plan_from_diags(torch.from_numpy(d), offsets, (m, m),
+                                    dtype=tdt)
+    assert tp.pad_l == jp.pad_l == half and tp.shape == jp.shape
+    np.testing.assert_array_equal(_bits(tp.panels), _bits(jp.panels))
+    rows = np.repeat(np.arange(m), len(offsets))
+    cols = rows + np.tile(offsets, m)
+    keep = (cols >= 0) & (cols < m)
+    vals = d.T.reshape(-1)[keep]
+    rowptr = np.concatenate([[0], np.cumsum(np.bincount(rows[keep],
+                                                        minlength=m))])
+    a = interop.csr_from_numpy(vals, rowptr, cols[keep], len(vals), (m, m),
+                               device="cpu")
+    bp = tband.build_band_plan(a, dtype=tdt)
+    assert bp.pad_l == tp.pad_l
+    np.testing.assert_array_equal(_bits(bp.panels), _bits(tp.panels))
+
+
+def test_band_power_iterations_matches_jax():
+    """``tests/test_kernels.py``'s case (m 700, bandwidth 11, values /
+    11, 5 iterations) through JAX's Pallas kernel in interpret mode and
+    the port's plain version, rtol 1e-4, atol 1e-5."""
+    import dataclasses
+    a = gen.generate_banded_csr(700, 700, 11, seed=0)
+    a = dataclasses.replace(a, values=a.values / jnp.float32(11.0))
+    jp = jband.build_band_plan(a)
+    tp = interop.band_plan_from_numpy(np.asarray(jp.panels), jp.pad_l,
+                                      jp.shape, device="cpu")
+    x = np.random.default_rng(1).standard_normal(700).astype(np.float32)
+    want = np.asarray(jband.band_power_iterations(jp, jnp.asarray(x), 5,
+                                                  interpret=True))
+    before = tband.band_power_padded.launches
+    got = tband.band_power_iterations(tp, torch.from_numpy(x), 5)
+    assert tband.band_power_padded.launches == before   # plain: no launch
+    assert got.dtype == torch.float32 and got.shape == (700,)
+    np.testing.assert_allclose(to_np(got), want, rtol=1e-4, atol=1e-5)
+    # and five chained plain band SpMVs, exactly
+    y = torch.from_numpy(x)
+    for _ in range(5):
+        y = tband.band_spmv(tp, y)
+    np.testing.assert_array_equal(to_np(got), to_np(y))
+
+
+def test_band_power_iterations_edge_cases():
+    """``iters <= 0`` returns x itself; a non-square plan raises, as in
+    JAX; bf16 panels give an f32 result."""
+    a = gen.generate_banded_csr(300, 300, 6, seed=4)
+    tp = tband.build_band_plan(port_csr(a))
+    x = torch.ones(300)
+    assert tband.band_power_iterations(tp, x, 0) is x
+    assert tband.band_power_iterations(tp, x, -2) is x
+    rect = tband.build_band_plan(port_csr(gen.generate_banded_csr(
+        300, 400, 6, seed=5)))
+    with pytest.raises(ValueError, match="square"):
+        tband.band_power_iterations(rect, torch.ones(400), 3)
+    bp = tband.build_band_plan(port_csr(a), dtype=torch.bfloat16)
+    y = tband.band_power_iterations(bp, x, 2)
+    assert y.dtype == torch.float32 and bool(y.isfinite().all())

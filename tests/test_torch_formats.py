@@ -233,7 +233,10 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                 "spblas_tpu_torch.ops.spgemm",
                 "spblas_tpu_torch.backend.engine",
                 "spblas_tpu_torch.kernels.route_mul_paned",
-                "spblas_tpu_torch.kernels.bsr_spgemm"} <= seen, seen
+                "spblas_tpu_torch.kernels.bsr_spgemm",
+                "spblas_tpu_torch.kernels.route_mul",
+                "spblas_tpu_torch.kernels.route_mul_kernel",
+                "spblas_tpu_torch.ops.triangular_solve"} <= seen, seen
         from spblas_tpu_torch.kernels import plans
         from spblas_tpu_torch.utils import generate as gen
         a = gen.generate_banded_csr(500, 500, 9, seed=0, device="cpu")
@@ -288,6 +291,31 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
         b = sp.BSR.from_dense(d, (8, 128), device="cpu")
         bt = sp.BSR.from_dense(d.T.copy(), (128, 8), device="cpu")
         assert isinstance(sp.multiply(b, bt), sp.BSR)
+        # the ROUTE v1 SpGEMM engine, the ROUTE2 triangular solve (native
+        # level schedule and packer, plain kernel version) and the band
+        # power iterations
+        os.environ["SPBLAS_FORCE_PANED_SPGEMM"] = "0"
+        os.environ["SPBLAS_ROUTE_SPGEMM"] = "1"
+        info = sp.multiply_compute(a, a)
+        assert type(info.plan.route).__name__ == "RouteMulPlan"
+        c = sp.multiply_fill(info, sp.scaled(2.0, a), a)
+        assert bool(c.values.isfinite().all())
+        os.environ["SPBLAS_FORCE_ROUTE_TRSV"] = "1"
+        L = gen.generate_triangular_csr(500, seed=11, device="cpu")
+        info = sp.triangular_solve_inspect(L)
+        assert info.plan.route is not None
+        x = sp.triangular_solve(sp.scaled(2.0, L),
+                                gen.generate_vector(500, seed=12,
+                                                    device="cpu"),
+                                info=info)
+        assert x.shape == (500,) and bool(x.isfinite().all())
+        import torch
+        from spblas_tpu_torch.kernels import banded
+        offs = tuple(range(-3, 4))
+        p = banded.band_plan_from_diags(torch.rand(7, 600), offs,
+                                        (600, 600))
+        y = banded.band_power_iterations(p, torch.ones(600), 3)
+        assert y.shape == (600,) and bool(y.isfinite().all())
         assert "jax" not in sys.modules or sys.modules["jax"] is None
         print("ok")
     """)

@@ -270,11 +270,18 @@ def test_errors_raise_as_in_jax(monkeypatch):
     st.symbolic_compute(ta, tb)
     with pytest.raises(RuntimeError, match="user capacity"):
         st.symbolic_fill(ta, tb, small)
-    # the ROUTE v1 engine is not ported: its selector raises
+    # the ROUTE v1 engine's selector builds the engine, whose fill
+    # matches JAX's product (and raises as the others on a short C)
+    from spblas_tpu_torch.kernels.route_mul import RouteMulPlan
     monkeypatch.setenv("SPBLAS_FORCE_ROUTE_SPGEMM", "1")
     monkeypatch.setenv("SPBLAS_ROUTE_SPGEMM", "1")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsp.multiply_compute(ta, tb)
+    info_v1 = tsp.multiply_compute(ta, tb)
+    assert isinstance(info_v1.plan.route, RouteMulPlan)
+    _assert_structure(info_v1, sp.multiply_compute(a, b))
+    assert_spgemm_close(tsp.multiply_fill(info_v1, ta, tb),
+                        sp.multiply(a, b), abs_spgemm(a, b))
+    with pytest.raises(RuntimeError, match="user capacity"):
+        tsp.multiply_fill(info_v1, ta, tb, c=small)
 
 
 def test_engine_gates(monkeypatch):

@@ -214,9 +214,11 @@ def test_dimension_mismatch_raises():
 
 
 def test_not_ported_ops_raise_with_roadmap_item(monkeypatch):
-    """The ROUTE v1 SpGEMM engine (``SPBLAS_ROUTE_SPGEMM=1``) still
-    raises, naming its ROADMAP item; SpGEMM (item 10), SpMM and
-    dense·sparse (item 9) run now."""
+    """Nothing on the multiply surface raises as unported any more:
+    SpGEMM (item 10), SpMM and dense·sparse (item 9) run, and the ROUTE
+    v1 SpGEMM engine (``SPBLAS_ROUTE_SPGEMM=1``) is built at
+    compute time and its fill matches JAX."""
+    from spblas_tpu_torch.kernels.route_mul import RouteMulPlan
     ja = gen.generate_csr(30, 30, 100, seed=17)
     a = port_csr(ja)
     c = tsp.multiply(a, a)
@@ -225,8 +227,12 @@ def test_not_ported_ops_raise_with_roadmap_item(monkeypatch):
     assert tsp.multiply_compute(a, a).result_nnz == c.nnz
     monkeypatch.setenv("SPBLAS_FORCE_ROUTE_SPGEMM", "1")
     monkeypatch.setenv("SPBLAS_ROUTE_SPGEMM", "1")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tsp.multiply_compute(a, a)
+    info = tsp.multiply_compute(a, a)
+    assert isinstance(info.plan.route, RouteMulPlan)
+    c1 = tsp.multiply_fill(info, tsp.scaled(2.0, a), a)
+    assert c1.nnz == info.result_nnz == c.nnz
+    assert_spgemm_close(c1, sp.multiply(sp.scaled(2.0, ja), ja),
+                        abs_spgemm(ja, ja, alpha=2.0))
     assert tsp.multiply(a, torch.zeros(30, 4)).shape == (30, 4)
     assert tsp.multiply(torch.zeros(4, 30), a).shape == (4, 30)
 
