@@ -30,6 +30,11 @@ runs 10 power iterations.  SpTRSV cells: bench.py's 20k triangular factor
 and its 1M-row 15,625-level chain, and a 1.2M-row chain that takes the
 blocked solve.
 
+The ROUTE v1 kernel runs every level of a plan in one launch, ordered
+by device counters, and the paned kernel one launch per aux level: each
+runs 50 times back to back on a plan with aux levels, every result
+checked (a wait that lets a chunk read too early gives a wrong row).
+
 Tolerance everywhere: |y - y_ref| <= 64 * eps_f32 * scale * (|A|.|x|)
 per row (per entry of C against (|A|.|B|) for SpMM), the dot-product
 form of the test suite's 64*eps model, since the two sides sum in
@@ -138,6 +143,9 @@ ROUTE_HUB_ROWS = (5, 20_000)
 # kernel-only paned plan of the same 300k matrix with the hub rows:
 # small panels and panes, so it has several of each and aux levels
 PANED_SMALL = dict(panel_rows=65_536, pane_rows=512)
+# back-to-back runs of the race checks (the R-MAT v1 plan, the hub-row
+# paned plan), each result checked
+RACE_RUNS = 50
 
 # SpMM: the bench's spmm_banded (bench.py:574, the headline band at
 # k = 256) and spmm_general cells (bench.py:583, :804: uniform 100k,
@@ -552,37 +560,34 @@ def route2_case(name, a, kw, seed, rates, card, plan=None):
             "nnz_s": a.nnz / (k_ms * 1e-3), "card": card}
 
 
-def v1_levels(plan):
-    """A ROUTE v1 plan and its aux plans, level by level."""
-    out = []
-    while plan is not None:
-        out.append(plan)
-        plan = plan.aux_plan
+def v1_copy(plan):
+    """A copy of a v1 plan whose kernel arrays are distinct tensors (the
+    chain rebuilt from its last level up, layout kept)."""
+    out = None
+    for p in reversed(rpl.plan_levels(plan)):
+        out = dataclasses.replace(p, aux_plan=out, **{
+            f: getattr(p, f).clone() for f in (
+                "tile1", "tile3", "val", "slab_base", "y_base", "fused_sb",
+                "fused_yb")})
     return out
 
 
 def route_v1_case(name, a, plan, seed, rates, card):
-    """``route_spmv`` on every level of a v1 plan against its plain
-    version; each level's x is the aux slots of the plain version's pane
-    of the level before, so both sides see the same inputs."""
-    levels = v1_levels(plan)
+    """``route_spmv`` on a v1 plan, every level in its one launch,
+    against the plain version level by level, per row of the whole
+    apply."""
+    levels = rpl.plan_levels(plan)
     xin = gen.generate_vector(a.shape[1], seed=seed)
-    x2s, refs = [], []
-    for p in levels:
-        x2s.append(rsp.pack_x(p, xin))
-        refs.append(rsp.route_spmv_reference(p, x2s[-1]))
-        start = p.y_rows * 128
-        xin = refs[-1].view(-1)[start:start + p.aux_len]
+    x2 = rsp.pack_x(plan, xin)
     before = rsp.route_spmv_padded.launches
-    err = 0.0
-    for p, x2, y_p in zip(levels, x2s, refs):
-        y_k = rsp.route_spmv_padded(p, x2)
-        torch.cuda.synchronize()
-        err = max(err, row_check(y_k, y_p, rsp.route_spmv_reference(
-            dataclasses.replace(p, val=p.val.abs()), x2.abs())))
+    y_k = rsp.route_spmv_padded(plan, x2)
+    torch.cuda.synchronize()
     per_call = rsp.route_spmv_padded.launches - before
-    require(per_call == len(levels), f"route_spmv {name}: {per_call} "
-                                     f"launches for {len(levels)} levels")
+    require(per_call == 1, f"route_spmv {name}: {per_call} launches for "
+                           f"{len(levels)} levels")
+    err = row_check(y_k, rsp.route_spmv_chain_reference(plan, x2),
+                    rsp.route_spmv_chain_reference(dataclasses.replace(
+                        plan, val=plan.val.abs()), x2.abs()))
     log(f"[check] route_spmv {name}: in bound, max |err| {err:.3e}")
     # each input read once (tile1, tile3 and values, the per-chunk
     # scalars, the x pane), each output pane written twice (zeroed, then
@@ -591,23 +596,10 @@ def route_v1_case(name, a, plan, seed, rates, card):
                  + 2 * p.pane_rows * 512 for p in levels)
     nslots = sum(p.nchunks for p in levels) * 1024
     b_ms, b_by = bound(nbytes, 2 * nslots, rates)
-
-    def copy():
-        ps = [dataclasses.replace(
-            p, tile1=p.tile1.clone(), tile3=p.tile3.clone(),
-            val=p.val.clone(), slab_base=p.slab_base.clone(),
-            y_base=p.y_base.clone()) for p in levels]
-        return ps, [x2.clone() for x2 in x2s]
-
-    def run_levels(ps, xs, fn=rsp.route_spmv_padded):
-        for p, x2 in zip(ps, xs):
-            fn(p, x2)
-
-    ins = replicas(copy, nbytes)
-    k_ms = device_ms(run_levels, ins)
-    p_ms = device_ms(lambda ps, xs: run_levels(
-        ps, xs, rsp.route_spmv_reference), ins)
-    l_ms = library_ms(a, gen.generate_vector(a.shape[1], seed=seed))
+    ins = replicas(lambda: (v1_copy(plan), x2.clone()), nbytes)
+    k_ms = device_ms(rsp.route_spmv_padded, ins)
+    p_ms = device_ms(rsp.route_spmv_chain_reference, ins)
+    l_ms = library_ms(a, xin)
     del ins
     torch.cuda.empty_cache()
     return {"kernel": "route_spmv", "case": name, "m": a.shape[0],
@@ -618,6 +610,17 @@ def route_v1_case(name, a, plan, seed, rates, card):
             "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
             "plain_ms": p_ms, "library_ms": l_ms,
             "nnz_s": a.nnz / (k_ms * 1e-3), "card": card}
+
+
+def race_check(name, run, ref, absdot, times=RACE_RUNS):
+    """``run()`` ``times`` times back to back on the card, every result
+    held per row against the plain version: a level or launch-range wait
+    that lets a chunk read too early shows up as a wrong row."""
+    results = [run() for _ in range(times)]
+    torch.cuda.synchronize()
+    err = max(row_check(y, ref, absdot) for y in results)
+    log(f"[race] {name}: {times} runs in bound, max |err| {err:.3e}")
+    return err
 
 
 def paned_case(name, a, plan, seed, rates, card):
@@ -1335,6 +1338,17 @@ def bsr_spgemm_case(name, a, b, rates, card, dtype=torch.float32):
     p_ms = device_ms(bsg.bsr_spgemm_reference, ins[:1], reps=2)
     del ins
     torch.cuda.empty_cache()
+    l_ms = None
+    if dtype == torch.float32:
+        # cuSPARSE SpGEMM on the two CSR forms, its symbolic pass included
+        # (a yardstick only: where it needs more than the card holds, the
+        # record says so)
+        try:
+            l_ms = library_spgemm_ms(bsr_to_csr(a), bsr_to_csr(b))
+        except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
+            log(f"[library] bsr_spgemm {name}: cuSPARSE SpGEMM failed "
+                f"({str(e).splitlines()[0][:160]})")
+        torch.cuda.empty_cache()
     # the f32 case carries the main path's name (and its launch count)
     return {"kernel": "bsr_spgemm",
             "case": name if dtype == torch.float32 else f"{name}_{tname}",
@@ -1345,7 +1359,7 @@ def bsr_spgemm_case(name, a, b, rates, card, dtype=torch.float32):
             "empty_block_rows": int((a.block_rowptr[1:]
                                      == a.block_rowptr[:-1]).sum()),
             "max_abs_err": err, "kernel_ms": k_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "plain_ms": p_ms, "library_ms": None,
+            "bound_by": b_by, "plain_ms": p_ms, "library_ms": l_ms,
             "flop_s": flops / (k_ms * 1e-3), "card": card}
 
 
@@ -1890,23 +1904,47 @@ def run():
     # ROUTE v1: the plain plan of the R-MAT graph (aux levels, hot
     # columns) and the 300k matrix's v1 plan beside its ROUTE2 one
     rmat = RMAT_MAIN[1]()
-    v1_recs = [route_v1_case(f"{n}_v1", a, rpl.build_route_plan(
-        a.rowptr, a.colind, a.values, a.shape, a.nnz, device=a.device),
-        71 + i, rates, card)
-        for i, (n, a) in enumerate(((RMAT_MAIN[0], rmat),
-                                    (ROUTE_MAIN[0][0], u300)))]
+    rmat_v1 = rpl.build_route_plan(rmat.rowptr, rmat.colind, rmat.values,
+                                   rmat.shape, rmat.nnz, device=rmat.device)
+    v1_recs = [route_v1_case(f"{n}_v1", a, p, 71 + i, rates, card)
+               for i, (n, a, p) in enumerate((
+                   (RMAT_MAIN[0], rmat, rmat_v1),
+                   (ROUTE_MAIN[0][0], u300, rpl.build_route_plan(
+                       u300.rowptr, u300.colind, u300.values, u300.shape,
+                       u300.nnz, device=u300.device))))]
     require(v1_recs[0]["levels"] > 1 and v1_recs[0]["hot_cols"] > 0,
             "route_spmv R-MAT plan has no aux level or hot column")
     # paned ROUTE2 at small panels and panes, hub rows for aux levels
-    paned_recs = [paned_case(
-        "uniform_300k_hub_rows_paned", hubbed, rpn.build_route_paned_plan(
-            hubbed.rowptr, hubbed.colind, hubbed.values, hubbed.shape,
-            hubbed.nnz, device=hubbed.device, **PANED_SMALL), 73, rates,
-        card)]
+    hub_paned = rpn.build_route_paned_plan(
+        hubbed.rowptr, hubbed.colind, hubbed.values, hubbed.shape,
+        hubbed.nnz, device=hubbed.device, **PANED_SMALL)
+    paned_recs = [paned_case("uniform_300k_hub_rows_paned", hubbed,
+                             hub_paned, 73, rates, card)]
     require(paned_recs[0]["panels"] > 1 and paned_recs[0]["panes"] > 1
             and paned_recs[0]["aux_levels"] > 0,
             "route_paned_spmv small plan misses panels, panes or aux")
-    del hubbed
+    # race checks: the v1 levels' done-counter waits, the paned aux
+    # levels' launch order, each run back to back and every result held
+    x2 = rsp.pack_x(rmat_v1, gen.generate_vector(rmat.shape[1], seed=78))
+    race_check(f"route_spmv {RMAT_MAIN[0]}_v1",
+               lambda: rsp.route_spmv_padded(rmat_v1, x2),
+               rsp.route_spmv_chain_reference(rmat_v1, x2),
+               rsp.route_spmv_chain_reference(dataclasses.replace(
+                   rmat_v1, val=rmat_v1.val.abs()), x2.abs()))
+    xh = gen.generate_vector(hubbed.shape[1], seed=79)
+    x2 = rpn.pack_x2(hub_paned, xh)
+
+    def paned_plain(plan, xx):
+        return torch.cat([rpn.route_paned_spmv_reference(plan, p, xx)
+                          .view(-1)[:p.rows] for p in plan.panels])
+
+    race_check("route_paned_spmv uniform_300k_hub_rows_paned",
+               lambda: rpn.route_paned_spmv(hub_paned, xh),
+               paned_plain(hub_paned, x2),
+               paned_plain(dataclasses.replace(hub_paned, panels=tuple(
+                   dataclasses.replace(p, val=p.val.abs())
+                   for p in hub_paned.panels)), x2.abs()))
+    del hubbed, hub_paned, rmat_v1, x2
 
     # SpMM kernels: both band kernels on the headline at the spmm_banded
     # k, at an odd k and on bf16 panels; BSR kernels on (128, 128) and

@@ -76,14 +76,16 @@ __device__ __forceinline__ void slab_route(float (&dst)[kSubs][kLanes],
 
 // Chunk k: slab base row sb of src, flag 0/1 (the chunk body) or 2 (hub
 // sum), publish window yb of dst.  rho (rotated plans only) holds
-// rho0 | rho1 << 10 per chunk.  All 128 threads of the block must call
+// rho0 | rho1 << 10 per chunk.  With `stream` the tile and values are
+// loaded evict-first (ld.cs): a plan streamed once past the L2 then does
+// not push x and the output out of it.  All 128 threads of the block must call
 // it (it synchronises the block).
 __device__ __forceinline__ void chunk(
     Shared& sh, const int* __restrict__ tile, const float* __restrict__ val,
     const int* __restrict__ rho, long long k, long long sb, int flag,
     long long yb, const float* src, long long src_rows, float* dst,
     long long dst_rows, int g, int dist_max, int any_lane, int ww,
-    int rotated) {
+    int rotated, bool stream = false) {
   const int j = threadIdx.x;
   const long long base = k * (kSubs * kLanes);
 
@@ -91,8 +93,9 @@ __device__ __forceinline__ void chunk(
   float v[kSubs];
 #pragma unroll
   for (int a = 0; a < kSubs; ++a) {
-    t[a] = static_cast<unsigned>(tile[base + a * kLanes + j]);
-    v[a] = val[base + a * kLanes + j];
+    const long long q = base + a * kLanes + j;
+    t[a] = static_cast<unsigned>(stream ? __ldcs(tile + q) : tile[q]);
+    v[a] = stream ? __ldcs(val + q) : val[q];
   }
 
   slab_route(sh.t1, t, 0, sb, src, src_rows, g);

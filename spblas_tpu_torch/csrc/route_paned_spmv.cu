@@ -33,11 +33,26 @@
 //
 // What bounds it on the H100: bytes, 8 KB of plan stream per chunk plus
 // 16 B of per-chunk scalars (sb, yb, fl, pane), x once and each panel
-// pane twice (zeroed, then accumulated).
+// pane twice (zeroed, then accumulated): 1.39 GB, 0.41 ms at 3.35 TB/s,
+// on uniform 4M degree 10 (162,832 chunks at fill 0.24; its CSR is
+// 0.34 GB, so even at this bound the plan stays slower than a CSR
+// kernel).  Measured there (NVIDIA H100 80GB HBM3, 700 W;
+// scripts/route_profile.py): 0.82 ms, 0.78 with the publish off, 0.70
+// with the gather a constant, 0.69 with both: the stream of the plan and
+// the chunk body, not the gather or the atomics, hold it.
 //
-// Design: one 128-thread block per chunk, thread j owning lane column j;
-// one launch per launch range of a panel (one launch across every panel,
-// with per-panel output offsets, is later speed work).
+// Design: one 128-thread block per chunk, thread j owning lane column j,
+// many blocks resident on each SM, so that their loads overlap; one
+// launch per launch range of a panel.  The tile and values are loaded
+// evict-first (route2_chunk.cuh's `stream`), so x and the pane stay in
+// L2 while the plan passes: 2.7 % off the time.  One persistent launch
+// over every panel (the chunks claimed in order from one counter, aux
+// levels ordered by done counters, the next chunks' tiles streamed into
+// a shared-memory ring by cp.async.bulk) measured 0.99-1.27 ms, and one
+// launch of one block a chunk 0.94-1.04 ms, whichever chunk body they ran:
+// fewer blocks fit on an SM beside a ring, and each block's range lookup
+// put a dependent load ahead of its first tile load, so fewer chunks
+// were in flight.
 
 #include "route2_chunk.cuh"
 
@@ -59,7 +74,7 @@ __global__ void route_paned_spmv_kernel(
            : static_cast<long long>(pane[k]) * pane_rows + sb[k];
   route2::chunk(sh, tile, val, rho, k, base, flag, yb[k],
                 flag ? out : x2, flag ? out_rows : x_rows, out, out_rows, g,
-                dist_max, any_lane, ww, rotated);
+                dist_max, any_lane, ww, rotated, true);
 }
 
 }  // namespace

@@ -33,15 +33,20 @@ overflow a gather class: each is copied to 8 replica slots past x
 
 The builder is the JAX package's, line for line: numpy plus the port's
 own copy of the C++ packer (``native/src/route_pack.cpp``), so every plan
-array is bit-equal to the JAX plan's.  The plan is a frozen dataclass of
-torch tensors on the CSR's device, and there is no python packer
-fallback.  :func:`route_spmv_numpy` is the exact sequential simulator of
-the kernel (``kernels/route_spmv.py``, ``csrc/route_spmv.cu``).
+array is bit-equal to the JAX plan's.  Beside them, :func:`fuse_levels`
+derives what the one-launch kernel needs and the JAX plan lacks: each
+level's ``slab_base`` and ``y_base`` rebased into one buffer
+(``fused_sb``, ``fused_yb``) and the root's :class:`V1Layout`.  The plan
+is a frozen dataclass of torch tensors on the CSR's device, and there is
+no python packer fallback.  :func:`route_spmv_numpy` is the exact
+sequential simulator of the kernel (``kernels/route_spmv.py``,
+``csrc/route_spmv.cu``), level by level.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -84,6 +89,11 @@ class RoutePlan:
     aux_len: int
     n_pad: int
     fill: float
+    # one-launch buffer (fuse_levels): rebased slab and window bases of
+    # this level; the layout on the root only
+    fused_sb: Optional[torch.Tensor] = None   # (nchunks,) int32
+    fused_yb: Optional[torch.Tensor] = None   # (nchunks,) int32
+    layout: Optional["V1Layout"] = None
 
     @property
     def nchunks(self) -> int:
@@ -111,6 +121,72 @@ class RoutePlan:
         return dataclasses.replace(self, val=v)
 
 
+@dataclasses.dataclass(frozen=True)
+class V1Layout:
+    """The buffer one apply of a v1 plan runs in, in rows of 128 f32:
+    the y region ``[0, y_rows)`` every level publishes its y windows
+    into, then for each level d >= 1 the region ``[x_offs[d],
+    src_rows[d])`` holding its packed x, which level d - 1 fills with its
+    aux windows (so it is ``max(aux_rows[d-1], x_rows[d])`` rows), then
+    the counters.  Level 0 reads the packed x (``src_rows[0]`` its
+    x_rows)."""
+
+    level_ends: Tuple[int, ...]   # running chunk count, level by level
+    x_offs: Tuple[int, ...]       # first row of each level's x (0: none)
+    src_rows: Tuple[int, ...]     # one past the last row each level reads
+    buf_rows: int                 # rows before the counters
+
+    @property
+    def nlevels(self) -> int:
+        return len(self.level_ends)
+
+
+def plan_levels(plan: RoutePlan) -> list:
+    """A v1 plan and its aux plans, level by level."""
+    out = []
+    while plan is not None:
+        out.append(plan)
+        plan = plan.aux_plan
+    return out
+
+
+def fuse_levels(plan: RoutePlan) -> RoutePlan:
+    """The plan with every level's rebased ``fused_sb`` / ``fused_yb``
+    and the root's :class:`V1Layout`.  A y window (``y_base < y_rows``)
+    keeps its row; an aux window moves into the next level's x region;
+    a slab of level d >= 1 moves into level d's x region.  Raises where a
+    level past the first has hot columns (the level before publishes no
+    replicas; aux plans have none: each aux slot is one entry)."""
+    levels = plan_levels(plan)
+    if len(levels) > _MAX_DEPTH:
+        raise ValueError(f"{len(levels)} levels, at most {_MAX_DEPTH}")
+    if any(p.hot_cols.numel() for p in levels[1:]):
+        raise ValueError("an aux level has hot columns: the one-launch "
+                         "apply packs only level 0's")
+    y_rows = plan.y_rows
+    if any(p.y_rows != y_rows for p in levels):
+        raise ValueError("levels disagree on y_rows")
+    x_offs, src_rows, off = [0], [plan.x_rows], y_rows
+    for prev, p in zip(levels, levels[1:]):
+        x_offs.append(off)
+        off += max(prev.aux_rows, p.x_rows)
+        src_rows.append(off)
+    layout = V1Layout(
+        level_ends=tuple(itertools.accumulate(p.nchunks for p in levels)),
+        x_offs=tuple(x_offs), src_rows=tuple(src_rows), buf_rows=off)
+    out = None
+    for d in reversed(range(len(levels))):
+        p = levels[d]
+        yb = p.y_base.long()
+        if d + 1 < len(levels):
+            yb = torch.where(yb >= y_rows, yb - y_rows + x_offs[d + 1], yb)
+        out = dataclasses.replace(
+            p, aux_plan=out,
+            fused_sb=(p.slab_base.long() + x_offs[d]).to(torch.int32),
+            fused_yb=yb.to(torch.int32), layout=layout if d == 0 else None)
+    return out
+
+
 def _pick_g(n: int, max_g: int = 8) -> int:
     """Smallest g whose window covers all of n, else ``max_g``.  Unlike
     the ROUTE2 search, any integer g (the octant select takes any)."""
@@ -121,11 +197,17 @@ def _pick_g(n: int, max_g: int = 8) -> int:
 
 
 def build_route_plan(rowptr, colind, values, shape: Tuple[int, int],
-                     nnz: int, g: Optional[int] = None, device=None,
-                     _depth: int = 0) -> RoutePlan:
+                     nnz: int, g: Optional[int] = None,
+                     device=None) -> RoutePlan:
     """Build the ROUTE v1 plan from CSR arrays (numpy or tensors) on the
     host, and place it on ``device`` (default ``cuda``).  O(nnz log nnz)
     host work; the hot loop is the native packer."""
+    return fuse_levels(_build_level(rowptr, colind, values, shape, nnz, g,
+                                    device, 0))
+
+
+def _build_level(rowptr, colind, values, shape, nnz, g, device, _depth):
+    """One level and, recursively, its aux plan (JAX's builder)."""
     if _depth >= _MAX_DEPTH:
         raise RuntimeError("ROUTE aux recursion did not finish in "
                            f"{_MAX_DEPTH} levels")
@@ -201,9 +283,9 @@ def build_route_plan(rowptr, colind, values, shape: Tuple[int, int],
         rows_r, slots_r = aux_rows_g[order2], aux_slots[order2]
         rp2 = np.zeros(m + 1, np.int64)
         np.add.at(rp2[1:], rows_r, 1)
-        aux_plan = build_route_plan(
+        aux_plan = _build_level(
             np.cumsum(rp2), slots_r, np.ones(len(slots_r), np.float32),
-            (m, aux_len), len(slots_r), device=dev, _depth=_depth + 1)
+            (m, aux_len), len(slots_r), None, dev, _depth + 1)
     fill = nnz / max(t1_a.shape[0] * SLOTS, 1)
 
     def put(arr):

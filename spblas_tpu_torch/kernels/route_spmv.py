@@ -3,21 +3,26 @@
 
 On a CUDA tensor :func:`route_spmv_padded` launches the hand-written
 kernel ``csrc/route_spmv.cu`` (which replaces the TPU kernel
-``route_spmv.py::_route_kernel``); on a CPU tensor it runs
-:func:`route_spmv_reference`, the plain PyTorch version of the same
-computation.
+``route_spmv.py::_route_kernel``) once for the whole apply; on a CPU
+tensor it runs the plain PyTorch version level by level
+(:func:`route_spmv_chain_reference` over :func:`route_spmv_reference`).
 
 A plan level has no chunk that reads what another chunk of it writes
-(its chunks read x, and publish into y and the aux region), so one
-launch runs a level in any order; chunks publish with atomic adds, so
-sums into one row are taken in another order than the TPU's.  The aux
-region of a level is the x of the next level's plan (``aux_plan``): one
-launch per level, in stream order, each into a pane of its own.
+(its chunks read x, and publish into y and the aux region); the aux
+region of a level is the x of the next level's plan (``aux_plan``).  The
+kernel runs every level in one launch over one zeroed buffer
+(``route_plan.V1Layout``): each level publishes its y windows into the
+shared y region and its aux windows straight into the next level's
+packed x, and a chunk of level d waits on a device counter until level
+d - 1 is done.  Chunks publish with atomic adds, so sums into one row are
+taken in another order than the TPU's.
+:func:`route_spmv_fused_reference` is the plain version of that order.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 import torch.nn.functional as F
@@ -26,7 +31,7 @@ from spblas_tpu_torch import _build
 from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.kernels.route_plan import (
     LANES, SLOTS, SUBS, T1_L, T1_OCT, T1_Q1, T1_Q2, T1_Q3, T3_DIST, T3_P1,
-    T3_P2, T3_P3, T3_VA, RoutePlan)
+    T3_P2, T3_P3, T3_VA, RoutePlan, V1Layout, plan_levels)
 
 # chunks per step of the plain version: bounds its (k, 8, 128) int64
 # temporaries to 32 MB each
@@ -107,6 +112,48 @@ def route_spmv_reference(plan: RoutePlan, x2: torch.Tensor) -> torch.Tensor:
     return pane
 
 
+def route_spmv_chain_reference(plan: RoutePlan,
+                               x2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the whole apply, level by level: the
+    level's pane, its first m slots into y, its aux slots packed as the
+    next level's x.  Returns y, (m,) f32."""
+    m = plan.shape[0]
+    pane = route_spmv_reference(plan, x2).view(-1)
+    y = pane[:m]
+    if plan.aux_plan is not None:
+        start = plan.y_rows * LANES
+        y = y + route_spmv_chain_reference(
+            plan.aux_plan,
+            pack_x(plan.aux_plan, pane[start:start + plan.aux_len]))
+    return y
+
+
+def _layout(plan: RoutePlan) -> V1Layout:
+    if plan.layout is None:
+        raise ValueError("the plan carries no one-launch layout: build it "
+                         "with build_route_plan or route_plan.fuse_levels")
+    return plan.layout
+
+
+def route_spmv_fused_reference(plan: RoutePlan,
+                               x2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's order: every chunk of every
+    level, level by level, into the one zeroed buffer, through the
+    rebased ``fused_sb`` / ``fused_yb`` (level 0 reading ``x2``, level d
+    its region of the buffer, which level d - 1 filled).  Returns the
+    (buf_rows, 128) f32 buffer: y in its first m slots."""
+    lay = _layout(plan)
+    buf = torch.zeros(lay.buf_rows, LANES, dtype=torch.float32,
+                      device=x2.device)
+    for d, p in enumerate(plan_levels(plan)):
+        xs = x2.view(-1, LANES) if d == 0 else buf[:lay.src_rows[d]]
+        q = dataclasses.replace(p, slab_base=p.fused_sb, y_base=p.fused_yb)
+        for lo in range(0, p.nchunks, _REF_BLOCK):
+            _reference_block(q, lo, min(lo + _REF_BLOCK, p.nchunks), xs,
+                             buf)
+    return buf
+
+
 def _check_operands(plan: RoutePlan, x2: torch.Tensor) -> None:
     ints = (plan.tile1, plan.tile3, plan.slab_base, plan.y_base)
     arrays = ints + (plan.val,)
@@ -130,32 +177,48 @@ def _check_operands(plan: RoutePlan, x2: torch.Tensor) -> None:
         raise ValueError("plan arrays and x2 must be contiguous")
 
 
-# (tile1, tile3, val, slab_base, y_base, nchunks, x2, x_rows, pane,
-#  pane_rows, g, stream) of route_spmv_f32
-_ARGTYPES = (ctypes.c_void_p,) * 5 + (
-    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
+def _level_words(p: RoutePlan, end: int, src_rows: int) -> list:
+    """One level's eight descriptor words: tile1, tile3, val, fused_sb,
+    fused_yb (pointers), chunk end, source rows, g."""
+    arrays = (p.tile1, p.tile3, p.val, p.fused_sb, p.fused_yb)
+    if any(not a.is_contiguous() for a in arrays) \
+            or any(a.data_ptr() % 16 for a in arrays[:3]):
+        raise ValueError("level arrays must be contiguous, the tiles "
+                         "16-byte aligned")
+    return [a.data_ptr() for a in arrays] + [end, src_rows, p.g]
+
+
+# (desc, nlevels, x2, buf, buf_rows, stream) of route_spmv_f32
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p)
 
 
 def route_spmv_padded(plan: RoutePlan, x2: torch.Tensor) -> torch.Tensor:
-    """One plan level over the packed x pane ``x2`` (from
-    :func:`pack_x`); returns the (pane_rows, 128) f32 pane.  CUDA
-    tensors launch ``route_spmv.cu`` once, on the current stream; CPU
-    tensors take :func:`route_spmv_reference`."""
+    """The whole apply over the packed level-0 x ``x2`` (from
+    :func:`pack_x`); returns y, (m,) f32.  CUDA tensors zero one buffer
+    (``V1Layout``) and launch ``route_spmv.cu`` once, on the current
+    stream, y a view of the buffer; CPU tensors take
+    :func:`route_spmv_chain_reference`."""
     _check_operands(plan, x2)
     if not _t.on_cuda(x2):
-        return route_spmv_reference(plan, x2)
-    pane = torch.zeros(plan.pane_rows, LANES, dtype=torch.float32,
-                       device=x2.device)
+        return route_spmv_chain_reference(plan, x2)
+    lay = _layout(plan)
+    words = []
+    for p, end, rows in zip(plan_levels(plan), lay.level_ends,
+                            lay.src_rows):
+        if p.tile1.device != x2.device:
+            raise ValueError(f"plan on {p.tile1.device}, x2 on {x2.device}")
+        words += _level_words(p, end, rows)
+    # the buffer, and past it 16 words of counters
+    buf = torch.zeros(lay.buf_rows * LANES + 16, dtype=torch.float32,
+                      device=x2.device)
     stream = torch.cuda.current_stream(x2.device).cuda_stream
     fn = _build.function("route_spmv", "route_spmv_f32", _ARGTYPES)
-    _build.check(fn(
-        plan.tile1.data_ptr(), plan.tile3.data_ptr(), plan.val.data_ptr(),
-        plan.slab_base.data_ptr(), plan.y_base.data_ptr(), plan.nchunks,
-        x2.data_ptr(), plan.x_rows, pane.data_ptr(), plan.pane_rows,
-        plan.g, stream), "route_spmv")
+    _build.check(fn((ctypes.c_longlong * len(words))(*words), lay.nlevels,
+                    x2.data_ptr(), buf.data_ptr(), lay.buf_rows, stream),
+                 "route_spmv")
     route_spmv_padded.launches += 1
-    return pane
+    return buf[:plan.shape[0]]
 
 
 route_spmv_padded.launches = 0
@@ -163,12 +226,6 @@ route_spmv_padded.launches = 0
 
 def route_spmv(plan: RoutePlan, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x through a ROUTE v1 plan, in x's dtype (computed in f32):
-    y is the pane's first m slots, plus the aux plan applied to the aux
-    slots, level by level."""
-    m = plan.shape[0]
-    pane = route_spmv_padded(plan, pack_x(plan, x)).view(-1)
-    y = pane[:m]
-    if plan.aux_plan is not None:
-        start = plan.y_rows * LANES
-        y = y + route_spmv(plan.aux_plan, pane[start:start + plan.aux_len])
-    return y.to(x.dtype)
+    level 0's x packed, then every level at once (one launch on the
+    card)."""
+    return route_spmv_padded(plan, pack_x(plan, x)).to(x.dtype)

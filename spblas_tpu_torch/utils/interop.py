@@ -23,7 +23,7 @@ from spblas_tpu_torch.kernels.route_mul_paned import (MulPanedPanel,
                                                       Route2MulPanedPlan)
 from spblas_tpu_torch.kernels.route_paned import (CB, PanedPanel,
                                                   RoutePanedPlan)
-from spblas_tpu_torch.kernels.route_plan import RoutePlan
+from spblas_tpu_torch.kernels.route_plan import RoutePlan, fuse_levels
 
 
 def csr_from_numpy(values, rowptr, colind, nnz, shape,
@@ -147,8 +147,14 @@ def route_plan_from_numpy(arrays: dict, static: dict,
     """A RoutePlan over a JAX ``RoutePlan``'s arrays (as numpy, keyed by
     field name: tile1, tile3, val, slab_base, y_base, val_src, hot_cols,
     and aux_plan, the aux plan's own (arrays, static) pair or None) and
-    its static fields (g, shape, x_rows, y_rows, aux_len, n_pad, fill)."""
-    dev = _t.resolve_device(device)
+    its static fields (g, shape, x_rows, y_rows, aux_len, n_pad, fill).
+    The one-launch layout (rebased bases, ``V1Layout``) is derived as the
+    builder derives it (``route_plan.fuse_levels``)."""
+    return fuse_levels(_route_level_from_numpy(arrays, static,
+                                               _t.resolve_device(device)))
+
+
+def _route_level_from_numpy(arrays: dict, static: dict, dev) -> RoutePlan:
     arrays = dict(arrays)
     aux = arrays.pop("aux_plan")
     put = {k: _t.as_tensor(np.asarray(v), dev) for k, v in arrays.items()}
@@ -156,8 +162,7 @@ def route_plan_from_numpy(arrays: dict, static: dict,
     static["shape"] = (int(static["shape"][0]), int(static["shape"][1]))
     return RoutePlan(
         **put, **static,
-        aux_plan=None if aux is None else route_plan_from_numpy(
-            *aux, device=dev))
+        aux_plan=None if aux is None else _route_level_from_numpy(*aux, dev))
 
 
 def sorted_route_plan_from_numpy(base: tuple, unperm: tuple, entry_perm,

@@ -1,14 +1,17 @@
 """spblas_tpu_torch ROUTE v1 against the JAX package: bit-equal plans
 (through the recursive aux plan), the kernel's plain version against the
 JAX package's exact numpy simulator (``route_spmv_numpy``) and, on one
-small plan, against its Pallas kernel in interpret mode; values refresh;
-the degree-sorted rung and the ROUTE2 fill guard of the chooser; and
-the slice end to end, on the same seeded numpy inputs.
+small plan, against its Pallas kernel in interpret mode; the one-launch
+layout (rebased bases, ``V1Layout``) and the plain version of the
+kernel's order over it; values refresh; the degree-sorted rung and the
+ROUTE2 fill guard of the chooser; and the slice end to end, on the same
+seeded numpy inputs.
 
 Tolerance: the per-row 64*eps*(|A|.|x|) of ``tests/torch_util.py``,
 since the plain version's ``index_add_`` (and the CUDA kernel's atomics)
 sum a row in another order than the sequential simulator."""
 
+import dataclasses
 import types
 import unittest.mock as mock
 
@@ -33,6 +36,8 @@ from spblas_tpu_torch.utils import interop
 
 from tests.torch_util import (  # noqa: F401
     assert_rows_close, port_csr, one_torch_thread)
+
+SUBS = trp.SUBS
 
 ARRAYS = ("tile1", "tile3", "val", "slab_base", "y_base", "val_src",
           "hot_cols")
@@ -184,6 +189,92 @@ def test_plain_version_matches_interpret_kernel():
                       _ref_csr(a), x)
 
 
+def _assert_layout(plan):
+    """The one-launch layout of a root plan: level ends count the chunks
+    (the done counters' targets), the x regions follow the y region back
+    to back, each as large as the aux windows of the level before and
+    its own packed x; fused_sb / fused_yb are slab_base / y_base rebased
+    into the buffer, every window inside its region."""
+    lay, levels = plan.layout, trp.plan_levels(plan)
+    assert lay.nlevels == len(levels)
+    assert all(p.layout is None for p in levels[1:])
+    assert list(lay.level_ends) == list(np.cumsum([p.nchunks
+                                                   for p in levels]))
+    assert lay.x_offs[0] == 0 and lay.src_rows[0] == plan.x_rows
+    off = plan.y_rows
+    for d in range(1, len(levels)):
+        assert lay.x_offs[d] == off
+        off += max(levels[d - 1].aux_rows, levels[d].x_rows)
+        assert lay.src_rows[d] == off
+    assert lay.buf_rows == off
+    for d, p in enumerate(levels):
+        assert p.fused_sb.dtype == p.fused_yb.dtype == torch.int32
+        sb, yb, fsb, fyb = (t.numpy().astype(np.int64) for t in (
+            p.slab_base, p.y_base, p.fused_sb, p.fused_yb))
+        assert np.array_equal(fsb, sb + lay.x_offs[d])
+        aux = yb >= plan.y_rows
+        assert np.array_equal(fyb[~aux], yb[~aux])
+        assert (fyb[~aux] + SUBS <= plan.y_rows).all()
+        if aux.any():
+            assert np.array_equal(fyb[aux], yb[aux] - plan.y_rows
+                                  + lay.x_offs[d + 1])
+            assert (fyb[aux] + SUBS <= lay.src_rows[d + 1]).all()
+
+
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_fused_layout_and_order(name):
+    """The builder's plan and the one carried from JAX carry the same
+    layout.  The plain version of the kernel's order (every chunk, level
+    by level, into one buffer) gives the numpy simulator's y, and leaves
+    in each level's x region exactly the packed x the level-by-level
+    plain version hands that level: the aux windows land as packed."""
+    a, jp, tp = _plans(name)
+    carried = interop.route_plan_from_numpy(*_carry_numpy(jp), device="cpu")
+    assert carried.layout == tp.layout
+    for p, q in zip(trp.plan_levels(tp), trp.plan_levels(carried)):
+        assert torch.equal(p.fused_sb, q.fused_sb)
+        assert torch.equal(p.fused_yb, q.fused_yb)
+    _assert_layout(tp)
+    x = _x(a, seed=8)
+    x2 = trs.pack_x(tp, torch.from_numpy(x))
+    buf = trs.route_spmv_fused_reference(tp, x2)
+    assert buf.shape == (tp.layout.buf_rows, trp.LANES)
+    assert_rows_close(buf.view(-1)[:a.shape[0]], jrp.route_spmv_numpy(jp, x),
+                      _ref_csr(a), x, err_msg=name)
+    lay, levels = tp.layout, trp.plan_levels(tp)
+    xd = x2
+    for d in range(1, len(levels)):
+        prev = levels[d - 1]
+        start = prev.y_rows * trp.LANES
+        pane = trs.route_spmv_reference(prev, xd).view(-1)
+        xd = trs.pack_x(levels[d], pane[start:start + prev.aux_len])
+        region = buf[lay.x_offs[d]:lay.src_rows[d]].reshape(-1)
+        assert torch.equal(region[:xd.numel()], xd), (name, d)
+        assert not region[xd.numel():].any(), (name, d)
+
+
+def test_fused_layout_of_a_level_and_its_limits():
+    """A level taken out of its chain has no layout until it is laid out
+    anew, and then gives the level-by-level answer; a level past the
+    first with hot columns (the level before would have to publish
+    replicas) is refused."""
+    a, _, tp = _plans("uniform")
+    assert tp.aux_plan is not None and tp.aux_plan.layout is None
+    xa = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        tp.aux_plan.shape[1]).astype(np.float32))
+    x2 = trs.pack_x(tp.aux_plan, xa)
+    with pytest.raises(ValueError, match="no one-launch layout"):
+        trs.route_spmv_fused_reference(tp.aux_plan, x2)
+    level = trp.fuse_levels(tp.aux_plan)
+    got = trs.route_spmv_fused_reference(level, x2).view(-1)
+    want = trs.route_spmv_chain_reference(level, x2)
+    assert torch.allclose(got[:want.numel()], want, rtol=1e-6, atol=1e-6)
+    hot = dataclasses.replace(tp.aux_plan,
+                              hot_cols=torch.zeros(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="hot columns"):
+        trp.fuse_levels(dataclasses.replace(tp, aux_plan=hot))
+
+
 def test_pack_x_matches_numpy():
     """The packed pane (hot-column replicas included) is the numpy
     simulator's pane bit for bit."""
@@ -323,6 +414,6 @@ def test_wrapper_checks_operands():
         trs.route_spmv_padded(tp, x2[:-1])
     with pytest.raises(TypeError, match="float32"):
         trs.route_spmv_padded(tp, x2.double())
-    with mock.patch.object(trs, "route_spmv_reference") as ref:
+    with mock.patch.object(trs, "route_spmv_chain_reference") as ref:
         trs.route_spmv_padded(tp, x2)
     assert ref.called and trs.route_spmv_padded.launches == 0
