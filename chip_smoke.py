@@ -31,9 +31,11 @@ and its 1M-row 15,625-level chain, and a 1.2M-row chain that takes the
 blocked solve.
 
 The ROUTE v1 kernel runs every level of a plan in one launch, ordered
-by device counters, and the paned kernel one launch per aux level: each
-runs 50 times back to back on a plan with aux levels, every result
-checked (a wait that lets a chunk read too early gives a wrong row).
+by device counters, and the paned and resident ROUTE2 kernels one launch
+per aux level: each runs 50 times back to back on a plan with aux levels,
+every result checked (a wait that lets a chunk read too early gives a
+wrong row).  The band kernel is also held to its plain version on
+panels and x views that are not 16-byte aligned.
 
 Tolerance everywhere: |y - y_ref| <= 64 * eps_f32 * scale * (|A|.|x|)
 per row (per entry of C against (|A|.|B|) for SpMM), the dot-product
@@ -104,6 +106,10 @@ _REPLICA_BYTES = 256 << 20   # distinct inputs per chain exceed the 50 MB L2
 HEADLINE = ("banded_409600_h50", 409_600, 409_600, 100)
 BAND_CASES = [("odd_h_wide", 100_037, 120_000, 15, None, 11),
               ("odd_h_tall_bf16", 60_001, 50_000, 66, torch.bfloat16, 13)]
+# band windows wider than the row kernel's 8,192-float shared-memory tile
+# (band_row.cuh's kTile), which then pass through it in tiles: (panel
+# rows, widths W: one of whole 16-byte loads, one of one-element loads)
+BAND_WIDE = (3_072, (8_528, 8_530))
 DIA_MAIN = [("stencil_1000x1000", lambda: gen.generate_stencil_csr(
                 (1000, 1000), seed=1)),
             ("fem_800x800", lambda: gen.generate_fem_graph_csr(
@@ -144,7 +150,7 @@ ROUTE_HUB_ROWS = (5, 20_000)
 # small panels and panes, so it has several of each and aux levels
 PANED_SMALL = dict(panel_rows=65_536, pane_rows=512)
 # back-to-back runs of the race checks (the R-MAT v1 plan, the hub-row
-# paned plan), each result checked
+# paned and resident ROUTE2 plans), each result checked
 RACE_RUNS = 50
 
 # SpMM: the bench's spmm_banded (bench.py:574, the headline band at
@@ -449,6 +455,83 @@ def band_tall_check():
     log(f"[check] band_spmv at {rows} rows (past 2^27): exact")
     del panels, xp, y, want
     torch.cuda.empty_cache()
+
+
+def band_misaligned_check():
+    """The band kernel on panels and xp views one element past a 16-byte
+    boundary (the kernel then takes one-element loads), f32 and bf16, a
+    SpMV and two power iterations, against the plain versions."""
+    _, m, n, bw, _, seed = BAND_CASES[0]
+    a = gen.generate_banded_csr(m, n, bw, seed=seed)
+    plan = banded.build_band_plan(a)
+    xp = banded.pad_x(plan, gen.generate_vector(n, seed=seed + 2))
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        require(view.data_ptr() % 16 and view.is_contiguous(),
+                "misaligned view is aligned")
+        return view
+
+    sq = banded.build_band_plan(gen.generate_banded_csr(m, m, bw,
+                                                        seed=seed))
+    xq = banded.pad_x(sq, gen.generate_vector(m, seed=seed + 3))
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        panels = plan.panels.to(dt)
+        before = banded.band_spmv_padded.launches
+        y = banded.band_spmv_padded(shifted(panels), shifted(xp))
+        torch.cuda.synchronize()
+        require(banded.band_spmv_padded.launches == before + 1,
+                "misaligned band_spmv did not launch")
+        err = max(err, row_check(
+            y, banded.band_spmv_reference(panels, xp),
+            banded.band_spmv_reference(panels.abs(), xp.abs())))
+        qp = sq.panels.to(dt)
+        h = sq.pad_l
+        yq = banded.band_power_padded(shifted(qp), xq, 2, h)
+        torch.cuda.synchronize()
+        err = max(err, row_check(
+            yq, banded.band_power_reference(qp, xq, 2, h),
+            2 * banded.band_power_reference(qp.abs(), xq.abs(), 2, h)))
+    log(f"[check] band_spmv, band_power on views off 16-byte alignment "
+        f"(f32, bf16): in bound, max |err| {err:.3e}")
+
+
+def band_wide_check():
+    """The band kernel on windows wider than its shared-memory tile, f32
+    and bf16 panels, a SpMV and two power iterations on seeded random
+    panels and x (zero halo edges, as pad_x leaves them), against the
+    plain versions on the same inputs."""
+    rows, widths = BAND_WIDE
+    g = torch.Generator(device=DEVICE).manual_seed(171)
+    err = 0.0
+    for w in widths:
+        h = (w - 128) // 2
+        panels32 = torch.rand(rows, w, device=DEVICE, generator=g) * 2 - 1
+        xp = torch.zeros(rows - 128 + w, device=DEVICE)
+        xp[h:h + rows] = torch.rand(rows, device=DEVICE, generator=g) * 2 - 1
+        for dt in (torch.float32, torch.bfloat16):
+            panels = panels32.to(dt)
+            before = (banded.band_spmv_padded.launches,
+                      banded.band_power_padded.launches)
+            y = banded.band_spmv_padded(panels, xp)
+            yq = banded.band_power_padded(panels, xp, 2, h)
+            torch.cuda.synchronize()
+            require((banded.band_spmv_padded.launches,
+                     banded.band_power_padded.launches)
+                    == (before[0] + 1, before[1] + 2),
+                    f"wide band W {w}: kernels did not launch")
+            err = max(err, row_check(
+                y, banded.band_spmv_reference(panels, xp),
+                banded.band_spmv_reference(panels.abs(), xp.abs())))
+            err = max(err, row_check(
+                yq, banded.band_power_reference(panels, xp, 2, h),
+                2 * banded.band_power_reference(panels.abs(), xp.abs(), 2,
+                                                h)))
+    log(f"[check] band_spmv, band_power on windows W {widths} past the "
+        f"shared-memory tile (f32, bf16): in bound, max |err| {err:.3e}")
 
 
 def dia_case(name, a, seed, rates, card):
@@ -1875,6 +1958,8 @@ def run():
 
     # phase 2: kernels against their plain versions (f32; bf16 panels)
     band_tall_check()
+    band_misaligned_check()
+    band_wide_check()
     hname, hm, hn, hbw = HEADLINE
     head = gen.generate_banded_csr(hm, hn, hbw, seed=0)
     band_recs = [band_case(*c, rates, card) for c in BAND_CASES]
@@ -1890,9 +1975,12 @@ def run():
     hubbed = hub_rows_csr(u300, *ROUTE_HUB_ROWS, seed=61)
     route_recs = [route2_case(n, a, {}, 62, rates, card)
                   for n, a in general.items()]
+    hub_plan = route2.build_route2_plan(
+        hubbed.rowptr, hubbed.colind, hubbed.values, hubbed.shape,
+        hubbed.nnz, device=hubbed.device)
     route_recs += [
         route2_case("uniform_300k_hub_rows_aux", hubbed, {}, 63, rates,
-                    card),
+                    card, plan=hub_plan),
         route2_case("uniform_300k_hub_rows_hub256", hubbed,
                     {"hub_deg": 256}, 64, rates, card),
         route2_case("uniform_300k_any_lane", u300, {"any_lane": True}, 65,
@@ -1944,7 +2032,14 @@ def run():
                paned_plain(dataclasses.replace(hub_paned, panels=tuple(
                    dataclasses.replace(p, val=p.val.abs())
                    for p in hub_paned.panels)), x2.abs()))
-    del hubbed, hub_paned, rmat_v1, x2
+    x2 = r2k.pack_x2(hub_plan, gen.generate_vector(hubbed.shape[1],
+                                                    seed=80))
+    race_check("route2_spmv uniform_300k_hub_rows_aux",
+               lambda: r2k.route2_spmv_padded(hub_plan, x2),
+               r2k.route2_spmv_reference(hub_plan, x2),
+               r2k.route2_spmv_reference(dataclasses.replace(
+                   hub_plan, val=hub_plan.val.abs()), x2.abs()))
+    del hubbed, hub_paned, hub_plan, rmat_v1, x2
 
     # SpMM kernels: both band kernels on the headline at the spmm_banded
     # k, at an odd k and on bf16 panels; BSR kernels on (128, 128) and

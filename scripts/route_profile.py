@@ -1,31 +1,52 @@
 #!/usr/bin/env python3
-"""Device-time profile of the two ROUTE SpMV kernels of spblas_tpu_torch
-on their main-path shapes: ``route_spmv`` (ROUTE v1) on the degree-sorted
-base plan of the 131k R-MAT graph (bench.py:768, seed 5), and
-``route_paned_spmv`` (paned ROUTE2) on uniform 4M degree 10 (bench.py:606,
-seed 3), both as the CUDA chooser builds them.
+"""Device-time profile of the ROUTE SpMV kernels, the ROUTE2 solve and
+the band row kernel of spblas_tpu_torch on their main-path shapes:
+``route_spmv`` (ROUTE v1) on the degree-sorted base plan of the 131k
+R-MAT graph (bench.py:768, seed 5), ``route_paned_spmv`` (paned ROUTE2)
+on uniform 4M degree 10 (bench.py:606, seed 3), ``route2_spmv``
+(resident ROUTE2) on uniform 300k and 1M degree 10 (bench.py:145, :794,
+seed 3, chip_smoke.py's ``ROUTE_MAIN``), ``route2_solve`` on the 20k
+triangular factor and the 1M block chain (bench.py:410-417, :467-482,
+chip_smoke.py's ``TRSV_MAIN``), and ``band_spmv`` (f32 and bf16 panels)
+and ``band_power`` (10 iterations) on the 409,600-row headline band
+(bench.py:125, seed 0), each as the CUDA chooser or ``chip_smoke.py``
+builds it.
 
-    python3 scripts/route_profile.py [--tree DIR ...] [--out FILE]
+    python3 scripts/route_profile.py [--tree DIR ...] [--kernels K,...]
+                                     [--out FILE] [--no-variants]
 
 Each ``--tree`` is a checkout holding ``spblas_tpu_torch/`` (default: this
 one); the trees run one worker process each, in the order given, so
 ``--tree _checkout/parent --tree . --tree . --tree _checkout/parent``
-compares two versions in turns on one card.  A worker times, per kernel:
+compares two versions in turns on one card.  ``--kernels`` picks from
+``v1``, ``paned``, ``route2``, ``solve`` and ``band`` (default: all).  A
+worker reports, per kernel:
 
+- what ``nvcc -Xptxas -v`` says of each of its ``__global__`` functions
+  (registers a thread, shared memory a block, spill bytes) and the blocks
+  an SM holds (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, from a
+  small library built beside it that includes the kernel's source);
 - the kernel chain as ``chip_smoke.py`` defines it (CUDA events over
   chains cycling through copies past the 50 MB L2, a device sleep queued
   ahead so host time does not count): the v1 levels from the packed
-  level-0 x, the paned panels, pane zeroing included;
+  level-0 x, the paned panels and the resident ROUTE2 launches (pane
+  zeroing included), the solve's level launches from one C call, one
+  band SpMV, ten band power iterations; beside them cuSPARSE's
+  ``torch.mv`` on the same matrix;
 - the same chain rebuilt from variants of the tree's sources (the first
   time a tree appears, unless ``--no-variants``): ``no_publish`` (each
   publish ``atomicAdd`` made a predicated store that never fires),
   ``const_gather`` (every x or pane read of the gather replaced by 1.0),
-  both at once, and for the one-launch v1 kernel ``no_stream`` (its ring
-  filled by nothing) alone and with the other two;
+  both at once, for the one-launch v1 kernel ``no_stream`` (its ring
+  filled by nothing) alone and with the other two, and the ``lever_*``
+  variants, each of which changes one integer design constant of the
+  slab-staged ROUTE2 kernel or the band row kernel (a variant runs only
+  where its pattern matched, so a tree without the constant skips it),
+  each output held to the plain version (``*_in_bound``);
 - one ``torch.profiler`` trace of three chains and of three public
-  applies (``route_spmv`` / ``route_paned_spmv`` from x, host included):
-  every device operation in order with its duration, and the gaps; the
-  traces go to ``--trace-dir``.
+  applies (host included): the device operations a call, their busy
+  time and the gaps between them, and the first 40 operations in order;
+  the traces go to ``--trace-dir``.
 
 Prints one JSON object per worker and writes them all to ``--out``.
 Needs one CUDA device.
@@ -45,28 +66,58 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 
-# (kernel, file, regex, replacement): a variant rebuilds the kernels
-# whose patterns match (the paned chunk body is route2_chunk.cuh's)
+# (kernels, file, regex, replacement): a variant rebuilds the kernels
+# whose patterns match (the paned and resident ROUTE2 kernels run
+# route2_chunk.cuh's body)
+_CHUNK = ("paned", "route2")
 _PUBLISH = [
-    (tag, f, r"atomicAdd\((\w+) \+ row \* kLanes \+ j, ",
-     r"route_sink(\1 + row * kLanes + j, ")
-    for tag, f in (("v1", "route_spmv.cu"), ("paned", "route2_chunk.cuh"))]
+    (("v1",), "route_spmv.cu", r"atomicAdd\((\w+) \+ row \* kLanes \+ j, ",
+     r"route_sink(\1 + row * kLanes + j, "),
+    (_CHUNK, "route2_chunk.cuh",
+     r"atomicAdd\((\w+ \+ row \* kLanes(?: \+ j)?), ", r"route_sink(\1, ")]
 _GATHER = [
-    ("v1", "route_spmv.cu",
+    (("v1",), "route_spmv.cu",
      r"\w+\[row \* kLanes \+ bits\(a\[i\], 3, 127\)\]", "1.0f"),
-    ("v1", "route_spmv.cu", r"d \? __ldcg\(px\) : __ldg\(px\)", "1.0f"),
-    ("paned", "route2_chunk.cuh", r"src\[row \* kLanes \+ j\]", "1.0f")]
+    (("v1",), "route_spmv.cu", r"d \? __ldcg\(px\) : __ldg\(px\)", "1.0f"),
+    (_CHUNK, "route2_chunk.cuh", r"src\[row \* kLanes \+ j\]", "1.0f"),
+    (("route2",), "route2_spmv.cu",
+     r"slab\[min\(bits\(t\[a\], 0, 255\), rows - 1\) \* kLanes \+ j\]",
+     "1.0f")]
 # the one-launch v1 kernel only: no plan stream (the ring's bulk copies
 # dropped; the chunks compute on whatever the ring holds)
-_STREAM = [("v1", "route_spmv.cu", r"bar_expect\(bar, \d \* kTileBytes\);",
-            "bar_expect(bar, 0);"),
-           ("v1", "route_spmv.cu", r"bulk_load\(st\.[^;]*\);", ";")]
+_STREAM = [(("v1",), "route_spmv.cu",
+            r"bar_expect\(bar, \d \* kTileBytes\);", "bar_expect(bar, 0);"),
+           (("v1",), "route_spmv.cu", r"bulk_load\(st\.[^;]*\);", ";")]
+
+
+def _lever(tag, fname, const, value):
+    """One integer design constant of a kernel source set to ``value``."""
+    return [[((tag,), fname, rf"(constexpr int {const} = )[^;]+;",
+              rf"\g<1>{value};")]]
+
+
 # a variant is a list of groups; a kernel is rebuilt under it where each
 # group matched somewhere in its sources
 VARIANTS = {"no_publish": [_PUBLISH], "const_gather": [_GATHER],
             "no_publish_const_gather": [_PUBLISH, _GATHER],
             "no_stream": [_STREAM],
-            "no_stream_publish_gather": [_STREAM, _PUBLISH, _GATHER]}
+            "no_stream_publish_gather": [_STREAM, _PUBLISH, _GATHER],
+            # the slab-staged ROUTE2 kernel's groups a block
+            "lever_groups_4": _lever("route2", "route2_spmv.cu", "kGroups",
+                                     "4"),
+            # the band row kernel's
+            "lever_band_warps_4": _lever("band", "band_row.cuh", "kWarps",
+                                         "4"),
+            "lever_band_rows_128": _lever("band", "band_row.cuh",
+                                          "kItemRows", "128"),
+            "lever_band_warps_16_rows_128": _lever(
+                "band", "band_row.cuh", "kWarps", "16") + _lever(
+                "band", "band_row.cuh", "kItemRows", "128"),
+            "lever_band_loads_16": _lever("band", "band_row.cuh", "kLoads",
+                                          "16"),
+            "lever_band_scalar": [[(("band",), "band_row.cuh",
+                                    r"const bool vec = ", "const bool vec = "
+                                    "false && ")]]}
 _SINK = ("\n#ifndef ROUTE_SINK\n#define ROUTE_SINK\n"
          "__device__ __forceinline__ void route_sink(float* p, float v) "
          "{ if (v == 1.2345e-30f) *p = v; }\n#endif\n")
@@ -83,16 +134,121 @@ def variant_csrc(csrc: Path, dest: Path, groups):
     shutil.copytree(csrc, dest)
     hits = {}
     for gi, group in enumerate(groups):
-        for tag, fname, pat, rep in group:
+        for tags, fname, pat, rep in group:
             path = dest / fname
             new, n = re.subn(pat, rep, path.read_text())
-            hits[tag, gi] = hits.get((tag, gi), 0) + n
+            for tag in tags:
+                hits[tag, gi] = hits.get((tag, gi), 0) + n
             if "route_sink(" in new and "void route_sink" not in new:
                 head = new.index("\n", new.index("#include"))
                 new = new[:head] + _SINK + new[head:]
             path.write_text(new)
     return dest, {t for t, _ in hits
                   if all(hits.get((t, gi), 0) for gi in range(len(groups)))}
+
+
+# kernel tag -> the sources whose build it times
+SOURCES = {"v1": ("route_spmv",), "paned": ("route_paned_spmv",),
+           "route2": ("route2_spmv",), "solve": ("route2_spmv",),
+           "band": ("band_spmv", "band_power")}
+# source -> (kernel expression, threads, dynamic shared bytes) of each
+# __global__ that a design of it may hold; those a tree lacks fail to
+# build and are left out
+OCCUPANCY = {
+    "route_spmv": [("route_spmv_kernel", 128, 0)],
+    "route_paned_spmv": [("route_paned_spmv_kernel", 128, 0)],
+    "route2_spmv": [("route2_spmv_kernel", 128, 0),
+                    ("route2_apply_kernel<true>", 128, 0),
+                    ("route2_apply_kernel<false>", 128, 0),
+                    ("route2_slab_kernel", "kSlabThreads", "kSlabSmem")],
+    "band_spmv": [("band::row_kernel<float>", 256, 0),
+                  ("band::row_kernel<__nv_bfloat16>", 256, 0),
+                  ("band::row_kernel<float, 4>", "band::kThreads", 928),
+                  ("band::row_kernel<__nv_bfloat16, 8>", "band::kThreads",
+                   928),
+                  ("band::row_kernel<float, 1>", "band::kThreads", 928)]}
+
+
+def ptxas_report(text: str):
+    """{function: {registers, smem, spill_stores, spill_loads}} from the
+    ``-Xptxas -v`` lines of one build."""
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur]["spill_stores"] = int(m.group(1))
+            out[cur]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur]["smem"] = int(sm.group(1)) if sm else 0
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out),
+                               capture_output=True, text=True,
+                               timeout=30).stdout.split("\n")
+        return {n: dict(out[m], mangled=m) for m, n in zip(out, names)}
+    except (OSError, subprocess.SubprocessError):
+        return out
+
+
+def build_report(_build, names):
+    """Build the sources ``names`` (all nvcc processes started together)
+    and return their ptxas reports."""
+    started = {n: _build._start(n) for n in names}
+    return {n: ptxas_report(_build._finish(n, s)) for n, s in
+            started.items()}
+
+
+def occupancy(_build, names, work: Path):
+    """Blocks an SM holds for each known ``__global__`` of ``names``:
+    one library per kernel that includes the source and asks the runtime
+    (the kernel must be in the same translation unit), all built at
+    once; kernels a source lacks fail to build and are skipped."""
+    import ctypes
+    work.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for name in names:
+        src = (_build.CSRC / f"{name}.cu").resolve()
+        for i, (expr, threads, smem) in enumerate(OCCUPANCY.get(name, ())):
+            cu = work / f"occ_{name}_{i}.cu"
+            cu.write_text(
+                f'#include "{src}"\n'
+                'extern "C" int spb_occupancy(int* blocks) {\n'
+                # a kernel past 48 KB of dynamic shared memory needs the
+                # limit raised first, as its launcher does
+                f"  cudaFuncSetAttribute({expr}, cudaFuncAttributeMax"
+                f"DynamicSharedMemorySize, static_cast<int>({smem}));\n"
+                f"  return static_cast<int>(cudaOccupancyMaxActiveBlocks"
+                f"PerMultiprocessor(blocks, {expr}, {threads}, {smem}));\n"
+                "}\n")
+            lib = cu.with_suffix(".so")
+            proc = subprocess.Popen(
+                [_build._nvcc(), *[f for f in _build.NVCC_FLAGS
+                                   if f != "-Xptxas=-v"],
+                 "-o", str(lib), str(cu)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            jobs.append((name, expr, threads, smem, lib, proc))
+    out = {}
+    for name, expr, threads, smem, lib, proc in jobs:
+        if proc.wait() != 0:
+            continue
+        fn = ctypes.CDLL(str(lib)).spb_occupancy
+        fn.argtypes = (ctypes.POINTER(ctypes.c_int),)
+        blocks = ctypes.c_int(0)
+        code = fn(ctypes.byref(blocks))
+        out[f"{name}:{expr}"] = {"threads": threads, "dyn_smem": smem,
+                                 "blocks_per_sm": blocks.value,
+                                 "error": code}
+    return out
 
 
 def device_ms(torch, fn, inputs, reps=None):
@@ -128,14 +284,15 @@ def trace_ops(torch, fn, args, calls, sleep, path):
     ops = [(e["name"], float(e["ts"]), float(e.get("dur", 0.0)))
            for e in events
            if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")
-           and "sleep" not in e["name"]]
+           and not any(s in e["name"] for s in ("sleep", "spin_kernel"))]
     ops.sort(key=lambda o: o[1])
     return ops
 
 
-def summarise(ops, calls):
-    """Per-call device op count and busy time, gap total, and each op of
-    the first call (name, dur) with the gap before it."""
+def summarise(ops, calls, listed=40):
+    """Per-call device op count and busy time, gap total, and the first
+    ``listed`` ops of the first call (name, dur) with the gap before
+    each."""
     if not ops:
         return {"device_ops": 0}
     per = len(ops) // calls
@@ -143,7 +300,7 @@ def summarise(ops, calls):
     span = ops[-1][1] + ops[-1][2] - ops[0][1]
     first = []
     prev_end = None
-    for name, ts, dur in ops[:per]:
+    for name, ts, dur in ops[:min(per, listed)]:
         gap = None if prev_end is None else round(ts - prev_end, 3)
         first.append({"op": name[:60], "us": round(dur, 3), "gap_us": gap})
         prev_end = ts + dur
@@ -152,21 +309,44 @@ def summarise(ops, calls):
             "gap_us_per_call": (span - busy) / calls, "first_call": first}
 
 
-def worker(args):
-    import torch
-    import spblas_tpu_torch as sp
-    from spblas_tpu_torch import _build
-    from spblas_tpu_torch.kernels import plans
-    from spblas_tpu_torch.kernels import route_paned as rpn
-    from spblas_tpu_torch.kernels import route_spmv as rsp
-    from spblas_tpu_torch.utils import generate as gen
+def csr_ms(torch, a, x):
+    """cuSPARSE's ``torch.mv`` on the CSR ``a`` (the yardstick of
+    chip_smoke.py's ``library_ms``), over distinct copies of the values."""
+    def make():
+        return (torch.sparse_csr_tensor(a.rowptr, a.colind[: a.nnz].clone(),
+                                        a.values[: a.nnz].clone(),
+                                        size=a.shape), x.clone())
+    k = min(32, max(2, math.ceil(_REPLICA_BYTES / max(a.nnz * 8, 1))))
+    return device_ms(torch, torch.mv, [make() for _ in range(k)])
 
-    tree = Path(sp.__file__).resolve().parent.parent
-    out_dir = Path(args.trace_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
+
+def within(torch, ref, absref):
+    """A check of a chain's output against the plain version ``ref()``:
+    per row within 64 eps (``absref()``, the same sum on |A| and |x|),
+    as chip_smoke.py's ``row_check``; the references are made once."""
+    cache = {}
+
+    def check(y):
+        if not cache:
+            cache["ref"], cache["abs"] = ref().double(), absref().double()
+        lim = 64 * torch.finfo(torch.float32).eps * cache["abs"]
+        return bool(((y.double() - cache["ref"]).abs() <= lim).all())
+
+    return check
+
+
+def reps_of(make, nbytes):
+    k = min(32, max(2, math.ceil(_REPLICA_BYTES / max(nbytes, 1))))
+    return [make() for _ in range(k)]
+
+
+def v1_bench(torch, sp, gen, rec):
+    """The v1 chain on the R-MAT sorted base: (chain, inputs, apply)."""
+    import dataclasses
+    from spblas_tpu_torch.kernels import plans
+    from spblas_tpu_torch.kernels import route_spmv as rsp
     # one launch per apply (the chain API changed with it)
     fused_v1 = hasattr(rsp, "route_spmv_fused_reference")
-
     rmat = gen.generate_rmat_csr(131_072, 131_072 * 16, seed=5)
     kind, sorted_plan = plans._try_route(rmat)
     assert kind == "route1_sorted", kind
@@ -177,14 +357,6 @@ def worker(args):
         levels.append(p)
         p = p.aux_plan
     x_v1 = gen.generate_vector(rmat.shape[1], seed=74)
-
-    big = gen.generate_csr(4_000_000, 4_000_000, 40_000_000, seed=3)
-    kind, paned = plans._try_route_paned(big)
-    assert kind == "route_paned", kind
-    x_pn = gen.generate_vector(big.shape[1], seed=75)
-    del big
-
-    import dataclasses
 
     def v1_copy():
         ps, prev = [], None
@@ -210,6 +382,24 @@ def worker(args):
         for q, x2 in zip(ps, xs):
             rsp.route_spmv_padded(q, x2)
 
+    v1_bytes = sum(q.nchunks * (12 * 1024 + 8) + q.x_rows * 512
+                   + 2 * q.pane_rows * 512 for q in levels)
+    rec.update({"fused_v1": fused_v1, "levels": len(levels),
+                "nchunks": [q.nchunks for q in levels], "bytes": v1_bytes})
+    return {"v1": (v1_chain, reps_of(v1_copy, v1_bytes),
+                   (rsp.route_spmv, (base, x_v1)), None)}
+
+
+def paned_bench(torch, sp, gen, rec):
+    import dataclasses
+    from spblas_tpu_torch.kernels import plans
+    from spblas_tpu_torch.kernels import route_paned as rpn
+    big = gen.generate_csr(4_000_000, 4_000_000, 40_000_000, seed=3)
+    kind, paned = plans._try_route_paned(big)
+    assert kind == "route_paned", kind
+    x_pn = gen.generate_vector(big.shape[1], seed=75)
+    del big
+
     def pn_copy():
         pl = dataclasses.replace(paned, panels=tuple(
             dataclasses.replace(q, **{f: getattr(q, f).clone() for f in (
@@ -221,58 +411,198 @@ def worker(args):
         for q in pl.panels:
             rpn.route_paned_spmv_padded(pl, q, xx)
 
-    v1_bytes = sum(q.nchunks * (12 * 1024 + 8) + q.x_rows * 512
-                   + 2 * q.pane_rows * 512 for q in levels)
     pn_bytes = paned.x_rows_pad * 512 + sum(
         q.nchunks * (8 * 1024 + 16 + 4 * q.rotated) + 2 * q.out_rows * 512
         for q in paned.panels)
+    rec.update({"panels": len(paned.panels), "nchunks": paned.nchunks,
+                "bytes": pn_bytes,
+                "aux_levels": max(len(q.launch_starts) - 1
+                                  for q in paned.panels)})
+    return {"paned": (pn_chain, reps_of(pn_copy, pn_bytes),
+                      (rpn.route_paned_spmv, (paned, x_pn)), None)}
 
-    def reps_of(make, nbytes):
-        k = min(32, max(2, math.ceil(_REPLICA_BYTES / max(nbytes, 1))))
-        return [make() for _ in range(k)]
 
-    v1_ins = reps_of(v1_copy, v1_bytes)
-    pn_ins = reps_of(pn_copy, pn_bytes)
-    rec = {"tree": str(tree), "fused_v1": fused_v1,
+def route2_bench(torch, sp, gen, rec):
+    """The resident ROUTE2 launches on chip_smoke.py's ROUTE_MAIN plans,
+    as ``route2_case`` times them."""
+    import dataclasses
+    from spblas_tpu_torch.kernels import route2
+    from spblas_tpu_torch.kernels import route2_kernel as r2k
+    out = {}
+    for name, m in (("uniform_300k", 300_000), ("uniform_1m", 1_000_000)):
+        a = gen.generate_csr(m, m, 10 * m, seed=3)
+        plan = route2.build_route2_plan(a.rowptr, a.colind, a.values,
+                                        a.shape, a.nnz, device=a.device)
+        x = gen.generate_vector(m, seed=62)
+        x2 = r2k.pack_x2(plan, x)
+
+        def copy(plan=plan, x2=x2):
+            return dataclasses.replace(
+                plan, tile=plan.tile.clone(), val=plan.val.clone(),
+                slab_base=plan.slab_base.clone(),
+                y_base=plan.y_base.clone(), src_flag=plan.src_flag.clone(),
+                rho=plan.rho.clone() if plan.rotated else None), x2.clone()
+
+        nbytes = (plan.nchunks * (8 * 1024 + 12 + 4 * plan.rotated)
+                  + plan.x_rows * 512 + 2 * r2k.out_rows(plan) * 512)
+        yb = plan.y_base.long()
+        rec[name] = {"nchunks": plan.nchunks, "rotated": plan.rotated,
+                     "launches": len(plan.launch_ranges()), "bytes": nbytes,
+                     # atomics a call (vA slots) and chunks a y window
+                     "published_slots": int(((plan.tile >> 24) & 1).sum()),
+                     "windows": int(torch.unique(yb).numel()),
+                     "same_window_as_next": float(
+                         (yb[1:] == yb[:-1]).float().mean()),
+                     "bound_ms": nbytes / 3.35e12 * 1e3,
+                     "cusparse_ms": csr_ms(torch, a, x)}
+        out[name] = (r2k.route2_spmv_padded, reps_of(copy, nbytes),
+                     (r2k.route2_spmv, (plan, x)), within(
+                         torch, lambda p=plan, xx=x2:
+                         r2k.route2_spmv_reference(p, xx),
+                         lambda p=plan, xx=x2: r2k.route2_spmv_reference(
+                             dataclasses.replace(p, val=p.val.abs()),
+                             xx.abs())))
+        del a
+    return out
+
+
+def solve_bench(torch, sp, gen, rec):
+    """The solve's level launches (``route2_solve_padded``, one C call) on
+    the main path's plans of chip_smoke.py's ``TRSV_MAIN`` 20k factor and
+    1M chain, timed as ``route2_solve_case`` times them (4 right-hand
+    sides, 8 solves)."""
+    from spblas_tpu_torch.kernels import route2_kernel as r2k
+    out = {}
+    for name, a in (
+            ("sptrsv_20k", gen.generate_triangular_csr(
+                20_000, seed=0, lower=True, density=0.0005)),
+            ("sptrsv_deep_1m", gen.generate_block_chain_lower(
+                1_000_000, block=64, deg=4, seed=0))):
+        info = sp.triangular_solve_inspect(a)
+        plan = info.plan.route
+        d = a.values[info.plan.route_diag.long()]
+        m, rows = a.shape[0], r2k.solve_pane_rows(plan)
+
+        def pane(i, plan=plan, d=d, m=m, rows=rows):
+            y0 = gen.generate_vector(m, seed=300 + i) / d
+            return (plan, torch.nn.functional.pad(
+                y0.float(), (0, rows * 128 - m)).contiguous())
+
+        rec[name] = {"nchunks": plan.nchunks,
+                     "launches": len(r2k.solve_ranges(plan)),
+                     "levels": info.plan.num_levels}
+        out[name] = (r2k.route2_solve_padded, [pane(i) for i in range(4)],
+                     (r2k.route2_solve_padded, pane(0)), None, 8)
+        del a
+    return out
+
+
+def band_bench(torch, sp, gen, rec):
+    """One band SpMV on the headline plan in f32 and bf16, and ten power
+    iterations on the f32 one (chip_smoke.py's band_case, power_phase)."""
+    from spblas_tpu_torch.kernels import banded
+    m, iters = 409_600, 10
+    a = gen.generate_banded_csr(m, m, 100, seed=0)
+    x = gen.generate_vector(m, seed=1)
+    out = {}
+    for name, dt in (("band_f32", None), ("band_bf16", torch.bfloat16)):
+        plan = banded.build_band_plan(a, dtype=dt)
+        xp = banded.pad_x(plan, x)
+        nbytes = (plan.panels.numel() * plan.panels.element_size()
+                  + xp.numel() * 4 + plan.panels.shape[0] * 4)
+        rec[name] = {"width": plan.width, "bytes": nbytes,
+                     "bound_ms": nbytes / 3.35e12 * 1e3}
+        out[name] = (banded.band_spmv_padded, reps_of(
+            lambda p=plan, xx=xp: (p.panels.clone(), xx.clone()), nbytes),
+            (banded.band_spmv, (plan, x)), within(
+                torch, lambda p=plan, xx=xp:
+                banded.band_spmv_reference(p.panels, xx),
+                lambda p=plan, xx=xp:
+                banded.band_spmv_reference(p.panels.abs(), xx.abs())))
+        if dt is None:
+            h = plan.pad_l
+            rec["power_f32"] = {"iters": iters,
+                                "bound_ms": iters * nbytes / 3.35e12 * 1e3}
+            out["power_f32"] = (banded.band_power_padded, reps_of(
+                lambda p=plan, xx=xp: (p.panels.clone(), xx.clone(), iters,
+                                       h), nbytes),
+                (banded.band_power_iterations, (plan, x, iters)), within(
+                    torch, lambda p=plan, xx=xp: banded.band_power_reference(
+                        p.panels, xx, iters, h),
+                    lambda p=plan, xx=xp: iters * banded.band_power_reference(
+                        p.panels.abs(), xx.abs(), iters, h)))
+    rec["cusparse_ms"] = csr_ms(torch, a, x)
+    del a
+    return out
+
+
+BENCHES = {"v1": v1_bench, "paned": paned_bench, "route2": route2_bench,
+           "solve": solve_bench, "band": band_bench}
+
+
+def worker(args):
+    import torch
+    import spblas_tpu_torch as sp
+    from spblas_tpu_torch import _build
+    from spblas_tpu_torch.utils import generate as gen
+
+    tree = Path(sp.__file__).resolve().parent.parent
+    out_dir = Path(args.trace_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    kernels = args.kernels.split(",")
+    rec = {"tree": str(tree),
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True,
-               text=True).stdout.strip(),
-           "v1": {"levels": len(levels),
-                  "nchunks": [q.nchunks for q in levels],
-                  "bytes": v1_bytes},
-           "paned": {"panels": len(paned.panels),
-                     "nchunks": paned.nchunks, "bytes": pn_bytes,
-                     "aux_levels": max(len(q.launch_starts) - 1
-                                       for q in paned.panels)}}
+               text=True).stdout.strip()}
+    names = [n for k in kernels for n in SOURCES[k]]
+    rec["ptxas"] = build_report(_build, names)
+    rec["occupancy"] = occupancy(_build, names,
+                                 _build.BUILD / f"occ_{os.getpid()}")
+    # tag -> {bench name: (chain fn, inputs, (apply fn, args), check[,
+    # chain length])}
+    benches = {}
+    for k in kernels:
+        rec[k] = {}
+        benches[k] = BENCHES[k](torch, sp, gen, rec[k])
     variants = ["base"] + (list(VARIANTS) if args.variants else [])
     csrc0, build0 = _build.CSRC, _build.BUILD
     for v in variants:
-        kernels = {"v1", "paned"}
+        tags = set(kernels)
         if v != "base":
             vdir = build0 / "variants" / v
-            vsrc, kernels = variant_csrc(csrc0, vdir / "csrc", VARIANTS[v])
+            vsrc, tags = variant_csrc(csrc0, vdir / "csrc", VARIANTS[v])
+            tags &= set(kernels)
+            if not tags:
+                continue
             _build.CSRC, _build.BUILD = vsrc, vdir / "build"
             _build._libs.clear()
             _build._fns.clear()
-        if "v1" in kernels:
-            rec["v1"][f"{v}_ms"] = device_ms(torch, v1_chain, v1_ins)
-        if "paned" in kernels:
-            rec["paned"][f"{v}_ms"] = device_ms(torch, pn_chain, pn_ins)
+            report = build_report(_build, [n for k in tags
+                                           for n in SOURCES[k]])
+            rec.setdefault("variant_ptxas", {})[v] = {
+                f: {"registers": r.get("registers"),
+                    "spills": r.get("spill_stores", 0)
+                    + r.get("spill_loads", 0)}
+                for fns in report.values() for f, r in fns.items()}
+        for k in tags:
+            for bname, (fn, ins, _, check, *reps) in benches[k].items():
+                rec[k].setdefault(bname, {})
+                rec[k][bname][f"{v}_ms"] = device_ms(torch, fn, ins, *reps)
+                if check is not None and (v == "base"
+                                          or v.startswith("lever_")):
+                    rec[k][bname][f"{v}_in_bound"] = check(fn(*ins[0]))
         if v == "base":
             tag = f"{os.getpid()}"
-            rec["v1"]["chain_trace"] = summarise(trace_ops(
-                torch, v1_chain, v1_ins[0], 3, True,
-                out_dir / f"v1_chain_{tag}.json"), 3)
-            rec["paned"]["chain_trace"] = summarise(trace_ops(
-                torch, pn_chain, pn_ins[0], 3, True,
-                out_dir / f"paned_chain_{tag}.json"), 3)
-            rec["v1"]["apply_trace"] = summarise(trace_ops(
-                torch, rsp.route_spmv, (base, x_v1), 3, False,
-                out_dir / f"v1_apply_{tag}.json"), 3)
-            rec["paned"]["apply_trace"] = summarise(trace_ops(
-                torch, rpn.route_paned_spmv, (paned, x_pn), 3, False,
-                out_dir / f"paned_apply_{tag}.json"), 3)
+            for k in kernels:
+                for bname, (fn, ins, (apply, aargs), *_) in \
+                        benches[k].items():
+                    rec[k][bname]["chain_trace"] = summarise(trace_ops(
+                        torch, fn, ins[0], 3, True,
+                        out_dir / f"{bname}_chain_{tag}.json"), 3)
+                    rec[k][bname]["apply_trace"] = summarise(trace_ops(
+                        torch, apply, aargs, 3, False,
+                        out_dir / f"{bname}_apply_{tag}.json"), 3)
     print(json.dumps(rec), flush=True)
     return 0
 
@@ -286,6 +616,8 @@ def main():
     ap.add_argument("--no-variants", action="store_true",
                     help="time each tree's kernels as they are, only")
     ap.add_argument("--trace-dir", default="profile_out/traces")
+    ap.add_argument("--kernels", default=",".join(BENCHES),
+                    help="comma-separated subset of " + ",".join(BENCHES))
     args = ap.parse_args()
     if args.worker:
         return worker(args)
@@ -300,7 +632,8 @@ def main():
     seen, recs, failed = set(), [], False
     for tree in trees:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
-               "--trace-dir", str(Path(args.trace_dir).resolve())]
+               "--trace-dir", str(Path(args.trace_dir).resolve()),
+               "--kernels", args.kernels]
         if tree not in seen and not args.no_variants:
             cmd.append("--variants")
         seen.add(tree)

@@ -18,7 +18,12 @@
 //
 // What bounds it on the H100: bytes, iters times one band SpMV (the
 // panels stream again each iteration: 380 MB, 114 us, per iteration at
-// the headline shape).
+// the headline shape, where the panels are seven times the 50 MB L2).
+// The row kernel's design (band_row.cuh: 16-byte panel loads, the window
+// in shared memory, several rows a warp) is what nears that rate; the
+// launch gaps cost about 1 % of the chain.  Reading each panel strip
+// once for several iterations (temporal blocking) is the next step past
+// the per-iteration bound.
 
 #include "band_row.cuh"
 

@@ -9,12 +9,17 @@
 // What bounds it on the H100: bytes.  Every panel element is read once
 // (2 flops each), so the kernel streams rows*W*sizeof(T) bytes of panels
 // plus xp and y; at the headline shape (409,600 rows, W = 232, f32) that
-// is 380 MB, about 114 us at 3.35 TB/s.
+// is 380 MB, about 114 us at 3.35 TB/s.  The first design (one warp a
+// row, 4-byte loads) took 163 us there, and 133 us on bf16 panels whose
+// bound is 58 us (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py): the
+// count of loads and the bytes in flight held it, not the bytes.
 //
-// Design: one warp per panel row (band_row.cuh, shared with
-// band_power.cu).  Every output row has exactly one writer: no atomics,
-// and no reliance on the TPU's in-order grid.  Staging the window in
-// shared memory is later work.
+// Design (band_row.cuh, shared with band_power.cu): a block takes 64
+// rows and copies their x window into shared memory once; each warp runs
+// groups of 4 (f32) or 8 (bf16) rows with 16-byte, evict-first panel
+// loads, 8 in flight a lane, and sums a group's rows across the warp in
+// one halving exchange.  Every output row has exactly one writer: no
+// atomics, and no reliance on the TPU's in-order grid.
 
 #include "band_row.cuh"
 

@@ -1,9 +1,9 @@
-// The ROUTE2 chunk body, shared by route2_spmv.cu (resident plans) and
-// route_paned_spmv.cu (paned plans), and its slab-row route, which the
-// SpGEMM chunk body (route2_mul_chunk.cuh) shares too: one (8, 128) chunk of a ROUTE2
-// layout (spblas_tpu_torch/kernels/route2.py), run by a 128-thread block
-// whose thread j owns lane column j.  It is the Hopper form of
-// spblas_tpu/kernels/route2_kernel.py::_chunk_body.
+// The ROUTE2 chunk body, shared by route2_spmv.cu (resident plans and
+// the solve) and route_paned_spmv.cu (paned plans), and its slab-row
+// route, which the SpGEMM chunk body (route2_mul_chunk.cuh) shares too:
+// one (8, 128) chunk of a ROUTE2 layout (spblas_tpu_torch/kernels/
+// route2.py), run by 128 threads, thread j owning lane column j.  It is
+// the Hopper form of spblas_tpu/kernels/route2_kernel.py::_chunk_body.
 //
 // Per chunk (one int32 tile of routing fields plus one f32 value tile):
 //   t1[a,l]  = src[(sb + r2[a,l]) * 128 + l]    slab-row route
@@ -25,9 +25,21 @@
 // pane they publish into), so neither is __restrict__.  The publish is
 // an atomicAdd per published slot: many chunks publish into one window.
 //
-// t1 and, with any_lane, the publish values pass through 4 KB of shared
-// memory each for the two lane gathers; the depth drop, the prefix and
-// the pend select are thread-local.
+// t1 passes through 4 KB of shared memory for the lane gather.  The two
+// sublane selects (the depth drop and the pend select) go through the
+// thread's own column of a second 4 KB tile (one store and one load a
+// value, as route_spmv.cu's pulls), which replaced two register select
+// ladders of 7 selects a value: fewer instructions in a body that issue
+// bounds.  With any_lane the publish values cross lanes through the same
+// tile.  The SpMV kernels load the tile and values evict-first (ld.cs,
+// the `stream` flag): a plan streamed once past the L2 then does not push
+// x and the output out of it.  The solve loads them plainly: its plan is
+// read again at every call and a factor's stays in the L2 (evict-first
+// loads cost the 20k factor's solve 16 % of its device time; NVIDIA H100
+// 80GB HBM3, 700 W; scripts/route_profile.py).  The body after the slab
+// route (finish) is separate so that the slab-staged kernel of
+// route2_spmv.cu, whose groups of 128 threads meet at named barriers,
+// runs the same arithmetic.
 
 #pragma once
 
@@ -38,9 +50,11 @@ namespace route2 {
 constexpr int kSubs = 8;
 constexpr int kLanes = 128;
 
+// the slab rows a chunk's threads gather (t1), each thread's column for
+// the sublane selects and the any_lane pull (col), the hub sums
 struct Shared {
   float t1[kSubs][kLanes];
-  float rs[kSubs][kLanes];
+  float col[kSubs][kLanes];
   float red[kLanes / 32];
 };
 
@@ -74,33 +88,55 @@ __device__ __forceinline__ void slab_route(float (&dst)[kSubs][kLanes],
   }
 }
 
-// Chunk k: slab base row sb of src, flag 0/1 (the chunk body) or 2 (hub
-// sum), publish window yb of dst.  rho (rotated plans only) holds
-// rho0 | rho1 << 10 per chunk.  With `stream` the tile and values are
-// loaded evict-first (ld.cs): a plan streamed once past the L2 then does
-// not push x and the output out of it.  All 128 threads of the block must call
-// it (it synchronises the block).
-__device__ __forceinline__ void chunk(
-    Shared& sh, const int* __restrict__ tile, const float* __restrict__ val,
-    const int* __restrict__ rho, long long k, long long sb, int flag,
-    long long yb, const float* src, long long src_rows, float* dst,
-    long long dst_rows, int g, int dist_max, int any_lane, int ww,
-    int rotated, bool stream = false) {
-  const int j = threadIdx.x;
-  const long long base = k * (kSubs * kLanes);
-
-  unsigned t[kSubs];
-  float v[kSubs];
+// thread j's lane column of chunk k's routing tile and values, loaded
+// evict-first (ld.cs) with `stream`
+__device__ __forceinline__ void load_lanes(unsigned (&t)[kSubs],
+                                           float (&v)[kSubs],
+                                           const int* __restrict__ tile,
+                                           const float* __restrict__ val,
+                                           long long k, int j, bool stream) {
+  const long long q = k * (kSubs * kLanes) + j;
 #pragma unroll
   for (int a = 0; a < kSubs; ++a) {
-    const long long q = base + a * kLanes + j;
-    t[a] = static_cast<unsigned>(stream ? __ldcs(tile + q) : tile[q]);
-    v[a] = stream ? __ldcs(val + q) : val[q];
+    const long long i = q + a * kLanes;
+    t[a] = static_cast<unsigned>(stream ? __ldcs(tile + i) : tile[i]);
+    v[a] = stream ? __ldcs(val + i) : val[i];
   }
+}
 
-  slab_route(sh.t1, t, 0, sb, src, src_rows, g);
-  __syncthreads();
+// out[i] = in[field(t[i])] through the thread's own column of `col`
+__device__ __forceinline__ void pull(float (&out)[kSubs],
+                                     const float (&in)[kSubs],
+                                     const unsigned (&t)[kSubs], int shift,
+                                     float (&col)[kSubs][kLanes], int j) {
+#pragma unroll
+  for (int i = 0; i < kSubs; ++i) col[i][j] = in[i];
+#pragma unroll
+  for (int i = 0; i < kSubs; ++i) out[i] = col[bits(t[i], shift, 7)][j];
+}
 
+// the barrier of a chunk's 128 threads: the whole block (a block a
+// chunk), or a named barrier of its own (route2_spmv.cu's slab kernel)
+struct BlockBarrier {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+struct GroupBarrier {
+  int id;
+  __device__ __forceinline__ void operator()() const {
+    asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kLanes) : "memory");
+  }
+};
+
+// One chunk after its slab rows are in sh.t1 and past the barrier: lane
+// gather, depth drop and multiply, segmented prefix, pend select,
+// any_lane pull, publish into the window yb of dst.  rk is the chunk's
+// rho (rotated plans only).  Every thread of the 128 must call it (it
+// meets `bar` on hub and any_lane chunks).
+template <class Bar>
+__device__ __forceinline__ void finish(
+    Shared& sh, const unsigned (&t)[kSubs], const float (&v)[kSubs],
+    int flag, long long yb, int rk, float* dst, long long dst_rows,
+    int dist_max, int any_lane, int ww, int rotated, int j, Bar bar) {
   float rs[kSubs];
   if (flag == 2) {
     // hub chunk: identity lanes, the whole tile sums to one scalar
@@ -111,19 +147,18 @@ __device__ __forceinline__ void chunk(
     for (int off = 16; off > 0; off >>= 1)
       part += __shfl_down_sync(0xffffffffu, part, off);
     if ((j & 31) == 0) sh.red[j >> 5] = part;
-    __syncthreads();
+    bar();
     const float sum = sh.red[0] + sh.red[1] + sh.red[2] + sh.red[3];
 #pragma unroll
     for (int s = 0; s < kSubs; ++s) rs[s] = sum;
   } else {
     // lane gather, then depth drop and multiply
-    float t2[kSubs];
+    float t2[kSubs], p[kSubs];
 #pragma unroll
     for (int a = 0; a < kSubs; ++a) t2[a] = sh.t1[a][bits(t[a], 8, 127)];
-    float p[kSubs];
+    pull(p, t2, t, 15, sh.col, j);
 #pragma unroll
-    for (int d = 0; d < kSubs; ++d)
-      p[d] = pick8(t2, bits(t[d], 15, 7)) * v[d];
+    for (int d = 0; d < kSubs; ++d) p[d] *= v[d];
     // segmented prefix with the simultaneous semantics of a roll: run
     // i downward so P[i - step] is still the previous step's value (the
     // loops unroll fully, so p stays in registers)
@@ -136,25 +171,26 @@ __device__ __forceinline__ void chunk(
         if (bits(t[i], 18, 7) >= step) p[i] += p[i - step];
       }
     }
-#pragma unroll
-    for (int s = 0; s < kSubs; ++s) rs[s] = pick8(p, bits(t[s], 21, 7));
+    pull(rs, p, t, 21, sh.col, j);
     if (any_lane) {
       // the publish reads its segment sum from lane lsrc
 #pragma unroll
-      for (int s = 0; s < kSubs; ++s) sh.rs[s][j] = rs[s];
-      __syncthreads();
+      for (int s = 0; s < kSubs; ++s) sh.col[s][j] = rs[s];
+      bar();
 #pragma unroll
-      for (int s = 0; s < kSubs; ++s) rs[s] = sh.rs[s][bits(t[s], 25, 127)];
+      for (int s = 0; s < kSubs; ++s) rs[s] = sh.col[s][bits(t[s], 25, 127)];
     }
   }
 
   // publish every vA slot
-  const int rk = (rotated && flag != 2) ? rho[k] : 0;
+  const bool rot = rotated && flag != 2;
+  float* out = dst + yb * kLanes + j;
+  const long long lim = dst_rows - yb;   // window rows in bounds
 #pragma unroll
   for (int s = 0; s < kSubs; ++s) {
     if (!bits(t[s], 24, 1)) continue;
     int i = s;
-    if (rotated && flag != 2) {
+    if (rot) {
       const int r = bits(t[s], 28, 1) ? ((rk >> 17) & 7) : ((rk >> 7) & 7);
       i = (s - r) & 7;
     }
@@ -163,9 +199,31 @@ __device__ __forceinline__ void chunk(
       sw = bits(t[s], 29, 7);
       if (sw >= ww) continue;
     }
-    const long long row = yb + sw * kSubs + i;
-    if (row < dst_rows) atomicAdd(dst + row * kLanes + j, rs[s]);
+    const int row = sw * kSubs + i;
+    if (row < lim) atomicAdd(out + row * kLanes, rs[s]);
   }
+}
+
+// Chunk k, run by a 128-thread block: slab base row sb of src, flag 0/1
+// (the chunk body) or 2 (hub sum), publish window yb of dst.  rho
+// (rotated plans only) holds rho0 | rho1 << 10 per chunk; `stream` loads
+// the plan evict-first.  All 128 threads of the block must call it (it
+// synchronises the block).
+__device__ __forceinline__ void chunk(
+    Shared& sh, const int* __restrict__ tile, const float* __restrict__ val,
+    const int* __restrict__ rho, long long k, long long sb, int flag,
+    long long yb, const float* src, long long src_rows, float* dst,
+    long long dst_rows, int g, int dist_max, int any_lane, int ww,
+    int rotated, bool stream) {
+  const int j = threadIdx.x;
+  unsigned t[kSubs];
+  float v[kSubs];
+  load_lanes(t, v, tile, val, k, j, stream);
+  const int rk = (rotated && flag != 2) ? __ldg(rho + k) : 0;
+  slab_route(sh.t1, t, 0, sb, src, src_rows, g);
+  __syncthreads();
+  finish(sh, t, v, flag, yb, rk, dst, dst_rows, dist_max, any_lane, ww,
+         rotated, j, BlockBarrier{});
 }
 
 }  // namespace route2

@@ -42,17 +42,20 @@
 // the chunk body, not the gather or the atomics, hold it.
 //
 // Design: one 128-thread block per chunk, thread j owning lane column j,
-// many blocks resident on each SM, so that their loads overlap; one
-// launch per launch range of a panel.  The tile and values are loaded
-// evict-first (route2_chunk.cuh's `stream`), so x and the pane stay in
-// L2 while the plan passes: 2.7 % off the time.  One persistent launch
-// over every panel (the chunks claimed in order from one counter, aux
-// levels ordered by done counters, the next chunks' tiles streamed into
-// a shared-memory ring by cp.async.bulk) measured 0.99-1.27 ms, and one
-// launch of one block a chunk 0.94-1.04 ms, whichever chunk body they ran:
-// fewer blocks fit on an SM beside a ring, and each block's range lookup
-// put a dependent load ahead of its first tile load, so fewer chunks
-// were in flight.
+// many blocks resident on each SM, so that their loads overlap; one launch
+// per launch range of a panel.  The tile and values are loaded evict-first
+// (route2_chunk.cuh's `stream`), so x and the pane stay in L2 while the
+// plan passes: 2.7 % off the time.  The body's two sublane selects go
+// through a shared-memory column (route2_chunk.cuh), in place of register
+// select ladders: 0.796 -> 0.763 ms, 12 blocks an SM where the ladders fit
+// 10 (NVIDIA H100 80GB HBM3, 700 W; paired, scripts/route_profile.py).  One
+// persistent launch over every panel (the chunks claimed in order from one
+// counter, aux levels ordered by done counters, the next chunks' tiles
+// streamed into a shared-memory ring by cp.async.bulk) measured 0.99-1.27
+// ms, and one launch of one block a chunk 0.94-1.04 ms, whichever chunk
+// body they ran: fewer blocks fit on an SM beside a ring, and each block's
+// range lookup put a dependent load ahead of its first tile load, so fewer
+// chunks were in flight.
 
 #include "route2_chunk.cuh"
 

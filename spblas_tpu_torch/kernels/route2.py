@@ -79,6 +79,12 @@ B_LSRC = 25
 B_SUBW = 29
 B_SEL = 28
 MAX_G = 32                    # r2 field spans 8g <= 256 slab rows
+# chunks of one slab a work item of the slab-staged SpMV kernel
+# (csrc/route2_spmv.cu's route2_slab_kernel), and the launch ranges it
+# takes: those of SLAB_MIN_CHUNKS chunks or more (smaller ones, the aux
+# levels, run a block a chunk)
+SLAB_ITEM = 8
+SLAB_MIN_CHUNKS = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,6 +122,11 @@ class Route2Plan:
     # first chunk of each launch: (0,) then one start per aux level; no
     # chunk of a launch reads a pane row another chunk of it writes
     launch_starts: Tuple[int, ...] = (0,)
+    # the slab-staged kernel's work list of each launch range of
+    # SLAB_MIN_CHUNKS chunks or more, None for the others: made on the
+    # host when the plan is built (build_slab_work), carried through
+    # value updates
+    slab_work: Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]], ...] = ()
 
     @property
     def nchunks(self) -> int:
@@ -258,7 +269,8 @@ def build_route2_plan(rowptr, colind, values, shape: Tuple[int, int],
         dist_max=A["dist_max"], any_lane=A["any_lane"],
         row_window_mult=A["row_window_mult"], has_hub=A["has_hub"],
         rho=put(A["rho"]) if A["rotated"] else None, rotated=A["rotated"],
-        launch_starts=A["launch_starts"])
+        launch_starts=A["launch_starts"],
+        slab_work=build_slab_work(A["sb"], A["launch_starts"], dev))
 
 
 def _build_route2_arrays(rowptr, colind, values, shape: Tuple[int, int],
@@ -826,7 +838,8 @@ def build_route2_solve_plan(rowptr, colind, values, shape, nnz: int,
         x_rows=A["x_rows"], y_rows=A["y_rows"], aux_rows=A["aux_rows"],
         n_aux_chunks=A["n_aux_chunks"], fill=A["fill"],
         dist_max=A["dist_max"], any_lane=bool(any_lane),
-        launch_starts=A["launch_starts"])
+        launch_starts=A["launch_starts"],
+        slab_work=build_slab_work(A["sb"], A["launch_starts"], dev))
 
 
 def _build_route2_solve_arrays(rowptr, colind, values, shape, nnz: int,
@@ -1099,6 +1112,39 @@ class Route2MulPlan:
         """[(lo, hi)) chunk range of each launch, in launch order."""
         ends = self.launch_starts[1:] + (self.nchunks,)
         return list(zip(self.launch_starts, ends))
+
+
+def slab_items(slab_base: np.ndarray, lo: int, hi: int,
+               item: int = SLAB_ITEM) -> Tuple[np.ndarray, np.ndarray]:
+    """The chunks [lo, hi) grouped by the slab they read: ``order``, the
+    chunk indices sorted stably by ``slab_base`` (stream order within a
+    slab), and ``starts``, the positions in ``order`` where each work
+    item begins, then ``hi - lo``: an item is at most ``item`` chunks of
+    one slab.  Both int32."""
+    order = lo + np.argsort(slab_base[lo:hi], kind="stable")
+    sb = slab_base[order]
+    runs = np.flatnonzero(np.r_[True, sb[1:] != sb[:-1]]) if len(sb) else []
+    ends = np.r_[runs[1:], len(sb)] if len(sb) else []
+    starts = [np.arange(a, b, item) for a, b in zip(runs, ends)]
+    starts = np.concatenate(starts + [np.array([len(sb)])])
+    return order.astype(np.int32), starts.astype(np.int32)
+
+
+def build_slab_work(slab_base: np.ndarray, launch_starts: Tuple[int, ...],
+                    device, min_chunks: Optional[int] = None
+                    ) -> Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]],
+                               ...]:
+    """``Route2Plan.slab_work`` from the plan's host ``slab_base``:
+    :func:`slab_items` of each launch range of ``min_chunks`` (default
+    ``SLAB_MIN_CHUNKS``) chunks or more as int32 tensors on ``device``,
+    None for the smaller ranges."""
+    min_chunks = SLAB_MIN_CHUNKS if min_chunks is None else min_chunks
+    sb = np.asarray(slab_base)
+    ends = tuple(launch_starts[1:]) + (len(sb),)
+    return tuple(
+        tuple(torch.from_numpy(a).to(device) for a in slab_items(sb, lo, hi))
+        if hi - lo >= min_chunks else None
+        for lo, hi in zip(launch_starts, ends))
 
 
 def mul_pane_g(length: int, max_g: int = MAX_G) -> int:

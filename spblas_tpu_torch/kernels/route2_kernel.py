@@ -47,8 +47,8 @@ from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.kernels.route2 import (B2_LF, B2_R2, B2_SD2, B_DIST,
                                              B_LF, B_LSRC, B_PEND, B_R2,
                                              B_SD2, B_SEL, B_SUBW, B_VA,
-                                             LANES, SUBS, Route2MulPlan,
-                                             Route2Plan)
+                                             LANES, SLAB_MIN_CHUNKS, SUBS,
+                                             Route2MulPlan, Route2Plan)
 
 
 def pack_x2(plan: Route2Plan, x: torch.Tensor) -> torch.Tensor:
@@ -185,19 +185,33 @@ def _check_operands(plan: Route2Plan, x2: torch.Tensor,
 
 
 # (tile, val, slab_base, y_base, src_flag, rho, lo, hi, src, src_rows,
-#  dst, dst_rows, g, dist_max, any_lane, ww, rotated, stream) of
-# route2_spmv_f32
+#  dst, dst_rows, g, dist_max, any_lane, ww, rotated, order, items, nitems,
+#  stream) of route2_spmv_f32
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) * 2 + (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_void_p)
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p)
+
+
+def _slab_work(plan: Route2Plan, i: int, n: int):
+    """The plan's slab work list of launch range ``i`` (``n`` chunks);
+    raises where the plan carries none for it, or one of another size
+    (a plan rebuilt with other launch starts)."""
+    work = plan.slab_work[i] if i < len(plan.slab_work) else None
+    if work is None or work[0].numel() != n:
+        raise ValueError(
+            f"route2_spmv: the plan carries no slab work list for launch "
+            f"range {i} ({n} chunks); make it with route2.build_slab_work")
+    return work
 
 
 def route2_spmv_padded(plan: Route2Plan, x2: torch.Tensor) -> torch.Tensor:
     """The plan over the packed x pane ``x2`` (from :func:`pack_x2`);
     returns the (rows, 128) f32 output pane.  CUDA tensors launch
-    ``route2_spmv.cu`` once per launch range, on the current stream;
-    CPU tensors take :func:`route2_spmv_reference`."""
+    ``route2_spmv.cu`` once per launch range, on the current stream, the
+    slab-staged kernel from ``SLAB_MIN_CHUNKS`` chunks up (its work list
+    is ``plan.slab_work``); CPU tensors take
+    :func:`route2_spmv_reference`."""
     _check_operands(plan, x2)
     if not _t.on_cuda(x2):
         return route2_spmv_reference(plan, x2)
@@ -210,13 +224,18 @@ def route2_spmv_padded(plan: Route2Plan, x2: torch.Tensor) -> torch.Tensor:
         if hi <= lo:
             continue
         src, src_rows = (x2, plan.x_rows) if i == 0 else (pane, rows)
+        order = items = None
+        nitems = 0
+        if hi - lo >= SLAB_MIN_CHUNKS:
+            o, it = _slab_work(plan, i, hi - lo)
+            order, items, nitems = o.data_ptr(), it.data_ptr(), it.numel() - 1
         _build.check(fn(
             plan.tile.data_ptr(), plan.val.data_ptr(),
             plan.slab_base.data_ptr(), plan.y_base.data_ptr(),
             plan.src_flag.data_ptr(), rho, lo, hi, src.data_ptr(), src_rows,
             pane.data_ptr(), rows, plan.g, plan.dist_max,
             int(plan.any_lane), plan.row_window_mult, int(plan.rotated),
-            stream), "route2_spmv")
+            order, items, nitems, stream), "route2_spmv")
         route2_spmv_padded.launches += 1
     return pane
 

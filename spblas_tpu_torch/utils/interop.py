@@ -17,7 +17,8 @@ from spblas_tpu_torch.kernels.banded import BandPlan, PermutedBandPlan
 from spblas_tpu_torch.kernels.bsr_spgemm import BsrSpgemmPlan
 from spblas_tpu_torch.kernels.dia import DiaPlan
 from spblas_tpu_torch.kernels.plans import SortedRoutePlan
-from spblas_tpu_torch.kernels.route2 import SUBS, Route2MulPlan, Route2Plan
+from spblas_tpu_torch.kernels.route2 import (SUBS, Route2MulPlan, Route2Plan,
+                                             build_slab_work)
 from spblas_tpu_torch.kernels.route_mul import RouteMulPlan
 from spblas_tpu_torch.kernels.route_mul_paned import (MulPanedPanel,
                                                       Route2MulPanedPlan)
@@ -128,7 +129,9 @@ def route2_plan_from_numpy(arrays: dict, static: dict,
     starts = route2_launch_starts(
         arrays["src_flag"], arrays["slab_base"], arrays["y_base"],
         int(static["g"]), int(static.get("row_window_mult", 1)))
-    return Route2Plan(**put, **static, launch_starts=starts)
+    return Route2Plan(**put, **static, launch_starts=starts,
+                      slab_work=build_slab_work(arrays["slab_base"], starts,
+                                                dev))
 
 
 def route_mul_plan_from_numpy(arrays: dict, static: dict,

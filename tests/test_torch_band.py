@@ -127,6 +127,49 @@ def test_band_wrapper_rejects_bad_operands(bad):
         tband.band_spmv_padded(panels, xp)
 
 
+def _unaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.parametrize("op", ["spmv", "power"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_band_wrappers_take_unaligned_views(op, bf16):
+    """Panels and xp views off 16-byte alignment (on the card the row
+    kernel then takes its one-element loads) pass the wrapper checks and
+    give the numpy float64 panel sums within 64 eps (|A||x|) a row."""
+    a = gen.generate_banded_csr(640, 640, 22, seed=7)
+    tp = tband.build_band_plan(port_csr(a),
+                               dtype=torch.bfloat16 if bf16 else None)
+    x = np.random.default_rng(8).standard_normal(640).astype(np.float32)
+    xp = tband.pad_x(tp, torch.from_numpy(x))
+    panels = tp.panels.float().numpy().astype(np.float64)
+    w, h = tp.width, tp.pad_l
+    iters = 1 if op == "spmv" else 2
+
+    def step(p, v):
+        return np.array([p[r] @ v[r // 128 * 128:r // 128 * 128 + w]
+                         for r in range(p.shape[0])])
+
+    want = absd = xp.numpy().astype(np.float64)
+    for _ in range(iters):
+        y, ya = step(panels, want), step(np.abs(panels), np.abs(absd))
+        want, absd = np.zeros_like(want), np.zeros_like(absd)
+        want[h:h + len(y)], absd[h:h + len(y)] = y, ya
+    if op == "spmv":
+        got = tband.band_spmv_padded(_unaligned(tp.panels), _unaligned(xp))
+        want, absd = want[h:h + len(got)], absd[h:h + len(got)]
+    else:
+        got = tband.band_power_padded(_unaligned(tp.panels),
+                                      _unaligned(xp), iters, h)
+    bound = iters * 64 * np.finfo(np.float32).eps * absd
+    assert (np.abs(got.numpy() - want) <= bound).all()
+
+
 def _diags(m, offsets, seed):
     """Seeded diagonals (U[0.1, 1) / (0.55 * ndiag), zero out of range),
     the bench's device band construction."""

@@ -10,6 +10,7 @@ package's own plain reference of it.  Tolerance: the per-row
 ``index_add_`` (and the CUDA kernel's atomics) sum a row in another
 order than the sequential simulator."""
 
+import dataclasses
 import types
 
 import jax.numpy as jnp
@@ -139,6 +140,63 @@ def _ref_csr(a):
     """A scipy CSR in the fields ``assert_rows_close`` reads."""
     return types.SimpleNamespace(shape=a.shape, nnz=a.nnz, rowptr=a.indptr,
                                  colind=a.indices, values=a.data)
+
+
+@pytest.mark.parametrize("name", ["rotated", "hub_row_aux",
+                                  "window_major_spill", "empty"])
+def test_slab_work_groups_each_range_by_slab(name):
+    """The slab-staged kernel's work list (``route2.build_slab_work``,
+    every range taken) against a plain loop over the JAX plan's
+    ``slab_base``: each launch range's chunks once, by slab in ascending
+    order and in stream order within a slab, cut into items of at most
+    ``SLAB_ITEM`` chunks of one slab.  The built and the carried plans
+    hold it for the ranges of ``SLAB_MIN_CHUNKS`` chunks or more, and a
+    value update carries it unchanged."""
+    _, jp, tp = _plans(name)
+    sb = np.asarray(jp.slab_base)
+    ranges = tp.launch_ranges()
+    work = tr2.build_slab_work(sb, tp.launch_starts, "cpu", min_chunks=0)
+    assert len(work) == len(ranges)
+    sb = sb.tolist()
+    for (lo, hi), (order, starts) in zip(ranges, work):
+        want_order, want_starts = [], [0]
+        for v in sorted(set(sb[lo:hi])):
+            ks = [k for k in range(lo, hi) if sb[k] == v]
+            for i in range(0, len(ks), tr2.SLAB_ITEM):
+                want_order += ks[i:i + tr2.SLAB_ITEM]
+                want_starts.append(len(want_order))
+        assert order.dtype == starts.dtype == torch.int32
+        assert order.tolist() == want_order
+        assert starts.tolist() == want_starts
+    for plan in (tp, _carried(jp)):
+        big = [hi - lo >= tr2.SLAB_MIN_CHUNKS
+               for lo, hi in plan.launch_ranges()]
+        assert [w is not None for w in plan.slab_work] == big
+    nnz = int(tp.val_src.max()) + 1
+    assert tp.update_values(torch.ones(max(nnz, 1))).slab_work \
+        is tp.slab_work
+
+
+def test_slab_work_past_the_threshold():
+    """A plan whose first launch range reaches ``SLAB_MIN_CHUNKS`` (the
+    uniform 160k degree-10 matrix) carries that range's work list, every
+    chunk of the range once; the wrapper's lookup refuses a plan whose
+    launch starts no longer match it."""
+    a = _generated(160_000, 1_600_000, 3)
+    tp = tr2.build_route2_plan(a.indptr, a.indices, a.data, a.shape, a.nnz,
+                               device="cpu")
+    (lo, hi), *aux = tp.launch_ranges()
+    assert hi - lo >= tr2.SLAB_MIN_CHUNKS
+    order, starts = tp.slab_work[0]
+    want = tr2.slab_items(tp.slab_base.numpy(), lo, hi)
+    assert np.array_equal(order.numpy(), want[0])
+    assert np.array_equal(starts.numpy(), want[1])
+    assert sorted(order.tolist()) == list(range(lo, hi))
+    assert all(w is None for w in tp.slab_work[1:])
+    assert tk._slab_work(tp, 0, hi - lo) is tp.slab_work[0]
+    short = dataclasses.replace(tp, launch_starts=(0, hi - 1))
+    with pytest.raises(ValueError, match="slab work list"):
+        tk._slab_work(short, 0, hi - 1)
 
 
 @pytest.mark.parametrize("name", sorted(FIXTURES))
