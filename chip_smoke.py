@@ -34,8 +34,12 @@ The ROUTE v1 kernel runs every level of a plan in one launch, ordered
 by device counters, and the paned and resident ROUTE2 kernels one launch
 per aux level: each runs 50 times back to back on a plan with aux levels,
 every result checked (a wait that lets a chunk read too early gives a
-wrong row).  The band kernel is also held to its plain version on
-panels and x views that are not 16-byte aligned.
+wrong row).  So does the SpTRSV solve, one persistent launch a solve
+ordered by device counters, on the 20k factor and on a factor with hub
+rows (aux levels).  The paned SpGEMM fill (one owner a slot, no
+atomics) must give the same bits twice.  The band kernel is also held
+to its plain version on panels and x views that are not 16-byte
+aligned.
 
 Tolerance everywhere: |y - y_ref| <= 64 * eps_f32 * scale * (|A|.|x|)
 per row (per entry of C against (|A|.|B|) for SpMM), the dot-product
@@ -74,6 +78,7 @@ from spblas_tpu_torch.formats.convert import bsr_to_csr
 from spblas_tpu_torch.kernels import banded, dia, route2
 from spblas_tpu_torch.kernels import bsr_kernels as bk
 from spblas_tpu_torch.kernels import bsr_spgemm as bsg
+from spblas_tpu_torch.kernels import mul_fill as mf
 from spblas_tpu_torch.kernels import route2_kernel as r2k
 from spblas_tpu_torch.kernels import route_mul as rml
 from spblas_tpu_torch.kernels import route_mul_kernel as rmk
@@ -236,6 +241,10 @@ TRSV_MAIN = [
     ("sptrsv_blocked_1_2m", lambda: gen.generate_block_chain_lower(
         1_200_000, block=64, deg=4, seed=0), "blocked", 18_750)]
 TRSV_SOLVES = 20               # timed solves on distinct right-hand sides
+# kernel only, for the race check: the 20k factor with hub rows, each
+# given extra random columns below the diagonal (aux levels): (name,
+# rows, columns a row, seed)
+TRSV_HUB = ("sptrsv_20k_hub_rows", 4, 3_000, 121)
 
 # band power iterations on the headline band built on the card from
 # random diagonals (bench.py:66-86, _device_band_plan): (name, rows, half
@@ -260,7 +269,7 @@ BAND_STREAM_REPLACES = "spblas_tpu/kernels/banded.py:403"
 BSR_SPMV_REPLACES = "spblas_tpu/kernels/bsr_pallas.py:128"
 BSR_SPMM_REPLACES = "spblas_tpu/kernels/bsr_pallas.py:33"
 MUL_SOURCE = "spblas_tpu_torch/csrc/route2_mul.cu"
-MUL_PANED_SOURCE = "spblas_tpu_torch/csrc/route_mul_paned.cu"
+MUL_PANED_SOURCE = "spblas_tpu_torch/csrc/mul_fill.cu"
 BSR_SPGEMM_SOURCE = "spblas_tpu_torch/csrc/bsr_spgemm.cu"
 MUL_REPLACES = "spblas_tpu/kernels/route2_kernel.py:414"
 MUL_PANED_REPLACES = "spblas_tpu/kernels/route_mul_paned.py:274"
@@ -282,7 +291,7 @@ WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "bsr_spmv": bk.bsr_spmv_blocks,
             "bsr_spmm": bk.bsr_spmm_blocks,
             "route2_mul": r2k.route2_mul_padded,
-            "route2_mul_paned": rmp.route2_mul_paned_padded,
+            "route2_mul_paned": mf.mul_fill,
             "bsr_spgemm": bsg.bsr_spgemm_blocks,
             "route_mul": rmk.route_mul_padded,
             "band_power": banded.band_power_padded,
@@ -1224,48 +1233,64 @@ def mul_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
             "card": card}
 
 
+def paned_walker(plan, a2, b2, fn=rmp.route2_mul_paned_reference):
+    """The plain tile walker of a paned plan, panel by panel: each panel's
+    first ``slots`` slots, concatenated and zero-padded to the
+    capacity."""
+    parts = [fn(plan, p, a2, b2).view(-1)[:p.slots] for p in plan.panels]
+    out = torch.cat(parts) if parts else a2.new_zeros(0)
+    return torch.nn.functional.pad(out, (0, plan.capacity - out.shape[0]))
+
+
 def mul_paned_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
-    """``route2_mul_paned`` on every panel of a paned mul plan against
-    its plain version, panel by panel."""
+    """The paned fill (``route2_mul_paned``: one launch of the slot fill
+    ``mul_fill`` over the plan's expansion stream) against the plain
+    tile walker, per entry; one owner a slot, so two runs give the same
+    bits.  Two bounds: the bytes the slot fill must move, and the tile
+    stream any design that reads the ROUTE tiles must move."""
+    ex = plan.expansion
+    cap = plan.capacity
+    before = mf.mul_fill.launches
+    c_k = rmp.route2_mul_paned(plan, a_arr, b_arr)
+    torch.cuda.synchronize()
+    per_call = mf.mul_fill.launches - before
+    require(per_call == 1, f"route2_mul_paned {name}: {per_call} "
+                           "launches, want 1")
+    again = rmp.route2_mul_paned(plan, a_arr, b_arr)
+    require(torch.equal(c_k, again),
+            f"route2_mul_paned {name}: two runs differ")
     a2, b2 = rmp.pack_mul_panes(plan, a_arr, b_arr)
-    before = rmp.route2_mul_paned_padded.launches
-    err = 0.0
-    for p in plan.panels:
-        y_k = rmp.route2_mul_paned_padded(plan, p, a2, b2)
-        torch.cuda.synchronize()
-        y_p = rmp.route2_mul_paned_reference(plan, p, a2, b2)
-        err = max(err, row_check(y_k, y_p, rmp.route2_mul_paned_reference(
-            plan, p, a2.abs(), b2.abs())))
-        del y_k, y_p
-    per_call = rmp.route2_mul_paned_padded.launches - before
-    want = sum(hi > lo for p in plan.panels for lo, hi in p.launch_ranges())
-    require(per_call == want, f"route2_mul_paned {name}: {per_call} "
-                              f"launches, want {want}")
-    log(f"[check] route2_mul_paned {name}: in bound, max |err| {err:.3e}")
-    # each input read once (both tiles, the per-chunk scalars ab, bb, yb,
-    # fl, pane, A and B), each panel pane written twice
-    nbytes = (plan.a_rows + plan.b_rows_pad) * 512 + sum(
+    err = row_check(c_k, paned_walker(plan, a2, b2),
+                    paned_walker(plan, a2.abs(), b2.abs()))
+    row_check(c_k, mf.mul_fill_reference(ex, a_arr, b_arr, cap),
+              mf.mul_fill_reference(ex, a_arr.abs(), b_arr.abs(), cap))
+    log(f"[check] route2_mul_paned {name}: in bound, the same bits twice, "
+        f"max |err| {err:.3e}")
+    del c_k, again
+    # the slot fill reads the index stream (sa, sb, run_start), A and B
+    # once and writes c once; the tile walker's bound reads both tiles,
+    # the per-chunk scalars ab, bb, yb, fl, pane, A and B and writes each
+    # panel pane twice
+    ent = int(ex.sa.numel())
+    nbytes = (2 * ent + ex.nslots + 1 + cap) * 4 + (ex.a_len + ex.b_len) * 4
+    b_ms, b_by = bound(nbytes, 2 * ent, rates)
+    tile_bytes = (plan.a_rows + plan.b_rows_pad) * 512 + sum(
         p.nchunks * (8 * 1024 + 20) + 2 * p.out_rows * 512
         for p in plan.panels)
-    b_ms, b_by = bound(nbytes, 2 * plan.nchunks * 1024, rates)
+    tile_ms, _ = bound(tile_bytes, 2 * plan.nchunks * 1024, rates)
 
     def copy():
-        return dataclasses.replace(plan, panels=tuple(
-            dataclasses.replace(
-                p, t1=p.t1.clone(), t2=p.t2.clone(), ab=p.ab.clone(),
-                bb=p.bb.clone(), yb=p.yb.clone(), fl=p.fl.clone(),
-                pane=p.pane.clone()) for p in plan.panels)), a2.clone(), \
-            b2.clone()
-
-    def run_panels(pl, aa, bb, fn=rmp.route2_mul_paned_padded):
-        for p in pl.panels:
-            fn(pl, p, aa, bb)
+        return (dataclasses.replace(ex, sa=ex.sa.clone(), sb=ex.sb.clone(),
+                                    run_start=ex.run_start.clone()),
+                a_arr.clone(), b_arr.clone())
 
     ins = replicas(copy, nbytes)
-    k_ms = device_ms(run_panels, ins)
-    p_ms = device_ms(lambda pl, aa, bb: run_panels(
-        pl, aa, bb, rmp.route2_mul_paned_reference), ins)
+    k_ms = device_ms(lambda s_, a_, b_: mf.mul_fill(s_, a_, b_, cap), ins)
+    seg_ms = device_ms(lambda s_, a_, b_: mf.mul_fill_reference(
+        s_, a_, b_, cap), ins)
     del ins
+    p_ms = device_ms(lambda x2, y2: paned_walker(plan, x2, y2), [(a2, b2)],
+                     reps=4)
     torch.cuda.empty_cache()
     return {"kernel": "route2_mul_paned", "case": name,
             "panels": len(plan.panels),
@@ -1274,9 +1299,14 @@ def mul_paned_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
             "g_b": plan.g_b,
             "aux_levels": max(len(p.launch_starts) - 1 for p in plan.panels),
             "panels_with_aux": sum(p.has_aux for p in plan.panels),
+            "entries": ent, "slots": ex.nslots, "capacity": cap,
+            "longest_run": int(ex.run_start.diff().max()) if ex.nslots
+            else 0,
             "launches_per_call": per_call, "max_abs_err": err,
             "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "plain_ms": p_ms, "library_ms": lib_ms, "card": card}
+            "tile_stream_bound_ms": tile_ms, "plain_ms": p_ms,
+            "segmented_sum_plain_ms": seg_ms, "library_ms": lib_ms,
+            "card": card}
 
 
 def fill_ms(info, vals, a):
@@ -1671,12 +1701,28 @@ def solve_pane(plan, y0):
         y0.float(), (0, rows * 128 - y0.shape[0])).contiguous()
 
 
-def route2_solve_case(name, a, info, b, rates, card, lib_ms):
-    """``route2_solve`` (the solve mode of route2_spmv.cu) on the main
-    path's plan against its plain version, level by level: the two may
-    differ per row by twice (I - |C|)^{-1} 64 eps (|y0| + |C| |x|), C
-    the baked coefficients -a_ij/d_i, since both round each level's sums
-    and feed them to the next."""
+def solve_bound(a, plan, d, pane, x_p):
+    """Per row, how far the solve kernel may stand from its plain
+    version ``x_p``: twice (I - |C|)^{-1} 64 eps (|y0| + |C| |x|), C the
+    baked coefficients -a_ij/d_i, since both round each level's sums and
+    feed them to the next."""
+    m = a.shape[0]
+    xp = x_p.view(-1)[:m]
+    off = abs_csr(a, torch.float32)
+    off = dataclasses.replace(off, values=torch.where(
+        a.colind.long() == a.row_ids().long(), 0.0, off.values))
+    cx = sp.multiply(off, xp.abs()) / d.abs()
+    z = r2k.route2_solve_reference(dataclasses.replace(
+        plan, val=plan.val.abs()), solve_pane(
+        plan, 64 * EPS32 * (pane[:m].abs() + cx)))
+    return 2 * z.view(-1)[:m].double()
+
+
+def route2_solve_case(name, a, info, b, rates, card, lib_ms, race=False):
+    """``route2_solve`` (the persistent solve kernel of route2_spmv.cu,
+    one launch a solve) on the main path's plan against its plain
+    version, level by level, within :func:`solve_bound`; with ``race``
+    also 50 solves back to back, every one held to the same bound."""
     plan = info.plan.route
     d = a.values[info.plan.route_diag.long()]
     pane = solve_pane(plan, b / d)
@@ -1684,8 +1730,8 @@ def route2_solve_case(name, a, info, b, rates, card, lib_ms):
     x_k = r2k.route2_solve_padded(plan, pane)
     torch.cuda.synchronize()
     per_call = r2k.route2_solve_padded.launches - before
-    require(per_call == len(r2k.solve_ranges(plan)),
-            f"route2_solve {name}: {per_call} launches")
+    require(per_call == 1, f"route2_solve {name}: {per_call} launches, "
+                           "want 1")
     # the plain version is host-bound (one Python step per level): one
     # call, timed with events, is its time
     e0 = torch.cuda.Event(enable_timing=True)
@@ -1696,21 +1742,18 @@ def route2_solve_case(name, a, info, b, rates, card, lib_ms):
     torch.cuda.synchronize()
     p_ms = e0.elapsed_time(e1)
     m = a.shape[0]
-    xp = x_p.view(-1)[:m]
-    off = abs_csr(a, torch.float32)
-    off = dataclasses.replace(off, values=torch.where(
-        a.colind.long() == a.row_ids().long(), 0.0, off.values))
-    cx = sp.multiply(off, xp.abs()) / d.abs()
-    z = r2k.route2_solve_reference(dataclasses.replace(
-        plan, val=plan.val.abs()), solve_pane(
-        plan, 64 * EPS32 * (pane[:m].abs() + cx)))
+    lim = solve_bound(a, plan, d, pane, x_p)
     err_v = (x_k - x_p).abs().view(-1)[:m].double()
-    lim = 2 * z.view(-1)[:m].double()
     bad = int((err_v > lim).sum())
     require(bad == 0, f"route2_solve {name}: {bad} rows past the bound")
     err = float(err_v.max())
     log(f"[check] route2_solve {name}: in bound, max |err| {err:.3e}")
-    del x_k, x_p, z
+    if race:
+        # race_check's bound is 64 eps times its last argument
+        race_check(f"route2_solve {name}",
+                   lambda: r2k.route2_solve_padded(plan, pane).view(-1)[:m],
+                   x_p.view(-1)[:m], lim / (64 * EPS32))
+    del x_k, x_p, lim
     # each input read once (tile and values, the per-chunk scalars, y0),
     # x written once
     nch = plan.nchunks
@@ -1721,14 +1764,42 @@ def route2_solve_case(name, a, info, b, rates, card, lib_ms):
              for i in range(4)]
     ins = [(plan, p) for p in panes]
     k_ms = device_ms(r2k.route2_solve_padded, ins, reps=8)
+    work = plan.solve_work
     return {"kernel": "route2_solve", "case": name, "m": m,
             "nchunks": nch, "levels": info.plan.num_levels,
             "launch_ranges": len(plan.launch_starts),
+            "steps": work.nsteps, "items": work.nitems,
+            "stretch": work.stretch,
             "n_aux_chunks": plan.n_aux_chunks, "fill": plan.fill,
             "g": plan.g, "launches_per_call": per_call,
+            "race_runs": RACE_RUNS if race else 0,
             "max_abs_err": err, "kernel_ms": k_ms, "bound_ms": b_ms,
             "bound_by": b_by, "plain_ms": p_ms, "library_ms": lib_ms,
             "card": card}
+
+
+def hub_factor(a, count, degree, seed):
+    """The lower factor ``a`` with ``count`` rows given ``degree`` more
+    random columns below the diagonal each (values U[-1, 1), duplicates
+    merged), as a CSR on the card: their (row, window) segments pass the
+    packer's hub threshold, so the solve plan has aux levels."""
+    m = a.shape[0]
+    rng = np.random.default_rng(seed)
+    nnz = a.nnz
+    rows = np.repeat(np.arange(m), np.diff(np.minimum(
+        a.rowptr.cpu().numpy().astype(np.int64), nnz)))
+    hubs = rng.choice(np.arange(m // 2, m), count, replace=False)
+    hr = np.repeat(hubs, degree)
+    hc = (rng.random(len(hr)) * hr).astype(np.int64)
+    cols = np.concatenate([a.colind[:nnz].cpu().numpy(), hc])
+    vals = np.concatenate([a.values[:nnz].cpu().numpy(), rng.uniform(
+        -1, 1, len(hr)).astype(np.float32)])
+    rows = np.concatenate([rows, hr])
+    _, idx = np.unique(rows * m + cols, return_index=True)
+    rowptr = np.concatenate([[0], np.cumsum(np.bincount(rows[idx],
+                                                        minlength=m))])
+    return CSR.from_arrays(vals[idx], rowptr, cols[idx], (m, m),
+                           nnz=len(idx), device=a.device)
 
 
 def library_trsv_ms(a, b):
@@ -1810,7 +1881,8 @@ def trsv_main(name, a, kind, levels, rates, card):
     emit(rec)
     kern = None
     if kind == "route":
-        kern = route2_solve_case(name, a, info, bs[0], rates, card, lib_ms)
+        kern = route2_solve_case(name, a, info, bs[0], rates, card, lib_ms,
+                                 race=name == TRSV_MAIN[0][0])
     return rec, kern
 
 
@@ -1824,6 +1896,18 @@ def trsv_phase(rates, card):
         main.append(rec)
         if kern is not None:
             recs.append(kern)
+        if name == TRSV_MAIN[0][0]:
+            # the same factor with hub rows: aux levels in the solve
+            hname, count, degree, seed = TRSV_HUB
+            ha = hub_factor(a, count, degree, seed)
+            info = sp.triangular_solve_inspect(ha)
+            require(info.plan.route is not None
+                    and info.plan.route.n_aux_chunks > 0,
+                    f"{hname}: no route solve plan with aux levels")
+            recs.append(route2_solve_case(
+                hname, ha, info, gen.generate_vector(ha.shape[0], seed=210),
+                rates, card, None, race=True))
+            del ha, info
         del a
         torch.cuda.empty_cache()
     return main, recs

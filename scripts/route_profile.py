@@ -1,26 +1,29 @@
 #!/usr/bin/env python3
-"""Device-time profile of the ROUTE SpMV kernels, the ROUTE2 solve and
-the band row kernel of spblas_tpu_torch on their main-path shapes:
-``route_spmv`` (ROUTE v1) on the degree-sorted base plan of the 131k
-R-MAT graph (bench.py:768, seed 5), ``route_paned_spmv`` (paned ROUTE2)
-on uniform 4M degree 10 (bench.py:606, seed 3), ``route2_spmv``
-(resident ROUTE2) on uniform 300k and 1M degree 10 (bench.py:145, :794,
-seed 3, chip_smoke.py's ``ROUTE_MAIN``), ``route2_solve`` on the 20k
-triangular factor and the 1M block chain (bench.py:410-417, :467-482,
-chip_smoke.py's ``TRSV_MAIN``), and ``band_spmv`` (f32 and bf16 panels)
-and ``band_power`` (10 iterations) on the 409,600-row headline band
-(bench.py:125, seed 0), each as the CUDA chooser or ``chip_smoke.py``
-builds it.
+"""Device-time profile of the ROUTE SpMV kernels, the ROUTE2 solve, the
+paned SpGEMM fill and the band row kernel of spblas_tpu_torch on their
+main-path shapes: ``route_spmv`` (ROUTE v1) on the degree-sorted base
+plan of the 131k R-MAT graph (bench.py:768, seed 5), ``route_paned_spmv``
+(paned ROUTE2) on uniform 4M degree 10 (bench.py:606, seed 3),
+``route2_spmv`` (resident ROUTE2) on uniform 300k and 1M degree 10
+(bench.py:145, :794, seed 3, chip_smoke.py's ``ROUTE_MAIN``),
+``route2_solve`` on the 20k triangular factor and the 1M block chain
+(bench.py:410-417, :467-482, chip_smoke.py's ``TRSV_MAIN``), the paned
+fill ``route2_mul_paned`` on the 100k A.A product (bench.py:254) and
+chip_smoke.py's paned hub fixture, and ``band_spmv`` (f32 and bf16
+panels) and ``band_power`` (10 iterations) on the 409,600-row headline
+band (bench.py:125, seed 0), each as the CUDA chooser or
+``chip_smoke.py`` builds it.
 
     python3 scripts/route_profile.py [--tree DIR ...] [--kernels K,...]
                                      [--out FILE] [--no-variants]
+                                     [--graph]
 
 Each ``--tree`` is a checkout holding ``spblas_tpu_torch/`` (default: this
 one); the trees run one worker process each, in the order given, so
 ``--tree _checkout/parent --tree . --tree . --tree _checkout/parent``
 compares two versions in turns on one card.  ``--kernels`` picks from
-``v1``, ``paned``, ``route2``, ``solve`` and ``band`` (default: all).  A
-worker reports, per kernel:
+``v1``, ``paned``, ``route2``, ``solve``, ``band`` and ``mul_paned``
+(default: all).  A worker reports, per kernel:
 
 - what ``nvcc -Xptxas -v`` says of each of its ``__global__`` functions
   (registers a thread, shared memory a block, spill bytes) and the blocks
@@ -30,19 +33,30 @@ worker reports, per kernel:
   chains cycling through copies past the 50 MB L2, a device sleep queued
   ahead so host time does not count): the v1 levels from the packed
   level-0 x, the paned panels and the resident ROUTE2 launches (pane
-  zeroing included), the solve's level launches from one C call, one
-  band SpMV, ten band power iterations; beside them cuSPARSE's
-  ``torch.mv`` on the same matrix;
+  zeroing included), the solve as the tree runs it (one launch a level
+  from one C call, or one persistent launch), one band SpMV, ten band
+  power iterations, the paned fill (the tile walker's launches per
+  panel, or the slot fill's one launch); beside them cuSPARSE's
+  ``torch.mv`` on the same matrix, or its SpGEMM with the symbolic pass,
+  and the whole ``multiply_fill`` with the host;
+- with ``--graph``, each solve replayed from a CUDA graph of one call
+  (the host's enqueue out, the device's launch latency in); on a tree
+  with the persistent solve, its ``stretch_N`` levers (the work list
+  rebuilt with one-block stretches over launch ranges of at most N
+  chunks, 0: none);
 - the same chain rebuilt from variants of the tree's sources (the first
   time a tree appears, unless ``--no-variants``): ``no_publish`` (each
-  publish ``atomicAdd`` made a predicated store that never fires),
-  ``const_gather`` (every x or pane read of the gather replaced by 1.0),
-  both at once, for the one-launch v1 kernel ``no_stream`` (its ring
-  filled by nothing) alone and with the other two, and the ``lever_*``
-  variants, each of which changes one integer design constant of the
-  slab-staged ROUTE2 kernel or the band row kernel (a variant runs only
-  where its pattern matched, so a tree without the constant skips it),
-  each output held to the plain version (``*_in_bound``);
+  publish ``atomicAdd``, or the slot fill's store, made a predicated
+  store that never fires), ``const_gather`` (every x or pane read of the
+  gather replaced by 1.0; the slot fill's A and B gathers by a value made
+  from their indices), both at once (for the tile-walking paned fill
+  of older trees: the tile stream alone), for the one-launch v1 kernel ``no_stream``
+  (its ring filled by nothing) alone and with the other two, and the
+  ``lever_*`` variants, each of which changes one integer design
+  constant of the slab-staged ROUTE2 kernel or the band row kernel (a
+  variant runs only where its pattern matched, so a tree without the
+  constant skips it), each output held to the plain version
+  (``*_in_bound``);
 - one ``torch.profiler`` trace of three chains and of three public
   applies (host included): the device operations a call, their busy
   time and the gaps between them, and the first 40 operations in order;
@@ -55,6 +69,7 @@ Needs one CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -74,12 +89,23 @@ _PUBLISH = [
     (("v1",), "route_spmv.cu", r"atomicAdd\((\w+) \+ row \* kLanes \+ j, ",
      r"route_sink(\1 + row * kLanes + j, "),
     (_CHUNK, "route2_chunk.cuh",
-     r"atomicAdd\((\w+ \+ row \* kLanes(?: \+ j)?), ", r"route_sink(\1, ")]
+     r"atomicAdd\((\w+ \+ row \* kLanes(?: \+ j)?), ", r"route_sink(\1, "),
+    # the paned fill: the tile walker's atomics (older trees), the slot
+    # fill's one store a slot
+    (("mul_paned",), "route2_mul_chunk.cuh",
+     r"atomicAdd\((\w+ \+ row \* kLanes \+ j), ", r"route_sink(\1, "),
+    (("mul_paned",), "mul_fill.cu", r"c\[s\] = acc;",
+     "route_sink(c + s, acc);")]
 _GATHER = [
     (("v1",), "route_spmv.cu",
      r"\w+\[row \* kLanes \+ bits\(a\[i\], 3, 127\)\]", "1.0f"),
     (("v1",), "route_spmv.cu", r"d \? __ldcg\(px\) : __ldg\(px\)", "1.0f"),
-    (_CHUNK, "route2_chunk.cuh", r"src\[row \* kLanes \+ j\]", "1.0f"),
+    (_CHUNK + ("mul_paned",), "route2_chunk.cuh",
+     r"src\[row \* kLanes \+ j\]", "1.0f"),
+    # the slot fill's A and B gathers become a value made from the two
+    # indices (their loads stay; only the gathers go)
+    (("mul_paned",), "mul_fill.cu", r"A\[sa\[e\]\] \* B\[sb\[e\]\]",
+     "__int_as_float(((sa[e] ^ sb[e]) & 0x7fff) | 0x3f800000)"),
     (("route2",), "route2_spmv.cu",
      r"slab\[min\(bits\(t\[a\], 0, 255\), rows - 1\) \* kLanes \+ j\]",
      "1.0f")]
@@ -105,6 +131,14 @@ VARIANTS = {"no_publish": [_PUBLISH], "const_gather": [_GATHER],
             # the slab-staged ROUTE2 kernel's groups a block
             "lever_groups_4": _lever("route2", "route2_spmv.cu", "kGroups",
                                      "4"),
+            # the persistent solve's polling sleep and blocks an SM
+            "lever_solve_poll_0": _lever("solve", "route2_spmv.cu",
+                                         "kPollNs", "0"),
+            "lever_solve_blocks_8": _lever("solve", "route2_spmv.cu",
+                                           "kSolveBlocks", "8"),
+            # the slot fill's hub cut
+            "lever_fill_long_256": _lever("mul_paned", "mul_fill.cu",
+                                          "kLong", "256"),
             # the band row kernel's
             "lever_band_warps_4": _lever("band", "band_row.cuh", "kWarps",
                                          "4"),
@@ -136,6 +170,8 @@ def variant_csrc(csrc: Path, dest: Path, groups):
     for gi, group in enumerate(groups):
         for tags, fname, pat, rep in group:
             path = dest / fname
+            if not path.exists():       # a source of another tree
+                continue
             new, n = re.subn(pat, rep, path.read_text())
             for tag in tags:
                 hits[tag, gi] = hits.get((tag, gi), 0) + n
@@ -147,10 +183,12 @@ def variant_csrc(csrc: Path, dest: Path, groups):
                   if all(hits.get((t, gi), 0) for gi in range(len(groups)))}
 
 
-# kernel tag -> the sources whose build it times
+# kernel tag -> the sources whose build it times (a tree builds those it
+# has: the paned fill's source changed its name)
 SOURCES = {"v1": ("route_spmv",), "paned": ("route_paned_spmv",),
            "route2": ("route2_spmv",), "solve": ("route2_spmv",),
-           "band": ("band_spmv", "band_power")}
+           "band": ("band_spmv", "band_power"),
+           "mul_paned": ("route_mul_paned", "mul_fill")}
 # source -> (kernel expression, threads, dynamic shared bytes) of each
 # __global__ that a design of it may hold; those a tree lacks fail to
 # build and are left out
@@ -160,13 +198,22 @@ OCCUPANCY = {
     "route2_spmv": [("route2_spmv_kernel", 128, 0),
                     ("route2_apply_kernel<true>", 128, 0),
                     ("route2_apply_kernel<false>", 128, 0),
+                    ("route2_apply_kernel", 128, 0),
+                    ("route2_solve_kernel", 128, 0),
                     ("route2_slab_kernel", "kSlabThreads", "kSlabSmem")],
+    "route_mul_paned": [("route_mul_paned_kernel", 128, 0)],
+    "mul_fill": [("mul_fill_kernel", 256, 0)],
     "band_spmv": [("band::row_kernel<float>", 256, 0),
                   ("band::row_kernel<__nv_bfloat16>", 256, 0),
                   ("band::row_kernel<float, 4>", "band::kThreads", 928),
                   ("band::row_kernel<__nv_bfloat16, 8>", "band::kThreads",
                    928),
                   ("band::row_kernel<float, 1>", "band::kThreads", 928)]}
+
+
+def sources(_build, tag):
+    """The sources of ``tag`` that the tree has."""
+    return [n for n in SOURCES[tag] if (_build.CSRC / f"{n}.cu").exists()]
 
 
 def ptxas_report(text: str):
@@ -466,11 +513,33 @@ def route2_bench(torch, sp, gen, rec):
     return out
 
 
+def graph_ms(torch, fn, args, reps):
+    """Device time of ``fn(*args)`` replayed from one CUDA graph: the
+    launch sequence captured once, then enqueued as one graph, so the
+    host's per-launch cost drops out and what is left is the device's
+    (launch latency included)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn(*args)
+    ms = device_ms(torch, graph.replay, [()], reps)
+    del graph
+    return ms
+
+
 def solve_bench(torch, sp, gen, rec):
-    """The solve's level launches (``route2_solve_padded``, one C call) on
-    the main path's plans of chip_smoke.py's ``TRSV_MAIN`` 20k factor and
-    1M chain, timed as ``route2_solve_case`` times them (4 right-hand
-    sides, 8 solves)."""
+    """The solve (``route2_solve_padded``) on the main path's plans of
+    chip_smoke.py's ``TRSV_MAIN`` 20k factor and 1M chain, timed as
+    ``route2_solve_case`` times them (4 right-hand sides, 8 solves);
+    with ``--graph`` also replayed from a CUDA graph of one call.  On a
+    tree whose solve is one persistent launch (``route2.build_solve_work``)
+    the ``stretch_N`` levers rebuild the plan's work list with one-block
+    stretches over launch ranges of at most N chunks (0: none)."""
+    from spblas_tpu_torch.kernels import route2
     from spblas_tpu_torch.kernels import route2_kernel as r2k
     out = {}
     for name, a in (
@@ -488,12 +557,156 @@ def solve_bench(torch, sp, gen, rec):
             return (plan, torch.nn.functional.pad(
                 y0.float(), (0, rows * 128 - m)).contiguous())
 
-        rec[name] = {"nchunks": plan.nchunks,
-                     "launches": len(r2k.solve_ranges(plan)),
-                     "levels": info.plan.num_levels}
-        out[name] = (r2k.route2_solve_padded, [pane(i) for i in range(4)],
-                     (r2k.route2_solve_padded, pane(0)), None, 8)
+        panes = [pane(i) for i in range(4)]
+        r = rec[name] = {"nchunks": plan.nchunks,
+                         "launch_ranges": len(plan.launch_starts),
+                         "levels": info.plan.num_levels}
+        before = r2k.route2_solve_padded.launches
+        ref = r2k.route2_solve_padded(*panes[0])
+        r["launches"] = r2k.route2_solve_padded.launches - before
+        if OPTS.get("graph"):
+            r["graph_ms"] = graph_ms(torch, r2k.route2_solve_padded,
+                                     panes[0], 8)
+        out[name] = (r2k.route2_solve_padded, panes,
+                     (r2k.route2_solve_padded, panes[0]), None, 8)
+        if hasattr(route2, "build_solve_work"):
+            r["stretch_default"] = route2.SOLVE_STRETCH_CHUNKS
+            for n in (0, 1, 4, 16):
+                if n == route2.SOLVE_STRETCH_CHUNKS:
+                    continue
+                lever = dataclasses.replace(
+                    plan, solve_work=route2.build_solve_work(
+                        plan.launch_starts, plan.nchunks, a.device,
+                        stretch=n))
+                ins = [(lever, p) for _, p in panes]
+                y = r2k.route2_solve_padded(*ins[0])
+                # the same plan and pane: every lever must agree with
+                # the default within the solve's rounding
+                r[f"stretch_{n}_ms"] = device_ms(
+                    torch, r2k.route2_solve_padded, ins, 8)
+                r[f"stretch_{n}_max_diff"] = float((y - ref).abs().max())
         del a
+    return out
+
+
+def _hub_stream(torch, n_ent, cap, hubs, a_len, b_len, seed):
+    """chip_smoke.py's ``mul_hub_stream``: a slot-sorted stream whose hub
+    slots hold many entries, A and B values on the card."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    hub = np.concatenate([np.full(c, sl, np.int64) for sl, c in hubs])
+    slots = np.sort(np.concatenate([hub, rng.integers(
+        0, cap, n_ent - len(hub))]))
+    sa = rng.integers(0, a_len - 1, n_ent)
+    sb = rng.integers(0, b_len, n_ent)
+    a = rng.standard_normal(a_len).astype(np.float32)
+    a[-1] = 1.0
+    b = rng.standard_normal(b_len).astype(np.float32)
+    return (slots, sa, sb, torch.from_numpy(a).cuda(),
+            torch.from_numpy(b).cuda())
+
+
+def mul_paned_bench(torch, sp, gen, rec):
+    """The paned SpGEMM fill on chip_smoke.py's 100k A.A main path
+    (``SPGEMM_MAIN``, bench.py:254) and its paned hub fixture
+    (``MUL_PANED_HUB``): on a tree without the slot fill the tile
+    walker, one launch per launch range of each panel over the packed
+    panes; on a tree with the slot fill (``kernels/mul_fill.py``) its
+    one launch over the plan's expansion stream.  Each output is held to the plain tile
+    walker, panel by panel, concatenated and padded to the capacity.
+    Beside them: the whole ``multiply_fill`` (host included, no device
+    sleep ahead) and cuSPARSE's SpGEMM with its symbolic pass."""
+    from spblas_tpu_torch.kernels import route_mul_paned as rmp
+    try:
+        from spblas_tpu_torch.kernels import mul_fill as mf
+    except ImportError:
+        mf = None
+    out = {}
+    a = gen.generate_csr(100_000, 100_000, 1_000_000, seed=0)
+    info = sp.multiply_compute(a, a)
+    big = info.plan.route
+    a_arr = torch.cat([2.0 * a.values, a.values.new_ones(1)])
+    hub = _hub_stream(torch, 600_000, 262_144,
+                      ((0, 20_000), (70_000, 30_000), (140_000, 8_000)),
+                      20_001, 400_000, 102)
+    hub_plan = rmp.build_route2_mul_paned_plan(
+        *hub[:3], 20_001, 400_000, 262_144, device="cuda",
+        panel_slots=65_536, pane_rows=512)
+    for name, plan, aa, bb in (("spgemm_100k", big, a_arr, a.values),
+                               ("hub_slots_paned", hub_plan, hub[3],
+                                hub[4])):
+        a2, b2 = rmp.pack_mul_panes(plan, aa, bb)
+
+        def walker(pl, x2, y2, fn=rmp.route2_mul_paned_reference):
+            parts = [fn(pl, p, x2, y2).view(-1)[:p.slots]
+                     for p in pl.panels]
+            return torch.nn.functional.pad(
+                torch.cat(parts), (0, pl.capacity - sum(
+                    p.slots for p in pl.panels)))
+
+        tiles = sum(p.nchunks * (8 * 1024 + 20) for p in plan.panels)
+        r = rec[name] = {"panels": len(plan.panels),
+                         "nchunks": plan.nchunks, "capacity": plan.capacity,
+                         "tile_bytes": tiles,
+                         "tile_bound_ms": (tiles + (plan.a_rows
+                                                    + plan.b_rows_pad) * 512
+                                           + sum(2 * p.out_rows * 512
+                                                 for p in plan.panels))
+                         / 3.35e12 * 1e3}
+        check = within(torch, lambda pl=plan, x2=a2, y2=b2:
+                       walker(pl, x2, y2),
+                       lambda pl=plan, x2=a2, y2=b2:
+                       walker(pl, x2.abs(), y2.abs()))
+        stream = getattr(plan, "expansion", None)
+        if mf is not None and stream is not None:
+            ent = stream.sa.numel()
+            nbytes = (2 * ent + stream.run_start.numel() + plan.capacity
+                      ) * 4 + (stream.a_len + stream.b_len) * 4
+            r.update(entries=ent, slots=stream.run_start.numel() - 1,
+                     bytes=nbytes, bound_ms=nbytes / 3.35e12 * 1e3)
+
+            def copy(plan=plan, aa=aa, bb=bb):
+                s = plan.expansion
+                return (dataclasses.replace(
+                    s, sa=s.sa.clone(), sb=s.sb.clone(),
+                    run_start=s.run_start.clone()), aa.clone(),
+                    bb.clone(), plan.capacity)
+
+            out[name] = (mf.mul_fill, reps_of(copy, nbytes),
+                         (rmp.route2_mul_paned, (plan, aa, bb)), check)
+        else:
+            def copy(plan=plan, a2=a2, b2=b2):
+                return dataclasses.replace(plan, panels=tuple(
+                    dataclasses.replace(p, **{f: getattr(p, f).clone()
+                                              for f in ("t1", "t2", "ab",
+                                                        "bb", "yb", "fl",
+                                                        "pane")})
+                    for p in plan.panels)), a2.clone(), b2.clone()
+
+            def chain(pl, x2, y2):
+                return walker(pl, x2, y2, rmp.route2_mul_paned_padded)
+
+            r["bytes"] = tiles
+            out[name] = (chain, reps_of(copy, tiles),
+                         (rmp.route2_mul_paned, (plan, aa, bb)), check)
+    # the whole fill as the main path runs it, host included
+    ops = [sp.scaled(2.0, dataclasses.replace(a, values=a.values * (
+        1 + i / 64))) for i in range(8)]
+    sp.multiply_fill(info, ops[0], a)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(20):
+        sp.multiply_fill(info, ops[i % len(ops)], a)
+    e1.record()
+    torch.cuda.synchronize()
+    rec["spgemm_100k"]["multiply_fill_ms"] = e0.elapsed_time(e1) / 20
+    csr = torch.sparse_csr_tensor(a.rowptr, a.colind[: a.nnz],
+                                  a.values[: a.nnz], size=a.shape)
+    rec["spgemm_100k"]["cusparse_spgemm_ms"] = device_ms(
+        torch, torch.matmul, [(csr, csr)], 10)
+    del a, info
     return out
 
 
@@ -537,7 +750,10 @@ def band_bench(torch, sp, gen, rec):
 
 
 BENCHES = {"v1": v1_bench, "paned": paned_bench, "route2": route2_bench,
-           "solve": solve_bench, "band": band_bench}
+           "solve": solve_bench, "band": band_bench,
+           "mul_paned": mul_paned_bench}
+# worker options the benches read (--graph)
+OPTS = {}
 
 
 def worker(args):
@@ -550,12 +766,13 @@ def worker(args):
     out_dir = Path(args.trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     kernels = args.kernels.split(",")
+    OPTS["graph"] = args.graph
     rec = {"tree": str(tree),
            "card": subprocess.run(
                ["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip()}
-    names = [n for k in kernels for n in SOURCES[k]]
+    names = [n for k in kernels for n in sources(_build, k)]
     rec["ptxas"] = build_report(_build, names)
     rec["occupancy"] = occupancy(_build, names,
                                  _build.BUILD / f"occ_{os.getpid()}")
@@ -579,7 +796,7 @@ def worker(args):
             _build._libs.clear()
             _build._fns.clear()
             report = build_report(_build, [n for k in tags
-                                           for n in SOURCES[k]])
+                                           for n in sources(_build, k)])
             rec.setdefault("variant_ptxas", {})[v] = {
                 f: {"registers": r.get("registers"),
                     "spills": r.get("spill_stores", 0)
@@ -616,6 +833,8 @@ def main():
     ap.add_argument("--no-variants", action="store_true",
                     help="time each tree's kernels as they are, only")
     ap.add_argument("--trace-dir", default="profile_out/traces")
+    ap.add_argument("--graph", action="store_true",
+                    help="also replay each solve from a CUDA graph")
     ap.add_argument("--kernels", default=",".join(BENCHES),
                     help="comma-separated subset of " + ",".join(BENCHES))
     args = ap.parse_args()
@@ -634,6 +853,8 @@ def main():
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
                "--trace-dir", str(Path(args.trace_dir).resolve()),
                "--kernels", args.kernels]
+        if args.graph:
+            cmd.append("--graph")
         if tree not in seen and not args.no_variants:
             cmd.append("--variants")
         seen.add(tree)

@@ -72,19 +72,24 @@ __device__ __forceinline__ int bits(unsigned t, int shift, unsigned mask) {
 
 // The slab-row route of thread j's lane column: dst[a][j] = src[(sb +
 // r2[a, j]) * 128 + j], r2 the 8-bit field at bit `shift` of t[a],
-// bounded by the slab's 8g rows; rows at or past src_rows read 0.  The
+// bounded by the slab's 8g rows; rows at or past src_rows read 0.  With
+// `l2` the rows are read through L2 (ld.cg): other blocks write src
+// during the launch (the persistent solve), and L1 is not coherent.  The
 // caller synchronises the block before reading dst across lanes.
 __device__ __forceinline__ void slab_route(float (&dst)[kSubs][kLanes],
                                            const unsigned (&t)[kSubs],
                                            int shift, long long sb,
                                            const float* src,
-                                           long long src_rows, int g) {
+                                           long long src_rows, int g,
+                                           bool l2 = false) {
   const int j = threadIdx.x;
   const int r2_max = kSubs * g - 1;
 #pragma unroll
   for (int a = 0; a < kSubs; ++a) {
     const long long row = sb + min(bits(t[a], shift, 255), r2_max);
-    dst[a][j] = row < src_rows ? src[row * kLanes + j] : 0.f;
+    dst[a][j] = row >= src_rows ? 0.f
+                : l2            ? __ldcg(src + row * kLanes + j)
+                                : src[row * kLanes + j];
   }
 }
 

@@ -2,7 +2,7 @@
 // [lo, hi) of a resident plan (spblas_tpu_torch/kernels/route2.py
 // Route2MulPlan), gathering A values from the A pane and B values from
 // `src`, and publishing into the out pane with atomic adds.  The chunk
-// body is route2_mul_chunk.cuh's, shared with route_mul_paned.cu.
+// body is route2_mul_chunk.cuh's.
 //
 // Replaces the TPU kernel spblas_tpu/kernels/route2_kernel.py::
 // _route2_mul_kernel (pl.pallas_call in route2_mul):

@@ -1,6 +1,6 @@
-// The ROUTE2-mul chunk body, shared by route2_mul.cu (resident plans) and
-// route_mul_paned.cu (paned plans): one (8, 128) chunk of a fused SpGEMM
-// numeric plan (spblas_tpu_torch/kernels/route2.py Route2MulPlan), run by
+// The ROUTE2-mul chunk body of route2_mul.cu (resident plans; the paned
+// plans' fill is mul_fill.cu, which reads no tiles): one (8, 128) chunk
+// of a fused SpGEMM numeric plan (spblas_tpu_torch/kernels/route2.py Route2MulPlan), run by
 // a 128-thread block whose thread j owns lane column j.  It is the Hopper
 // form of spblas_tpu/kernels/route2_kernel.py::_mul_chunk_body.
 //

@@ -52,14 +52,52 @@
 // triangular substitution over one pane that starts at y0 = b/(alpha*d),
 // every chunk gathering from the pane and publishing into it, with
 // values baked as -a_ij/d_i.  The TPU grid makes each level's publishes
-// visible to the next level's gathers; here each dependency level (and
-// each aux level of a hub level, right after its main chunks) is its
-// own launch of route2_apply_kernel (its plan loads plain, see
-// route2_chunk.cuh), at most max_chunks chunks each,
-// issued in order from one C call with no host op between them.  A
-// chunk's used slots read only rows of earlier levels; its unused slots
-// (value 0) may read a row another block of the level is publishing to,
-// a finite value either way, so their product stays 0.
+// visible to the next level's gathers.  The first Hopper design ran each
+// dependency level (and each aux level of a hub level) as its own
+// launch: 15,624 launches on the 1M-row chain, 3.1-6.0 us a level for
+// 2.1-2.6 us of kernel (NVIDIA H100 80GB HBM3, 700 W;
+// scripts/route_profile.py), so the solve was bound by launches.
+//
+// route2_solve_kernel is one persistent launch a solve, after one memset
+// of its counters, over a work list made on the host with the plan
+// (kernels/route2.py build_solve_work): the launch ranges become steps,
+// a range wider than SOLVE_STRETCH_CHUNKS a step of one item a chunk,
+// and a stretch of consecutive narrower ranges (on the chain, every
+// level: one chunk each) a step of one item that one block runs alone.
+// - Claims.  Thread 0 claims items in stream order (levels in order)
+//   from one counter, one claim ahead of the item the block runs, and
+//   loads the next item's range while this one runs.
+// - Done counters.  When a block has run an item, it synchronises and
+//   one thread adds 1 to the item's step counter with a release
+//   (cumulative over the barrier).  An item of step t first has one
+//   thread spin, with an acquiring load at gpu scope, until step t - 1's
+//   counter holds all its items; then the block synchronises.  The grid
+//   is the widest step's item count (at most the blocks the card
+//   holds), so few blocks poll one counter.
+// - Inside a stretch one block runs the levels in order, with a
+//   block-scope fence and __syncthreads between chunks in place of the
+//   counters' round trip through L2: about 1 us a level on the chain,
+//   against 2 us with every level spread over the blocks.
+// - Reads of the pane go through L2 (ld.cg): other blocks publish into
+//   it during the launch, and L1 is not coherent.
+// - Forward progress.  Items are claimed in step order and a block runs
+//   its claims in order, counting each as it ends, so before it waits
+//   it has run and counted every item of an earlier step it claimed.
+//   Step 0 waits on nothing, so its items finish and are counted, which
+//   ends every wait on it, and so on step by step; a block claims only
+//   while it runs, so the grid may be any size.
+// - Prefetch.  The plan does not depend on the solution: the next
+//   chunk's tile and values are loaded into registers while a block
+//   waits or runs the chunk before it (two chunks ahead measured no
+//   faster and spilled).
+// The chain's solve took 16.4 ms against 49-50 ms for the launches (and
+// 36.5 ms for them replayed from a CUDA graph), the 20k factor's 0.082
+// against 0.085 (NVIDIA H100 80GB HBM3, 700 W; scripts/route_profile.py,
+// paired).  A step spread over blocks still costs about 3 us: the
+// release, the poll and the gather are each a round trip through L2.
+// A chunk's used slots read only rows of earlier levels; its unused
+// slots (value 0) may read a row another block of the level is
+// publishing to, a finite value either way, so their product stays 0.
 
 #include "route2_chunk.cuh"
 
@@ -73,6 +111,8 @@ using route2::kSubs;
 
 constexpr int kGroups = 8;      // chunks a slab block runs at once
 constexpr int kMinBlocks = 10;  // blocks an SM of the apply kernel
+constexpr int kSolveBlocks = 4; // blocks an SM of the solve kernel
+constexpr int kPollNs = 32;     // sleep between polls of a done counter
 
 struct Plan {
   const int* tile;
@@ -87,10 +127,8 @@ struct Plan {
   int g, dist_max, any_lane, ww, rotated;
 };
 
-// A block a chunk (the small launch ranges: aux levels, and the solve's
-// levels): the slab rows gathered from src through L1/L2; the plan
-// loaded evict-first with Stream (the SpMV), plainly for the solve.
-template <bool Stream>
+// A block a chunk (the small launch ranges: aux levels): the slab rows
+// gathered from src through L1/L2, the plan loaded evict-first.
 __global__ void __launch_bounds__(kLanes, kMinBlocks)
     route2_apply_kernel(Plan P, long long lo) {
   __shared__ route2::Shared sh;
@@ -98,7 +136,7 @@ __global__ void __launch_bounds__(kLanes, kMinBlocks)
   route2::chunk(sh, P.tile, P.val, P.rho, k, __ldg(P.slab_base + k),
                 __ldg(P.src_flag + k), __ldg(P.y_base + k), P.src,
                 P.src_rows, P.dst, P.dst_rows, P.g, P.dist_max, P.any_lane,
-                P.ww, P.rotated, Stream);
+                P.ww, P.rotated, true);
 }
 
 // Rows [sb, sb + rows) of src into slab, zero past src_rows, by every
@@ -199,6 +237,154 @@ long long slab_grid() {
   return cached[dev];
 }
 
+struct SolvePlan {
+  const int* tile;
+  const float* val;
+  const int* slab_base;
+  const int* y_base;
+  const int* src_flag;
+  const int* item_start;   // (nitems + 1,) first chunk of each item
+  const int* item_step;    // (nitems,) step of each item
+  const int* step_need;    // (nsteps,) items of each step
+  unsigned* counters;      // [0] claims, [1 + t] items of step t done
+  float* pane;             // (rows, 128): y0 on entry, x on exit
+  long long rows;
+  int nitems, g, dist_max, any_lane;
+};
+
+// add v to *p with release semantics at gpu scope: this thread's earlier
+// writes, and those the block's barrier ordered before it, are visible
+// to whoever reads the sum with an acquiring load
+__device__ __forceinline__ void add_release(unsigned* p, unsigned v) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], %1;" ::"l"(p), "r"(v)
+               : "memory");
+}
+
+// one chunk's lane column and scalars, in registers
+struct Lanes {
+  unsigned t[kSubs];
+  float v[kSubs];
+  int sb, flag, yb;
+};
+
+__device__ __forceinline__ void fetch(Lanes& c, const SolvePlan& P,
+                                      long long k, int j) {
+  route2::load_lanes(c.t, c.v, P.tile, P.val, k, j, false);
+  c.sb = __ldg(P.slab_base + k);
+  c.flag = __ldg(P.src_flag + k);
+  c.yb = __ldg(P.y_base + k);
+}
+
+__device__ __forceinline__ unsigned load_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ unsigned long long now_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// a wait longer than this is a fault (a work list whose steps cannot
+// complete), not a slow solve: the kernel traps instead of hanging
+constexpr unsigned long long kWaitLimitNs = 30000000000ull;
+
+// The persistent solve: claims items in order, waits on the step before
+// each new step, runs an item's chunks one after another (see the note
+// at the top of this file).
+__global__ void __launch_bounds__(kLanes, kSolveBlocks)
+    route2_solve_kernel(const SolvePlan P) {
+  __shared__ route2::Shared sh;
+  // the block's next claim and its item's chunk range and step
+  __shared__ int next_item, next_lo, next_hi, next_step;
+  const int j = threadIdx.x;
+  unsigned* claims = P.counters;
+  unsigned* done = P.counters + 1;
+  if (j == 0) {
+    const int i = static_cast<int>(atomicAdd(claims, 1u));
+    next_item = i;
+    if (i < P.nitems) {
+      next_lo = __ldg(P.item_start + i);
+      next_hi = __ldg(P.item_start + i + 1);
+      next_step = __ldg(P.item_step + i);
+    }
+  }
+  __syncthreads();
+  int cur = -1;          // the step the block last waited for
+  Lanes c;
+  while (next_item < P.nitems) {
+    const int lo = next_lo, hi = next_hi, step = next_step;
+    fetch(c, P, lo, j);  // in flight across the wait
+    __syncthreads();     // every thread has read the claim
+    // thread 0: claim ahead (the value arrives during the wait and the
+    // item), then wait for the step this item reads (acquire)
+    int ahead = 0, ahead_lo = 0, ahead_hi = 0, ahead_step = 0;
+    if (j == 0) {
+      ahead = static_cast<int>(atomicAdd(claims, 1u));
+      if (step != cur && step > 0) {
+        const unsigned need = __ldg(P.step_need + step - 1);
+        const unsigned long long t0 = now_ns();
+        while (load_acquire(done + step - 1) < need) {
+          __nanosleep(kPollNs);
+          if (now_ns() - t0 > kWaitLimitNs) __trap();
+        }
+      }
+    }
+    if (step != cur) __syncthreads();
+    cur = step;
+    for (int k = lo; k < hi; ++k) {
+      Lanes n;
+      if (k + 1 < hi) fetch(n, P, k + 1, j);
+      route2::slab_route(sh.t1, c.t, 0, c.sb, P.pane, P.rows, P.g, true);
+      if (k == lo && j == 0 && ahead < P.nitems) {
+        // the next item's range and step, loaded while this one runs
+        ahead_lo = __ldg(P.item_start + ahead);
+        ahead_hi = __ldg(P.item_start + ahead + 1);
+        ahead_step = __ldg(P.item_step + ahead);
+      }
+      __syncthreads();
+      route2::finish(sh, c.t, c.v, c.flag, c.yb, 0, P.pane, P.rows,
+                     P.dist_max, P.any_lane, 1, 0, j,
+                     route2::BlockBarrier{});
+      // this chunk's publishes before the next chunk's gathers (the
+      // next level, inside a stretch), and sh free for it
+      __threadfence_block();
+      if (k + 1 == hi && j == 0) {
+        next_item = ahead;
+        next_lo = ahead_lo;
+        next_hi = ahead_hi;
+        next_step = ahead_step;
+      }
+      __syncthreads();
+      if (k + 1 < hi) c = n;
+    }
+    // the item is done: count it at once (release, cumulative over the
+    // barrier above)
+    if (j == 0) add_release(done + step, 1u);
+  }
+}
+
+// blocks of the solve kernel the current device holds at once (per
+// device, cached); 0 where it cannot say
+long long solve_grid() {
+  static long long cached[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cached[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, route2_solve_kernel, kLanes, 0);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cached[dev] = static_cast<long long>(per_sm) * sms;
+  }
+  return cached[dev];
+}
+
 }  // namespace
 
 // tile, val: (nchunks, 8, 128) int32 / f32; slab_base, y_base, src_flag,
@@ -239,45 +425,47 @@ extern "C" int route2_spmv_f32(const void* tile, const void* val,
           P, static_cast<const int*>(order), static_cast<const int*>(items),
           nitems);
     } else {
-      route2_apply_kernel<true>
-          <<<static_cast<unsigned>(hi - lo), kLanes, 0, st>>>(P, lo);
+      route2_apply_kernel<<<static_cast<unsigned>(hi - lo), kLanes, 0,
+                            st>>>(P, lo);
     }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// Solve mode: the launch ranges [starts[r], starts[r + 1]) (the last one
-// ends at nchunks), each cut into launches of at most max_chunks chunks,
-// all over the one pane (rows, 128) f32, which holds y0 on entry and x
-// on exit.  starts is a host array.  *launches counts the launches made;
-// returns the first launch error, or 0.
+// Solve mode: one launch of route2_solve_kernel over the work list
+// (item_start (nitems + 1,), item_step (nitems,), step_need (nsteps,)
+// int32, made by kernels/route2.py build_solve_work; width, the most
+// items of one step) and the one pane (rows, 128) f32, which holds y0 on
+// entry and x on exit.  counters: (1 + nsteps,) uint32, zeroed.  Launches
+// nothing when there is no item.
 extern "C" int route2_solve_f32(const void* tile, const void* val,
                                 const void* slab_base, const void* y_base,
-                                const void* src_flag, const void* starts,
-                                long long nstarts, long long nchunks,
-                                long long max_chunks, void* pane,
+                                const void* src_flag, const void* item_start,
+                                const void* item_step, const void* step_need,
+                                int nitems, int width, void* counters,
+                                void* pane,
                                 long long rows, int g, int dist_max,
-                                int any_lane, void* launches, void* stream) {
-  const long long* st = static_cast<const long long*>(starts);
-  long long* count = static_cast<long long*>(launches);
-  float* p = static_cast<float*>(pane);
-  const Plan P{static_cast<const int*>(tile),
-               static_cast<const float*>(val),
-               static_cast<const int*>(slab_base),
-               static_cast<const int*>(y_base),
-               static_cast<const int*>(src_flag),
-               nullptr, p, p, rows, rows, g, dist_max, any_lane, 1, 0};
-  for (long long r = 0; r < nstarts; ++r) {
-    const long long hi = r + 1 < nstarts ? st[r + 1] : nchunks;
-    for (long long lo = st[r]; lo < hi; lo += max_chunks) {
-      const long long n = hi - lo < max_chunks ? hi - lo : max_chunks;
-      route2_apply_kernel<false>
-          <<<static_cast<unsigned>(n), kLanes, 0,
-             static_cast<cudaStream_t>(stream)>>>(P, lo);
-      const int err = static_cast<int>(cudaGetLastError());
-      if (err != 0) return err;
-      ++*count;
-    }
+                                int any_lane, void* stream) {
+  if (nitems <= 0 || width <= 0) return static_cast<int>(cudaGetLastError());
+  const long long blocks = solve_grid();
+  if (blocks <= 0) {
+    const int err = static_cast<int>(cudaGetLastError());
+    return err ? err : static_cast<int>(cudaErrorUnknown);
   }
-  return 0;
+  const SolvePlan P{static_cast<const int*>(tile),
+                    static_cast<const float*>(val),
+                    static_cast<const int*>(slab_base),
+                    static_cast<const int*>(y_base),
+                    static_cast<const int*>(src_flag),
+                    static_cast<const int*>(item_start),
+                    static_cast<const int*>(item_step),
+                    static_cast<const int*>(step_need),
+                    static_cast<unsigned*>(counters),
+                    static_cast<float*>(pane),
+                    rows, nitems, g, dist_max, any_lane};
+  // the widest step's items at once; more blocks would only wait
+  const long long grid = width < blocks ? width : blocks;
+  route2_solve_kernel<<<static_cast<unsigned>(grid), kLanes, 0,
+                        static_cast<cudaStream_t>(stream)>>>(P);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -85,6 +85,36 @@ MAX_G = 32                    # r2 field spans 8g <= 256 slab rows
 # levels, run a block a chunk)
 SLAB_ITEM = 8
 SLAB_MIN_CHUNKS = 2048
+# the persistent solve (csrc/route2_spmv.cu's route2_solve_kernel) runs
+# each stretch of consecutive launch ranges of at most this many chunks on
+# one block, levels in order, with no cross-block wait between them
+# (0: every range spread over the blocks)
+SOLVE_STRETCH_CHUNKS = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveWork:
+    """The persistent solve's work list, int32 tensors on the plan's
+    device.  An item is one chunk of a launch range wider than
+    ``stretch`` chunks, or a whole stretch of consecutive narrower
+    ranges; the items of one wide range, or the one item of a stretch,
+    form a step, and a step starts only once every item of the step
+    before it is done."""
+
+    item_start: torch.Tensor   # (nitems + 1,) first chunk of each item
+    item_step: torch.Tensor    # (nitems,) step of each item
+    step_need: torch.Tensor    # (nsteps,) items of each step
+    stretch: int
+    nchunks: int
+    width: int                 # the most items of one step
+
+    @property
+    def nitems(self) -> int:
+        return int(self.item_step.shape[0])
+
+    @property
+    def nsteps(self) -> int:
+        return int(self.step_need.shape[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +157,9 @@ class Route2Plan:
     # host when the plan is built (build_slab_work), carried through
     # value updates
     slab_work: Tuple[Optional[Tuple[torch.Tensor, torch.Tensor]], ...] = ()
+    # solve plans: the persistent solve's work list (build_solve_work),
+    # made on the host with the plan and carried through value updates
+    solve_work: Optional[SolveWork] = None
 
     @property
     def nchunks(self) -> int:
@@ -839,7 +872,43 @@ def build_route2_solve_plan(rowptr, colind, values, shape, nnz: int,
         n_aux_chunks=A["n_aux_chunks"], fill=A["fill"],
         dist_max=A["dist_max"], any_lane=bool(any_lane),
         launch_starts=A["launch_starts"],
-        slab_work=build_slab_work(A["sb"], A["launch_starts"], dev))
+        slab_work=build_slab_work(A["sb"], A["launch_starts"], dev),
+        solve_work=build_solve_work(A["launch_starts"], len(A["sb"]), dev))
+
+
+def build_solve_work(launch_starts: Tuple[int, ...], nchunks: int, device,
+                     stretch: Optional[int] = None) -> SolveWork:
+    """The :class:`SolveWork` of a solve plan's launch ranges: a range of
+    at most ``stretch`` (default ``SOLVE_STRETCH_CHUNKS``) chunks joins
+    the stretch of narrow ranges before it, or starts one; a wider range
+    is a step of one item a chunk."""
+    stretch = SOLVE_STRETCH_CHUNKS if stretch is None else int(stretch)
+    ends = tuple(launch_starts[1:]) + (int(nchunks),)
+    starts, steps, need = [], [], []
+    in_stretch = False
+    for lo, hi in zip(launch_starts, ends):
+        if hi <= lo:
+            continue
+        if hi - lo <= stretch:
+            if not in_stretch:            # the stretch's one item
+                starts.append(np.array([lo]))
+                steps.append(np.array([len(need)]))
+                need.append(1)
+                in_stretch = True
+            continue
+        in_stretch = False
+        starts.append(np.arange(lo, hi))
+        steps.append(np.full(hi - lo, len(need)))
+        need.append(hi - lo)
+
+    def put(parts):
+        arr = np.concatenate(parts) if parts else np.zeros(0)
+        return torch.from_numpy(arr.astype(np.int32)).to(device)
+
+    return SolveWork(item_start=put(starts + [np.array([nchunks])]),
+                     item_step=put(steps), step_need=put([np.array(need)]),
+                     stretch=stretch, nchunks=int(nchunks),
+                     width=max(need, default=0))
 
 
 def _build_route2_solve_arrays(rowptr, colind, values, shape, nnz: int,

@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -294,40 +293,50 @@ def route2_solve_reference(plan: Route2Plan,
     return p
 
 
-# (tile, val, slab_base, y_base, src_flag, starts, nstarts, nchunks,
-#  max_chunks, pane, rows, g, dist_max, any_lane, launches, stream) of
-# route2_solve_f32
-_SOLVE_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) * 3 + (
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p)
+# (tile, val, slab_base, y_base, src_flag, item_start, item_step,
+#  step_need, nitems, width, counters, pane, rows, g, dist_max, any_lane,
+#  stream) of route2_solve_f32
+_SOLVE_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 2 + (
+    ctypes.c_void_p,) * 2 + (ctypes.c_longlong,) + (ctypes.c_int,) * 3 + (
+    ctypes.c_void_p,)
 
 
 def route2_solve_padded(plan: Route2Plan,
                         pane: torch.Tensor) -> torch.Tensor:
     """The solve over the flat f32 pane ``pane`` (y0 in front, zeros to
     :func:`solve_pane_rows` rows of 128); returns a new (rows, 128) f32
-    pane holding x in front.  CUDA tensors launch the solve entry point
-    of ``route2_spmv.cu`` (one C call issues every launch, on the
-    current stream); CPU tensors take :func:`route2_solve_reference`."""
+    pane holding x in front.  CUDA tensors launch the persistent solve
+    kernel of ``route2_spmv.cu`` once, over the plan's ``solve_work``,
+    after one memset of its counters, on the current stream; CPU tensors
+    take :func:`route2_solve_reference`."""
     rows = solve_pane_rows(plan)
     if plan.rotated or plan.row_window_mult != 1:
         raise ValueError("a solve plan has no rotations or supercells")
     _check_operands(plan, pane, x_rows=rows)
     if not _t.on_cuda(pane):
         return route2_solve_reference(plan, pane)
+    work = plan.solve_work
+    if work is None or work.nchunks != plan.nchunks:
+        raise ValueError("a solve plan needs the work list of its own "
+                         "chunks: build it with build_route2_solve_plan "
+                         "(or route2.build_solve_work)")
+    if work.item_start.device != pane.device:
+        raise ValueError(f"work list on {work.item_start.device}, pane on "
+                         f"{pane.device}")
     out = pane.clone()
-    starts = np.asarray(plan.launch_starts, np.int64)
-    count = np.zeros(1, np.int64)
-    stream = torch.cuda.current_stream(pane.device).cuda_stream
+    counters = torch.zeros(1 + work.nsteps, dtype=torch.int32,
+                           device=pane.device)
     fn = _build.function("route2_spmv", "route2_solve_f32", _SOLVE_ARGTYPES)
-    code = fn(plan.tile.data_ptr(), plan.val.data_ptr(),
-              plan.slab_base.data_ptr(), plan.y_base.data_ptr(),
-              plan.src_flag.data_ptr(), starts.ctypes.data, len(starts),
-              plan.nchunks, _SOLVE_CHUNKS_PER_DISPATCH, out.data_ptr(), rows,
-              plan.g, plan.dist_max, int(plan.any_lane), count.ctypes.data,
-              stream)
-    route2_solve_padded.launches += int(count[0])
-    _build.check(code, "route2_solve")
+    _build.check(fn(
+        plan.tile.data_ptr(), plan.val.data_ptr(), plan.slab_base.data_ptr(),
+        plan.y_base.data_ptr(), plan.src_flag.data_ptr(),
+        work.item_start.data_ptr(), work.item_step.data_ptr(),
+        work.step_need.data_ptr(), work.nitems, work.width,
+        counters.data_ptr(),
+        out.data_ptr(), rows, plan.g, plan.dist_max, int(plan.any_lane),
+        torch.cuda.current_stream(pane.device).cuda_stream), "route2_solve")
+    if work.nitems:
+        route2_solve_padded.launches += 1
     return out.view(rows, LANES)
 
 

@@ -10,33 +10,39 @@ of 8 chunks, and the aux (flag-1) chunks, which read the panel's own out
 pane, run at its end after every feeder, in level order.  On the TPU the
 B panes stream through a VMEM double buffer driven by per-group event
 streams (``eva``/``evb``/``evw``/``evs``); the port keeps those streams
-bit-equal to JAX's, but on Hopper B stays in device memory and the
-kernel reads the slab at row ``pane * pane_rows + bb`` directly.
+bit-equal to JAX's, and its plain tile walker reads the slab at row
+``pane * pane_rows + bb`` of B directly.
 
 The builder is the JAX package's, so every JAX field is bit-equal to the
 JAX plan's.  Beside them each panel carries host metadata the JAX plan
 lacks: ``pane``, the B pane of each chunk, and ``launch_starts``, where
-the flag-0 run and each aux level start, since CUDA blocks run in no
-order and each aux level is its own launch.
+the flag-0 run and each aux level start, for the plain tile walker
+:func:`route2_mul_paned_reference`, which runs them in that order.
 
-On a CUDA tensor :func:`route2_mul_paned_padded` launches the
-hand-written kernel ``csrc/route_mul_paned.cu`` (which replaces the TPU
-kernel ``route_mul_paned.py::_paned_mul_kernel``) once per launch range
-of a panel; on a CPU tensor it runs :func:`route2_mul_paned_reference`.
+On the card the tiles are not read.  The plan also keeps the
+slot-sorted expansion stream it was packed from
+(``Route2MulPanedPlan.expansion``, a ``mul_fill.SlotStream``), and on
+CUDA tensors :func:`route2_mul_paned` is one launch of the slot fill
+``csrc/mul_fill.cu`` (which replaces the TPU kernel
+``route_mul_paned.py::_paned_mul_kernel``): a gather of A and B and a
+segmented sum, one owner a slot.  The TPU routes every product through
+the tiles because it has no hardware gather; the 100k A·A plan is 3.3 %
+full, 2.4 GB of tiles for 10M products.  On CPU tensors
+:func:`route2_mul_paned` walks the tiles.
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spblas_tpu_torch import _build
 from spblas_tpu_torch import types as _t
+from spblas_tpu_torch.kernels.mul_fill import (SlotStream,
+                                               build_slot_stream, mul_fill)
 from spblas_tpu_torch.kernels.route2 import (LANES, ROW_WINDOW, SLOTS, SUBS,
                                              _build_route2_mul_arrays,
                                              mul_pane_g)
@@ -103,6 +109,9 @@ class Route2MulPanedPlan:
     pane_rows: int
     capacity: int
     fill: float
+    # the slot-sorted stream the panels were packed from, which the CUDA
+    # fill reads (kernels/mul_fill.py); None on a plan carried from JAX
+    expansion: Optional[SlotStream] = None
 
     @property
     def nchunks(self) -> int:
@@ -168,7 +177,9 @@ def build_route2_mul_paned_plan(slots, src_a, src_b, a_len: int,
     return Route2MulPanedPlan(
         panels=panels, g_a=g_a, g_b=g_b, a_rows=a_rows,
         b_rows_pad=b_rows_pad, pane_rows=pane_rows, capacity=capacity,
-        fill=len(slots) / max(total_slots_packed, 1))
+        fill=len(slots) / max(total_slots_packed, 1),
+        expansion=build_slot_stream(slots, src_a, src_b, a_len, b_len,
+                                    dev))
 
 
 def _regroup_mul_by_pane(sub: dict, pane_rows: int, cap_p: int) -> dict:
@@ -306,78 +317,23 @@ def route2_mul_paned_reference(plan: Route2MulPanedPlan,
     return out
 
 
-def _check_operands(plan: Route2MulPanedPlan, panel: MulPanedPanel,
-                    a2: torch.Tensor, b2: torch.Tensor) -> None:
-    ints = (panel.t1, panel.t2, panel.ab, panel.bb, panel.yb, panel.fl,
-            panel.pane)
-    if any(t.device != a2.device for t in ints + (b2,)):
-        raise ValueError(f"plan on {panel.t1.device}, panes on "
-                         f"{a2.device} and {b2.device}")
-    if any(t.dtype != torch.int32 for t in ints):
-        raise TypeError("plan arrays must be int32")
-    if a2.dtype != torch.float32 or b2.dtype != torch.float32:
-        raise TypeError(f"panes must be float32, got {a2.dtype} and "
-                        f"{b2.dtype}")
-    nc = panel.nchunks
-    if panel.t1.shape != (nc, SUBS, LANES) \
-            or panel.t2.shape != panel.t1.shape \
-            or any(t.shape != (nc,) for t in ints[2:]) \
-            or a2.shape != (plan.a_rows * LANES,) \
-            or b2.shape != (plan.b_rows_pad * LANES,):
-        raise ValueError(f"bad shapes: t1 {tuple(panel.t1.shape)}, "
-                         f"a2 {tuple(a2.shape)}, b2 {tuple(b2.shape)}")
-    if not all(t.is_contiguous() for t in ints + (a2, b2)):
-        raise ValueError("plan arrays and panes must be contiguous")
-
-
-# (t1, t2, ab, bb, yb, fl, pane, lo, hi, A, a_rows, B, b_rows, pane_rows,
-#  out, out_rows, g_a, g_b, dist_max, stream) of route_mul_paned_f32
-_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,) * 2 + (
-    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong) + (
-    ctypes.c_int,) * 3 + (ctypes.c_void_p,)
-
-
-def route2_mul_paned_padded(plan: Route2MulPanedPlan, panel: MulPanedPanel,
-                            a2: torch.Tensor,
-                            b2: torch.Tensor) -> torch.Tensor:
-    """One panel over the packed panes ``a2`` and ``b2`` (from
-    :func:`pack_mul_panes`); returns its (out_rows, 128) f32 panel pane.
-    CUDA tensors launch ``route_mul_paned.cu`` once per launch range, on
-    the current stream; CPU tensors take
-    :func:`route2_mul_paned_reference`."""
-    _check_operands(plan, panel, a2, b2)
-    if not _t.on_cuda(a2):
-        return route2_mul_paned_reference(plan, panel, a2, b2)
-    out = torch.zeros(panel.out_rows, LANES, dtype=torch.float32,
-                      device=a2.device)
-    stream = torch.cuda.current_stream(a2.device).cuda_stream
-    fn = _build.function("route_mul_paned", "route_mul_paned_f32",
-                         _ARGTYPES)
-    for lo, hi in panel.launch_ranges():
-        if hi <= lo:
-            continue
-        _build.check(fn(
-            panel.t1.data_ptr(), panel.t2.data_ptr(), panel.ab.data_ptr(),
-            panel.bb.data_ptr(), panel.yb.data_ptr(), panel.fl.data_ptr(),
-            panel.pane.data_ptr(), lo, hi, a2.data_ptr(), plan.a_rows,
-            b2.data_ptr(), plan.b_rows_pad, plan.pane_rows, out.data_ptr(),
-            panel.out_rows, plan.g_a, plan.g_b, panel.dist_max, stream),
-            "route_mul_paned")
-        route2_mul_paned_padded.launches += 1
-    return out
-
-
-route2_mul_paned_padded.launches = 0
-
-
 def route2_mul_paned(plan: Route2MulPanedPlan, a_arr: torch.Tensor,
                      b_arr: torch.Tensor) -> torch.Tensor:
-    """c_values (capacity,) f32 = the slot sums of A_arr[sa] * B_arr[sb],
-    panel by panel: each panel's first ``slots`` slots, concatenated and
-    zero-padded to the capacity."""
+    """c_values (capacity,) f32 = the slot sums of A_arr[sa] * B_arr[sb].
+    On CUDA tensors one launch of the slot fill (:func:`mul_fill`) over
+    the plan's expansion stream writes the whole capacity; on CPU
+    tensors the plain tile walker runs panel by panel, each panel's
+    first ``slots`` slots concatenated and zero-padded to the
+    capacity."""
+    if _t.on_cuda(a_arr):
+        if plan.expansion is None:
+            raise ValueError("the plan carries no expansion stream (a plan "
+                             "carried from JAX): build it with "
+                             "build_route2_mul_paned_plan to fill on CUDA")
+        return mul_fill(plan.expansion, a_arr.float().contiguous(),
+                        b_arr.float().contiguous(), plan.capacity)
     a2, b2 = pack_mul_panes(plan, a_arr, b_arr)
-    parts = [route2_mul_paned_padded(plan, p, a2, b2).view(-1)[:p.slots]
+    parts = [route2_mul_paned_reference(plan, p, a2, b2).view(-1)[:p.slots]
              for p in plan.panels]
     out = torch.cat(parts) if parts else a2.new_zeros(0)
     return F.pad(out, (0, plan.capacity - out.shape[0]))

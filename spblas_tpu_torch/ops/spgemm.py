@@ -20,8 +20,9 @@ C = alpha*A*B + beta*D.  On CUDA operands (or with
 ``SPBLAS_FORCE_ROUTE_SPGEMM`` set) ``spgemm_compute(..., reuse=True)``
 also builds a ROUTE2-mul engine plan (``kernels/route2.py``, paned past
 the resident envelope: ``kernels/route_mul_paned.py``), and the numeric
-phase then runs the hand-written kernel ``csrc/route2_mul.cu`` or
-``csrc/route_mul_paned.cu``; ``SPBLAS_ROUTE_SPGEMM=1`` selects the ROUTE
+phase then runs the hand-written kernel ``csrc/route2_mul.cu``, or for
+a paned plan the slot fill ``csrc/mul_fill.cu`` over the plan's
+expansion stream; ``SPBLAS_ROUTE_SPGEMM=1`` selects the ROUTE
 v1 engine for a resident product instead (``kernels/route_mul.py``,
 kernel ``csrc/route_mul.cu``); otherwise it is the torch numeric
 (gather-multiply-``index_add_``).  The engine gates are the JAX

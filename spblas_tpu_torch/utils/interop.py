@@ -18,7 +18,8 @@ from spblas_tpu_torch.kernels.bsr_spgemm import BsrSpgemmPlan
 from spblas_tpu_torch.kernels.dia import DiaPlan
 from spblas_tpu_torch.kernels.plans import SortedRoutePlan
 from spblas_tpu_torch.kernels.route2 import (SUBS, Route2MulPlan, Route2Plan,
-                                             build_slab_work)
+                                             build_slab_work,
+                                             build_solve_work)
 from spblas_tpu_torch.kernels.route_mul import RouteMulPlan
 from spblas_tpu_torch.kernels.route_mul_paned import (MulPanedPanel,
                                                       Route2MulPanedPlan)
@@ -120,7 +121,8 @@ def route2_plan_from_numpy(arrays: dict, static: dict,
     plan records no aux or dependency levels, so its launch starts come
     from :func:`route2_launch_starts`; for a solve plan (every chunk
     flag 1) they split wherever a chunk's slab meets a window the
-    current launch writes, more launches than the builder's levels."""
+    current launch writes, more launch ranges than the builder's levels,
+    and the persistent solve's work list is built over them."""
     dev = _t.resolve_device(device)
     put = {k: (None if v is None else _t.as_tensor(np.asarray(v), dev))
            for k, v in arrays.items()}
@@ -129,9 +131,16 @@ def route2_plan_from_numpy(arrays: dict, static: dict,
     starts = route2_launch_starts(
         arrays["src_flag"], arrays["slab_base"], arrays["y_base"],
         int(static["g"]), int(static.get("row_window_mult", 1)))
+    # a solve plan (every chunk reads the pane it publishes into) also
+    # gets the persistent solve's work list over those starts
+    solve = bool(len(arrays["src_flag"])) and bool(
+        (np.asarray(arrays["src_flag"]) == 1).all())
     return Route2Plan(**put, **static, launch_starts=starts,
                       slab_work=build_slab_work(arrays["slab_base"], starts,
-                                                dev))
+                                                dev),
+                      solve_work=build_solve_work(
+                          starts, len(arrays["src_flag"]), dev)
+                      if solve else None)
 
 
 def route_mul_plan_from_numpy(arrays: dict, static: dict,

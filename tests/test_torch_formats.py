@@ -233,6 +233,7 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                 "spblas_tpu_torch.ops.spgemm",
                 "spblas_tpu_torch.backend.engine",
                 "spblas_tpu_torch.kernels.route_mul_paned",
+                "spblas_tpu_torch.kernels.mul_fill",
                 "spblas_tpu_torch.kernels.bsr_spgemm",
                 "spblas_tpu_torch.kernels.route_mul",
                 "spblas_tpu_torch.kernels.route_mul_kernel",

@@ -4,8 +4,10 @@ geometries of ``tests/test_route2_mul.py`` and
 ``tests/test_route_mul_paned.py``, the kernels' plain versions against
 the JAX package's exact numpy simulator (``route2_mul_numpy``) and the
 scatter reference ``np.add.at(out, slots, A[sa] * B[sb])``, the aux
-levels' launch starts, the prefix's no-wrap property, and plans carried
-across from JAX.
+levels' launch starts, the prefix's no-wrap property, plans carried
+across from JAX, and the paned plan's expansion stream (the slot fill's
+input, ``kernels/mul_fill.py``) with its plain segmented sum against the
+tile walker, JAX's simulator and the scatter reference.
 
 JAX's paned Pallas kernel is not run here (its interpret mode costs
 tens of seconds a case); the tiny resident plan goes through JAX's
@@ -26,6 +28,7 @@ from spblas_tpu.kernels import route2 as jr2
 from spblas_tpu.kernels import route_mul_paned as jmp
 from spblas_tpu.kernels.route2_kernel import route2_mul as jax_route2_mul
 
+from spblas_tpu_torch.kernels import mul_fill as tmf
 from spblas_tpu_torch.kernels import route2 as tr2
 from spblas_tpu_torch.kernels import route2_kernel as tk
 from spblas_tpu_torch.kernels import route_mul_paned as tmp
@@ -230,10 +233,97 @@ def test_mul_wrappers_check_operands():
         tk.route2_mul_padded(dataclasses.replace(
             tp, y_base=tp.y_base.long()), a2, b2)
     _, pp, (slots, sa, sb, A, B, cap) = _paned("one_panel")
-    a2, b2 = tmp.pack_mul_panes(pp, torch.from_numpy(A),
-                                torch.from_numpy(B))
     with pytest.raises(ValueError, match="bad shapes"):
-        tmp.route2_mul_paned_padded(pp, pp.panels[0], a2, b2[:-128])
+        tmp.mul_fill(pp.expansion, torch.from_numpy(A),
+                     torch.from_numpy(B)[:-128], pp.capacity)
     with pytest.raises(ValueError, match="whole B slabs"):
         tmp.build_route2_mul_paned_plan(slots, sa, sb, 1501, 40_000, cap,
                                         pane_rows=100, device="cpu")
+
+
+def _panel_spans(tp):
+    """[(s0, s1)) slot span of each panel of a paned plan."""
+    spans, s0 = [], 0
+    for p in tp.panels:
+        spans.append((s0, s0 + p.slots))
+        s0 += p.slots
+    return spans
+
+
+@pytest.mark.parametrize("name", list(PANED))
+def test_paned_expansion_is_the_built_stream(name):
+    """Per panel, the plan's expansion stream holds exactly the products
+    of the stream it was built from whose slots lie in the panel, in
+    order, and each slot's run starts where its products start."""
+    jp, tp, (slots, sa, sb, A, B, cap) = _paned(name)
+    ex = tp.expansion
+    assert ex.nslots == int(slots[-1]) + 1 and ex.nslots <= cap
+    assert (ex.a_len, ex.b_len) == (len(A), len(B))
+    run = to_np(ex.run_start).astype(np.int64)
+    np.testing.assert_array_equal(np.diff(run),
+                                  np.bincount(slots, minlength=ex.nslots))
+    for s0, s1 in _panel_spans(tp):
+        sel = (slots >= s0) & (slots < s1)
+        lo, hi = run[min(s0, ex.nslots)], run[min(s1, ex.nslots)]
+        np.testing.assert_array_equal(to_np(ex.sa)[lo:hi], sa[sel])
+        np.testing.assert_array_equal(to_np(ex.sb)[lo:hi], sb[sel])
+    # a plan carried from JAX has no stream: the CUDA fill refuses it
+    carried = interop.route2_mul_paned_plan_from_numpy(
+        [({f: np.asarray(getattr(p, f)) for f in PANEL_ARRAYS},
+          {f: getattr(p, f) for f in PANEL_STATIC}) for p in jp.panels],
+        {f: getattr(jp, f) for f in PANED_STATIC}, device="cpu")
+    assert carried.expansion is None
+
+
+@pytest.mark.parametrize("name", list(PANED))
+def test_plain_slot_fill_matches_walker_simulator_scatter(name):
+    """The slot fill's plain version (one segmented sum over the stream)
+    against the plain tile walker (``route2_mul_paned_reference`` panel
+    by panel, concatenated and zero-padded to the capacity), JAX's numpy
+    simulator of each panel's slot slice (``route2_mul_numpy`` on JAX's
+    mul plan of it, as the paned builder packs each panel) and the
+    scatter reference, hub slots included; the CPU wrapper runs it and
+    launches nothing."""
+    _, tp, (slots, sa, sb, A, B, cap) = _paned(name)
+    a, b = torch.from_numpy(A), torch.from_numpy(B)
+    before = tmf.mul_fill.launches
+    got = tmf.mul_fill(tp.expansion, a, b, tp.capacity)
+    assert tmf.mul_fill.launches == before
+    assert got.shape == (cap,) and got.dtype == torch.float32
+    np.testing.assert_array_equal(
+        to_np(got), to_np(tmf.mul_fill_reference(tp.expansion, a, b, cap)))
+    a2, b2 = tmp.pack_mul_panes(tp, a, b)
+    walker = torch.cat([tmp.route2_mul_paned_reference(tp, p, a2, b2)
+                        .view(-1)[:p.slots] for p in tp.panels])
+    walker = torch.nn.functional.pad(walker, (0, cap - walker.shape[0]))
+    sim = np.zeros(cap, np.float64)
+    for s0, s1 in _panel_spans(tp):
+        sel = (slots >= s0) & (slots < s1)
+        if not sel.any():
+            continue
+        jp = jr2.build_route2_mul_plan(slots[sel] - s0, sa[sel], sb[sel],
+                                       len(A), len(B), s1 - s0)
+        sim[s0:s1] = jr2.route2_mul_numpy(jp, A, B)[: s1 - s0]
+    for want, what in ((walker, "walker"), (sim, "simulator"),
+                       (_scatter(slots, sa, sb, A, B, cap), "scatter")):
+        _assert_slots_close(got, to_np(want) if torch.is_tensor(want)
+                            else want, slots, sa, sb, A, B, cap,
+                            f"{name} vs {what}")
+    if name == "hub":
+        assert np.bincount(slots).max() > 32    # a run past the warp cut
+
+
+def test_slot_fill_checks_operands():
+    _, tp, (slots, sa, sb, A, B, cap) = _paned("one_panel")
+    ex = tp.expansion
+    a, b = torch.from_numpy(A), torch.from_numpy(B)
+    with pytest.raises(TypeError, match="float32"):
+        tmf.mul_fill(ex, a.double(), b, cap)
+    with pytest.raises(ValueError, match="bad shapes"):
+        tmf.mul_fill(ex, a[:-1], b, cap)
+    with pytest.raises(ValueError, match="bad shapes"):
+        tmf.mul_fill(ex, a, b, ex.nslots - 1)
+    with pytest.raises(TypeError, match="int32"):
+        tmf.mul_fill(dataclasses.replace(ex, sa=ex.sa.long()), a, b, cap)
+    with pytest.raises(ValueError, match="nondecreasing"):
+        tmf.build_slot_stream(slots[::-1], sa, sb, len(A), len(B), "cpu")

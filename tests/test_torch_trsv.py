@@ -4,8 +4,11 @@ the ragged level sweep, the ROUTE2 substitution (forced on the CPU with
 ``SPBLAS_FORCE_ROUTE_TRSV``, which runs the solve kernel's plain
 version) and the pane-blocked solve (a lowered
 ``SPBLAS_ROUTE_SOLVE_PANE_CAP``), the schedule and solve plans bit-equal
-to JAX's, each solve plan's launches holding one dependency level, and
-the re-bake, grad, deep-chain and launch-splitting paths.
+to JAX's, each solve plan's launches holding one dependency level, the
+persistent solve's work list (its steps and one-block stretches against
+the launch starts, and an execution in its order with every step's
+items reading the pane as the step found it), and the re-bake, grad,
+deep-chain and launch-splitting paths.
 
 Tolerances: against JAX's solve and the dense oracles, JAX's own
 (``tests/util.py::assert_close``, factor 256 or 1024, abs floor 1e-4);
@@ -292,6 +295,129 @@ def test_solve_launches_hold_one_level(name):
     bad = tk.route2_solve(dataclasses.replace(tp, launch_starts=(0,)), y0)
     assert np.abs(to_np(good) - to_np(bad)).max() > 1e-3 * float(
         np.abs(to_np(good)).max())
+
+
+def _items_of(work):
+    """(item starts with the end, item steps, step needs) as numpy."""
+    return (to_np(work.item_start).astype(np.int64),
+            to_np(work.item_step).astype(np.int64),
+            to_np(work.step_need).astype(np.int64))
+
+
+@pytest.mark.parametrize("stretch", [0, 1, 4])
+@pytest.mark.parametrize("name", list(FACTORS))
+def test_solve_work_follows_launch_starts(name, stretch):
+    """The persistent solve's work list against the plan's launch
+    ranges: the items cover the chunks in order; an item is one chunk of
+    a range wider than ``stretch`` chunks, or the whole of a maximal run
+    of narrower ranges (a one-block stretch); a wide range's items form
+    one step, a stretch is a step alone, the steps follow the ranges in
+    order, and each done-counter target is its step's item count."""
+    _, _, _, _, tp = _factor(name)
+    assert tp.solve_work.stretch == tr2.SOLVE_STRETCH_CHUNKS
+    work = tr2.build_solve_work(tp.launch_starts, tp.nchunks, "cpu",
+                                stretch=stretch)
+    start, step, need = _items_of(work)
+    assert start[0] == 0 and start[-1] == tp.nchunks
+    assert (np.diff(start) > 0).all()
+    assert step[0] == 0 and set(np.diff(step)) <= {0, 1}
+    np.testing.assert_array_equal(need, np.bincount(step))
+    assert work.width == need.max()
+    ranges = [(lo, hi) for lo, hi in tp.launch_ranges() if hi > lo]
+    narrow = [hi - lo <= stretch for lo, hi in ranges]
+    r = 0
+    for i in range(work.nitems):
+        lo, hi = start[i], start[i + 1]
+        while ranges[r][1] <= lo:
+            r += 1
+        if not narrow[r]:
+            assert hi == lo + 1 and hi <= ranges[r][1]
+            assert need[step[i]] == ranges[r][1] - ranges[r][0]
+            continue
+        # a stretch: whole narrow ranges, none narrow just outside it
+        assert ranges[r][0] == lo and need[step[i]] == 1
+        assert r == 0 or not narrow[r - 1]
+        while ranges[r][1] < hi:
+            r += 1
+            assert narrow[r]
+        assert ranges[r][1] == hi
+        assert r + 1 == len(ranges) or not narrow[r + 1]
+    if name == "chain" and stretch:
+        assert work.nitems == 1            # every level is one chunk
+
+
+def _run_work(tp, work, pane):
+    """The solve in the work list's order: steps in order; in a step of
+    many items each item gathers from the pane as the step found it (a
+    snapshot), the items in reverse order; a stretch runs its chunks one
+    after another on the live pane."""
+    p = pane.clone().view(-1, tr2.LANES)
+    start, step, _ = _items_of(work)
+    for t in range(work.nsteps):
+        items = np.flatnonzero(step == t)[::-1]
+        src = p.clone() if len(items) > 1 else p
+        for i in items:
+            for k in range(start[i], start[i + 1]):
+                tk.chunk_reference(
+                    tp.tile[k:k + 1], tp.val[k:k + 1],
+                    tp.slab_base[k:k + 1], tp.y_base[k:k + 1],
+                    tp.src_flag[k:k + 1], None, src, p, g=tp.g,
+                    dist_max=tp.dist_max, any_lane=tp.any_lane, ww=1,
+                    rotated=False)
+    return p
+
+
+@pytest.mark.parametrize("name", list(FACTORS))
+def test_solve_in_work_order_matches_plain(name):
+    """Run in the work list's order, with a step's items unable to see
+    each other's publishes, the solve agrees with the plain version:
+    the steps' waits are all the order the solve needs."""
+    a, levels, diag_pos, _, tp = _factor(name)
+    _, lower, unit = FACTORS[name]
+    m = a.shape[0]
+    b = np.random.default_rng(7).standard_normal(m).astype(np.float32)
+    d = np.ones(m, np.float32) if unit else np.asarray(a.values)[diag_pos]
+    y0 = torch.from_numpy(b / d)
+    rows = tk.solve_pane_rows(tp)
+    pane = torch.nn.functional.pad(y0, (0, rows * tr2.LANES - m))
+    want = to_np(tk.route2_solve_reference(tp, pane).view(-1)[:m])
+    for stretch in (0, tr2.SOLVE_STRETCH_CHUNKS, 4):
+        work = tr2.build_solve_work(tp.launch_starts, tp.nchunks, "cpu",
+                                    stretch=stretch)
+        got = to_np(_run_work(tp, work, pane).view(-1)[:m])
+        assert_close(got, want, factor=256,
+                     abs_floor=1e-6 * float(np.abs(want).max()))
+
+
+def test_carried_and_refreshed_solve_plans_keep_a_work_list(monkeypatch):
+    """A solve plan carried from JAX gets a work list over its own
+    (conservative) launch starts; an SpMV plan gets none; a values
+    re-bake carries the list."""
+    a, levels, diag_pos, jp, tp = _factor("hub_rows")
+    cp = interop.route2_plan_from_numpy(
+        {f: np.asarray(getattr(jp, f)) for f in ROUTE_ARRAYS + (
+            "ext_cols",)} | {"rho": None},
+        {f: getattr(jp, f) for f in ROUTE_STATIC + (
+            "row_window_mult", "has_hub", "rotated")}, device="cpu")
+    start, _, _ = _items_of(cp.solve_work)
+    ref = tr2.build_solve_work(cp.launch_starts, cp.nchunks, "cpu")
+    np.testing.assert_array_equal(start, _items_of(ref)[0])
+    assert cp.solve_work.nchunks == cp.nchunks
+    refreshed = tp.update_solve_values(torch.from_numpy(
+        np.array(a.values)))
+    assert refreshed.solve_work is tp.solve_work
+    u = port_csr(gen.generate_csr(300, 300, 3000, seed=3))
+    sp_plan = tr2.build_route2_plan(u.rowptr, u.colind, u.values, u.shape,
+                                    u.nnz, device="cpu")
+    assert sp_plan.solve_work is None
+    # the CUDA path refuses a plan without its work list before launching
+    pane = torch.zeros(tk.solve_pane_rows(tp) * tr2.LANES)
+    with monkeypatch.context() as mp:
+        mp.setattr(tk._t, "on_cuda", lambda t: True)
+        for bad in (None, tr2.build_solve_work((0,), 1, "cpu")):
+            with pytest.raises(ValueError, match="work list"):
+                tk.route2_solve_padded(dataclasses.replace(
+                    tp, solve_work=bad), pane)
 
 
 @pytest.mark.parametrize("name", ["tri3000", "hub_rows"])
