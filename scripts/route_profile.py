@@ -1,18 +1,20 @@
 #!/usr/bin/env python3
 """Device-time profile of the ROUTE SpMV kernels, the ROUTE2 solve, the
-paned SpGEMM fill and the band row kernel of spblas_tpu_torch on their
-main-path shapes: ``route_spmv`` (ROUTE v1) on the degree-sorted base
-plan of the 131k R-MAT graph (bench.py:768, seed 5), ``route_paned_spmv``
-(paned ROUTE2) on uniform 4M degree 10 (bench.py:606, seed 3),
-``route2_spmv`` (resident ROUTE2) on uniform 300k and 1M degree 10
-(bench.py:145, :794, seed 3, chip_smoke.py's ``ROUTE_MAIN``),
-``route2_solve`` on the 20k triangular factor and the 1M block chain
-(bench.py:410-417, :467-482, chip_smoke.py's ``TRSV_MAIN``), the paned
-fill ``route2_mul_paned`` on the 100k A.A product (bench.py:254) and
-chip_smoke.py's paned hub fixture, and ``band_spmv`` (f32 and bf16
+paned SpGEMM fill, the band row kernel and the two streamed SpMM kernels
+of spblas_tpu_torch on their main-path shapes: ``route_spmv`` (ROUTE v1)
+on the degree-sorted base plan of the 131k R-MAT graph (bench.py:768,
+seed 5), ``route_paned_spmv`` (paned ROUTE2) on uniform 4M degree 10
+(bench.py:606, seed 3), ``route2_spmv`` (resident ROUTE2) on uniform 300k
+and 1M degree 10 (bench.py:145, :794, seed 3, chip_smoke.py's
+``ROUTE_MAIN``), ``route2_solve`` on the 20k triangular factor and the 1M
+block chain (bench.py:410-417, :467-482, chip_smoke.py's ``TRSV_MAIN``),
+the paned fill ``route2_mul_paned`` on the 100k A.A product (bench.py:254)
+and chip_smoke.py's paned hub fixture, ``band_spmv`` (f32 and bf16
 panels) and ``band_power`` (10 iterations) on the 409,600-row headline
-band (bench.py:125, seed 0), each as the CUDA chooser or
-``chip_smoke.py`` builds it.
+band (bench.py:125, seed 0), ``band_spmm_stream`` on that band at k 256
+(f32 and bf16 panels; bench.py:574) and ``bsr_spmm`` on chip_smoke.py's
+block cell (``BSR_MAIN``: 131,072^2, 65,536 blocks of 8x128, k 256),
+each as the CUDA chooser or ``chip_smoke.py`` builds it.
 
     python3 scripts/route_profile.py [--tree DIR ...] [--kernels K,...]
                                      [--out FILE] [--no-variants]
@@ -22,8 +24,9 @@ Each ``--tree`` is a checkout holding ``spblas_tpu_torch/`` (default: this
 one); the trees run one worker process each, in the order given, so
 ``--tree _checkout/parent --tree . --tree . --tree _checkout/parent``
 compares two versions in turns on one card.  ``--kernels`` picks from
-``v1``, ``paned``, ``route2``, ``solve``, ``band`` and ``mul_paned``
-(default: all).  A worker reports, per kernel:
+``v1``, ``paned``, ``route2``, ``solve``, ``band``, ``mul_paned``,
+``band_mm`` and ``bsr_mm`` (``spmm`` names the last two; default: all).
+A worker reports, per kernel:
 
 - what ``nvcc -Xptxas -v`` says of each of its ``__global__`` functions
   (registers a thread, shared memory a block, spill bytes) and the blocks
@@ -36,9 +39,11 @@ compares two versions in turns on one card.  ``--kernels`` picks from
   zeroing included), the solve as the tree runs it (one launch a level
   from one C call, or one persistent launch), one band SpMV, ten band
   power iterations, the paned fill (the tile walker's launches per
-  panel, or the slot fill's one launch); beside them cuSPARSE's
+  panel, or the slot fill's one launch), one SpMM; beside them cuSPARSE's
   ``torch.mv`` on the same matrix, or its SpGEMM with the symbolic pass,
-  and the whole ``multiply_fill`` with the host;
+  or its SpMM (``torch.matmul`` on the sparse CSR), and the whole
+  ``multiply_fill``, or the whole ``multiply(scaled(2.0, matrix_opt(A)),
+  B)`` over distinct B, with the host;
 - with ``--graph``, each solve replayed from a CUDA graph of one call
   (the host's enqueue out, the device's launch latency in); on a tree
   with the persistent solve, its ``stretch_N`` levers (the work list
@@ -51,12 +56,23 @@ compares two versions in turns on one card.  ``--kernels`` picks from
   gather replaced by 1.0; the slot fill's A and B gathers by a value made
   from their indices), both at once (for the tile-walking paned fill
   of older trees: the tile stream alone), for the one-launch v1 kernel ``no_stream``
-  (its ring filled by nothing) alone and with the other two, and the
-  ``lever_*`` variants, each of which changes one integer design
-  constant of the slab-staged ROUTE2 kernel or the band row kernel (a
-  variant runs only where its pattern matched, so a tree without the
-  constant skips it), each output held to the plain version
-  (``*_in_bound``);
+  (its ring filled by nothing) alone and with the other two, for the
+  SpMM kernels ``const_b`` (every read of B taken from B's first 1,024
+  rows, or the first column block's slice, so B costs no device-memory
+  traffic) and ``const_a`` (every panel or block value read from the
+  first 1,024 panel rows or the first block), and the ``lever_*``
+  variants, each of
+  which changes one integer design constant of the slab-staged ROUTE2
+  kernel, the band row kernel or an SpMM kernel (for the old FMA
+  ``bsr_spmm``: ``lever_ktile_64``, the k-tile cut to 64 columns, and
+  ``lever_ktile_64_outer``, that with the k-tile the grid's slowest
+  index, so one phase reads a 33.5 MB slice of B) (a variant runs only
+  where its pattern matched, so a tree without the constant skips it),
+  each output held to the plain version (``*_in_bound``);
+- for the SpMM kernels, the bound: the larger of the bytes (each input
+  once, C once) over 3.35 TB/s and the operations over the 67 TFLOP/s
+  f32 peak (``fma_bound_ms``) or three times them over the 494.7
+  TFLOP/s TF32 peak (``tc_bound_ms``, the full-f32 3xTF32 product);
 - one ``torch.profiler`` trace of three chains and of three public
   applies (host included): the device operations a call, their busy
   time and the gaps between them, and the first 40 operations in order;
@@ -70,6 +86,8 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import inspect
 import json
 import math
 import os
@@ -77,6 +95,7 @@ import re
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -122,6 +141,36 @@ def _lever(tag, fname, const, value):
               rf"\g<1>{value};")]]
 
 
+# the SpMM kernels: B's reads from its first 1,024 rows (the band) or
+# the first column block's slice (BSR), A's from the first 1,024 panel
+# rows or the first block: the loads stay, spread over the L2 slices,
+# and their device-memory traffic goes
+_CONST_B = [(("band_mm",), "band_spmm.cu",
+             r"bp \+ \(r0 \+ c0 \+ cc\) \* k \+ col0 \+ j",
+             "bp + ((r0 + c0 + cc) & 1023) * k + col0 + j"),
+            (("bsr_mm",), "bsr_spmm.cu",
+             r"b \+ static_cast<long long>\(colind\[e\]\) \* bw \* k", "b"),
+            (("bsr_mm",), "bsr_spmm.cu",
+             r"b \+ static_cast<long long>\(j\) \* bw \* k", "b")]
+_CONST_A = [(("band_mm",), "band_spmm.cu",
+             r"panels\[\(r0 \+ r\) \* w \+ c\]",
+             "panels[((r0 + r) & 1023) * w + c]"),
+            (("band_mm",), "band_spmm.cu",
+             r"panels \+ \(r0 \+ r\) \* w \+ c\b",
+             "panels + ((r0 + r) & 1023) * w + c"),
+            (("bsr_mm",), "bsr_spmm.cu",
+             r"values \+ static_cast<long long>\(e\) \* bh \* bw", "values")]
+# the old FMA bsr_spmm only (whose f32 entry point launches it; the f64
+# kernel keeps the design): a group that matches and changes nothing
+_FMA_F32 = [(("bsr_mm",), "bsr_spmm.cu", r"(return launch<float>\()", r"\1")]
+# the old FMA bsr_spmm: its k-tile as the grid's slowest index
+_KTILE_OUTER = [(("bsr_mm",), "bsr_spmm.cu",
+                 r"const int kt = blockIdx\.x % ktiles;\n"
+                 r"  const long long rest = blockIdx\.x / ktiles;",
+                 "const long long nrest = gridDim.x / ktiles;\n"
+                 "  const int kt = static_cast<int>(blockIdx.x / nrest);\n"
+                 "  const long long rest = blockIdx.x % nrest;")]
+
 # a variant is a list of groups; a kernel is rebuilt under it where each
 # group matched somewhere in its sources
 VARIANTS = {"no_publish": [_PUBLISH], "const_gather": [_GATHER],
@@ -151,7 +200,34 @@ VARIANTS = {"no_publish": [_PUBLISH], "const_gather": [_GATHER],
                                           "16"),
             "lever_band_scalar": [[(("band",), "band_row.cuh",
                                     r"const bool vec = ", "const bool vec = "
-                                    "false && ")]]}
+                                    "false && ")]],
+            # the SpMM kernels (old FMA designs and tensor-core ones)
+            "const_b": [_CONST_B], "const_a": [_CONST_A],
+            "const_a_const_b": [_CONST_A, _CONST_B],
+            "lever_ktile_64": _lever("bsr_mm", "bsr_spmm.cu", "kColThreads",
+                                     "16") + [_FMA_F32],
+            "lever_ktile_64_outer": _lever("bsr_mm", "bsr_spmm.cu",
+                                           "kColThreads", "16")
+            + [_KTILE_OUTER, _FMA_F32],
+            # the column-grouped f32 bsr_spmm: one CTA an SM (no register
+            # cap) or three (85 registers); k-tiles of 128 columns (two
+            # warps along them)
+            "lever_bsr_min_blocks_1": _lever("bsr_mm", "bsr_spmm.cu",
+                                             "kMinBlocks", "1"),
+            "lever_bsr_min_blocks_3": _lever("bsr_mm", "bsr_spmm.cu",
+                                             "kMinBlocks", "3"),
+            "lever_bsr_warps_n_2": _lever("bsr_mm", "bsr_spmm.cu", "kWarpsN",
+                                          "2")
+            + _lever("bsr_mm", "bsr_spmm.cu", "kWarpsM", "4"),
+            "lever_band_mm_warps_n_4": _lever("band_mm", "band_spmm.cu",
+                                              "kWarpsN", "4"),
+            # the split's rounding by cvt.rna.tf32.f32 in place of the two
+            # integer operations
+            "lever_cvt_rna": [[(("band_mm", "bsr_mm"), "tf32_mma.cuh",
+                                r"return \(__float_as_uint\(x\) \+ 0x1000u\) "
+                                r"& 0xffffe000u;",
+                                "uint32_t r;\n  asm(\"cvt.rna.tf32.f32 %0, %1;"
+                                "\" : \"=r\"(r) : \"f\"(x));\n  return r;")]]}
 _SINK = ("\n#ifndef ROUTE_SINK\n#define ROUTE_SINK\n"
          "__device__ __forceinline__ void route_sink(float* p, float v) "
          "{ if (v == 1.2345e-30f) *p = v; }\n#endif\n")
@@ -188,7 +264,10 @@ def variant_csrc(csrc: Path, dest: Path, groups):
 SOURCES = {"v1": ("route_spmv",), "paned": ("route_paned_spmv",),
            "route2": ("route2_spmv",), "solve": ("route2_spmv",),
            "band": ("band_spmv", "band_power"),
-           "mul_paned": ("route_mul_paned", "mul_fill")}
+           "mul_paned": ("route_mul_paned", "mul_fill"),
+           "band_mm": ("band_spmm",), "bsr_mm": ("bsr_spmm",)}
+# --kernels aliases
+ALIASES = {"spmm": ("band_mm", "bsr_mm")}
 # source -> (kernel expression, threads, dynamic shared bytes) of each
 # __global__ that a design of it may hold; those a tree lacks fail to
 # build and are left out
@@ -208,7 +287,19 @@ OCCUPANCY = {
                   ("band::row_kernel<float, 4>", "band::kThreads", 928),
                   ("band::row_kernel<__nv_bfloat16, 8>", "band::kThreads",
                    928),
-                  ("band::row_kernel<float, 1>", "band::kThreads", 928)]}
+                  ("band::row_kernel<float, 1>", "band::kThreads", 928)],
+    # the old FMA designs, then the tensor-core ones
+    "band_spmm": [("band_spmm_stream<float, true>", 256, 0),
+                  ("band_spmm_stream<__nv_bfloat16, true>", 256, 0),
+                  ("tc::band_spmm_tc<float, true, true>", "tc::kThreads",
+                   "tc::kSmemBytes"),
+                  ("tc::band_spmm_tc<__nv_bfloat16, true, true>",
+                   "tc::kThreads", "tc::kSmemBytes")],
+    "bsr_spmm": [("bsr_spmm_kernel<float, true>", 64, 0),
+                 ("tc::bsr_spmm_tc<true>", "tc::kThreads", 0),
+                 ("tc::bsr_spmm_columns<true>", "tc::kThreads",
+                  "tc::kSmemBytes"),
+                 ("tc::bsr_row_sums<true>", "tc::kSumThreads", 0)]}
 
 
 def sources(_build, tag):
@@ -749,9 +840,134 @@ def band_bench(torch, sp, gen, rec):
     return out
 
 
+# data-sheet peaks of the H100 SXM: memory, f32 outside the tensor
+# cores, dense TF32 on them
+_HBM, _F32, _TF32 = 3.35e12, 67e12, 494.7e12
+
+
+def spmm_bounds(nbytes, flops):
+    """The FMA bound (bytes or f32 operations) and the tensor-core bound
+    (bytes or the three TF32 products of a full-f32 product), in ms."""
+    t_bytes = nbytes / _HBM * 1e3
+    return {"bytes": nbytes, "flops": flops,
+            "fma_bound_ms": max(t_bytes, flops / _F32 * 1e3),
+            "tc_bound_ms": max(t_bytes, 3 * flops / _TF32 * 1e3)}
+
+
+def dense_b(torch, n, k, seed, count=1):
+    """chip_smoke.py's ``dense_operands``: seeded U[0, 100) on the card."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return [torch.rand(n, k, generator=g, device="cuda") * 100
+            for _ in range(count)]
+
+
+def cusparse_mm_ms(torch, a, b):
+    """cuSPARSE SpMM (``torch.matmul`` on the sparse CSR ``a``), over
+    distinct copies of the values and B."""
+    def make():
+        return (torch.sparse_csr_tensor(a.rowptr, a.colind[: a.nnz].clone(),
+                                        a.values[: a.nnz].clone(),
+                                        size=a.shape), b.clone())
+    return device_ms(torch, torch.matmul, reps_of(
+        make, a.nnz * 8 + b.numel() * 4))
+
+
+def multiply_ms(torch, sp, opt, bs, reps=20):
+    """The whole ``multiply(scaled(2.0, opt), B)``, host included, over
+    the distinct ``bs`` (chip_smoke.py's ``main_path_spmm`` timing)."""
+    sp.multiply(sp.scaled(2.0, opt), bs[0])
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(reps):
+        sp.multiply(sp.scaled(2.0, opt), bs[i % len(bs)])
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def band_mm_bench(torch, sp, gen, rec):
+    """``band_spmm_stream_padded`` on the headline plan at k 256 with f32
+    and bf16 panels (chip_smoke.py's ``band_spmm_case``, seed 85), the
+    main path's ``multiply`` on the headline band at k 256 (it streams B)
+    and cuSPARSE's SpMM on the same CSR."""
+    from spblas_tpu_torch.kernels import banded
+    m, k = 409_600, 256
+    a = gen.generate_banded_csr(m, m, 100, seed=0)
+    b = dense_b(torch, m, k, 85)[0]
+    out = {}
+    for name, dt in (("band_stream_f32", None),
+                     ("band_stream_bf16", torch.bfloat16)):
+        plan = banded.build_band_plan(a, dtype=dt)
+        bp = banded.pad_b(plan, b)
+        rows, w = plan.panels.shape
+        nbytes = (plan.panels.numel() * plan.panels.element_size()
+                  + bp.numel() * 4 + rows * k * 4)
+        rec[name] = dict(spmm_bounds(nbytes, 2 * rows * w * k), width=w,
+                         k=k)
+        out[name] = (banded.band_spmm_stream_padded, reps_of(
+            lambda p=plan, bb=bp: (p.panels.clone(), bb.clone()), nbytes),
+            (banded.band_spmm_stream, (plan, b)), within(
+                torch, lambda p=plan, bb=bp:
+                banded.band_spmm_reference(p.panels, bb),
+                lambda p=plan, bb=bp:
+                banded.band_spmm_reference(p.panels.abs(), bb.abs())))
+    rec["cusparse_ms"] = cusparse_mm_ms(torch, a, b)
+    opt = sp.matrix_opt(a)
+    bs = dense_b(torch, m, k, 86, 4)
+    rec["multiply_ms"] = multiply_ms(torch, sp, opt, bs)
+    rec["multiply_kind"] = (opt._plans.get("matmul")
+                            or opt._plans["matvec"])[0]
+    del a, opt, bs
+    return out
+
+
+def bsr_mm_bench(torch, sp, gen, rec):
+    """``bsr_spmm_blocks`` on the BSR that the chooser builds for
+    chip_smoke.py's block cell (``BSR_MAIN``, ``block_csr``) at k 256,
+    the main path's ``multiply`` on it and cuSPARSE's SpMM on its CSR."""
+    from spblas_tpu_torch.kernels import bsr_kernels as bk
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    _, bargs, k = cs.BSR_MAIN
+    ba = cs.block_csr(*bargs)
+    opt = sp.matrix_opt(ba)
+    bs = dense_b(torch, ba.shape[1], k, 89, 4)
+    t0 = time.perf_counter()
+    sp.multiply(sp.scaled(2.0, opt), bs[0])
+    torch.cuda.synchronize()
+    rec["first_call_s"] = time.perf_counter() - t0
+    kind, plan = opt._plans.get("matmul") or opt._plans["matvec"]
+    assert kind == "bsr", kind
+    a = plan[0]
+    v, rp, ci = a.values, a.block_rowptr, a.block_colind
+    bh, bw = a.block_shape
+    nnzb, mb = a.nnz_blocks, rp.numel() - 1
+    b = dense_b(torch, a.shape[1], k, 88)[0]
+    nbytes = ((mb + 1) * 4 + nnzb * 4 + nnzb * bh * bw * 4 + b.numel() * 4
+              + mb * bh * k * 4)
+    rec["bsr_f32"] = dict(spmm_bounds(nbytes, 2 * nnzb * bh * bw * k),
+                          block=[bh, bw], nnz_blocks=nnzb, k=k)
+    rec["cusparse_ms"] = cusparse_mm_ms(torch, ba, b)
+    rec["multiply_ms"] = multiply_ms(torch, sp, opt, bs)
+    del ba, opt, bs
+    fn = bk.bsr_spmm_blocks
+    if "column_order" in inspect.signature(fn).parameters:
+        # the column list the main path keeps on its BSR
+        fn = functools.partial(fn, column_order=a.column_order)
+    return {"bsr_f32": (fn, reps_of(
+        lambda: (v.clone(), rp.clone(), ci.clone(), b.clone()), nbytes),
+        (bk.bsr_spmm, (a, b)), within(
+            torch, lambda: bk.bsr_spmm_reference(v, rp, ci, b),
+            lambda: bk.bsr_spmm_reference(v.abs(), rp, ci, b.abs())))}
+
+
 BENCHES = {"v1": v1_bench, "paned": paned_bench, "route2": route2_bench,
            "solve": solve_bench, "band": band_bench,
-           "mul_paned": mul_paned_bench}
+           "mul_paned": mul_paned_bench, "band_mm": band_mm_bench,
+           "bsr_mm": bsr_mm_bench}
 # worker options the benches read (--graph)
 OPTS = {}
 
@@ -765,7 +981,8 @@ def worker(args):
     tree = Path(sp.__file__).resolve().parent.parent
     out_dir = Path(args.trace_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    kernels = args.kernels.split(",")
+    kernels = [t for k in args.kernels.split(",")
+               for t in ALIASES.get(k, (k,))]
     OPTS["graph"] = args.graph
     rec = {"tree": str(tree),
            "card": subprocess.run(
@@ -836,7 +1053,8 @@ def main():
     ap.add_argument("--graph", action="store_true",
                     help="also replay each solve from a CUDA graph")
     ap.add_argument("--kernels", default=",".join(BENCHES),
-                    help="comma-separated subset of " + ",".join(BENCHES))
+                    help="comma-separated subset of "
+                    + ",".join([*BENCHES, *ALIASES]))
     args = ap.parse_args()
     if args.worker:
         return worker(args)

@@ -15,6 +15,7 @@ block_colind (capacity,) int32, where mb = m // bh.  Blocks past
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -22,6 +23,27 @@ import torch
 
 from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.formats.csr import CSR, host_arrays
+
+
+def block_column_order(block_rowptr: torch.Tensor,
+                       block_colind: torch.Tensor, ncb: int):
+    """The stored blocks in block-column order, made on their device with
+    no host sync: ``(col_ptr, col_order)``, int32, where
+    ``col_order[col_ptr[j]:col_ptr[j + 1]]`` are the indices of the
+    stored blocks of block column j in block-row order (a stable sort;
+    capacity padding sorts past the last column and is never listed).
+    ``ncb`` is the number of block columns."""
+    cap = block_colind.shape[0]
+    dev = block_colind.device
+    stored = torch.arange(cap, device=dev) < block_rowptr[-1]
+    key = torch.where(stored, block_colind.long(),
+                      torch.full_like(block_colind, ncb, dtype=torch.int64))
+    order = torch.argsort(key, stable=True).to(torch.int32)
+    counts = torch.zeros(ncb + 1, dtype=torch.int64, device=dev)
+    counts.index_add_(0, key, torch.ones_like(key))
+    col_ptr = torch.zeros(ncb + 1, dtype=torch.int32, device=dev)
+    col_ptr[1:] = torch.cumsum(counts[:ncb], 0)
+    return col_ptr, order
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,6 +134,13 @@ class BSR:
     def nnz(self) -> int:
         bh, bw = self.block_shape
         return self.nnz_blocks * bh * bw
+
+    @functools.cached_property
+    def column_order(self):
+        """:func:`block_column_order` of this structure, made on first use
+        and kept (the f32 SpMM kernel's work list)."""
+        return block_column_order(self.block_rowptr, self.block_colind,
+                                  self.shape[1] // self.block_shape[1])
 
     def block_row_ids(self) -> torch.Tensor:
         """Per-block block-row index, (capacity,); padded blocks map to

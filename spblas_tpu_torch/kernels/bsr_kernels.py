@@ -7,7 +7,11 @@ hand-written kernels ``csrc/bsr_spmv.cu`` and ``csrc/bsr_spmm.cu``
 (which replace the TPU kernels ``bsr_pallas.py::_bsr_spmv_kernel`` and
 ``_bsr_spmm_kernel``); on a CPU tensor they run
 :func:`bsr_spmv_reference` and :func:`bsr_spmm_reference`, the plain
-PyTorch versions of the same sums.
+PyTorch versions of the same sums.  The f32 SpMM kernel walks the
+blocks by block column (``BSR.column_order``), each block's product
+into its own slot of a scratch buffer, then sums each block row's slots
+in order; :func:`bsr_spmm_columns_reference` is that walk in plain
+PyTorch.
 
 The kernels take float32 or float64 blocks; :func:`bsr_spmv` and
 :func:`bsr_spmm` compute in ``result_type(A, x)`` as the JAX functions
@@ -18,12 +22,13 @@ are complex, as ``band_cx_spmv`` does).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from spblas_tpu_torch import _build
 from spblas_tpu_torch import types as _t
-from spblas_tpu_torch.formats.bsr import BSR
+from spblas_tpu_torch.formats.bsr import BSR, block_column_order
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
 # entries of a block's B slice gathered at once by the plain SpMM (keeps
@@ -74,6 +79,38 @@ def bsr_spmm_reference(values, block_rowptr, block_colind,
     return out[:mb].reshape(mb * bh, k)
 
 
+def bsr_spmm_columns_reference(values, block_rowptr, block_colind, b,
+                               column_order=None) -> torch.Tensor:
+    """The f32 kernel's walk in plain PyTorch: for each block column j,
+    the blocks listed in ``column_order`` (default: built from the
+    structure, :func:`block_column_order`) each take their product with
+    B's slice of column j (in float64) into their own slot; then each
+    block row sums its slots in block order.  Returns (mb * bh, k) in
+    the blocks' dtype."""
+    cap, bh, bw = values.shape
+    mb = block_rowptr.shape[0] - 1
+    k = int(b.shape[1])
+    ncb = -(-int(b.shape[0]) // max(bw, 1))
+    col_ptr, col_order = (column_order if column_order is not None
+                          else block_column_order(block_rowptr, block_colind,
+                                                  ncb))
+    bsl = torch.nn.functional.pad(b, (0, 0, 0, ncb * bw - b.shape[0]))
+    bsl = bsl.reshape(ncb, bw, k)
+    slots = torch.zeros(cap, bh, k, dtype=torch.float64, device=values.device)
+    ptr = col_ptr.tolist()
+    for j in range(ncb):
+        blocks = col_order[ptr[j]:ptr[j + 1]].long()
+        if blocks.numel():
+            slots[blocks] = torch.matmul(values[blocks].double(),
+                                         bsl[j].double())
+    rows = _block_rows(block_rowptr, cap)
+    stored = torch.arange(cap, device=values.device) < block_rowptr[-1]
+    out = torch.zeros(mb + 1, bh, k, dtype=torch.float64,
+                      device=values.device)
+    out.index_add_(0, rows[stored], slots[stored])
+    return out[:mb].reshape(mb * bh, k).to(values.dtype)
+
+
 def _check_operands(values, block_rowptr, block_colind, x, ndim) -> None:
     if not (values.device == block_rowptr.device == block_colind.device
             == x.device):
@@ -104,8 +141,12 @@ def _aligned(*ts) -> bool:
 _SPMV_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
     ctypes.c_void_p,)
 # (values, rowptr, colind, b, c, mb, bh, bw, k, vec, stream) of
-# bsr_spmm_{f32,f64}
+# bsr_spmm_f64
 _SPMM_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
+    ctypes.c_void_p,)
+# (values, rowptr, col_ptr, col_order, b, partial, c, mb, ncb, bh, bw, k,
+# vec, stream) of bsr_spmm_f32
+_SPMM_F32_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (
     ctypes.c_void_p,)
 
 
@@ -136,26 +177,42 @@ def bsr_spmv_blocks(values, block_rowptr, block_colind,
 bsr_spmv_blocks.launches = 0
 
 
-def bsr_spmm_blocks(values, block_rowptr, block_colind,
-                    b) -> torch.Tensor:
+def bsr_spmm_blocks(values, block_rowptr, block_colind, b,
+                    column_order=None) -> torch.Tensor:
     """C = A @ B over raw BSR arrays of one real dtype and a row-major B;
-    returns (mb * bh, k).  CUDA tensors launch ``bsr_spmm.cu``; CPU
-    tensors take :func:`bsr_spmm_reference`."""
+    returns (mb * bh, k).  CUDA tensors launch ``bsr_spmm.cu`` (f32: its
+    two passes over the column list ``column_order``, from
+    ``BSR.column_order`` or built here; f64: one launch); CPU tensors
+    take :func:`bsr_spmm_reference`."""
     _check_operands(values, block_rowptr, block_colind, b, 2)
     if not _t.on_cuda(values):
         return bsr_spmm_reference(values, block_rowptr, block_colind, b)
-    _, bh, bw = values.shape
+    cap, bh, bw = values.shape
     mb = int(block_rowptr.shape[0]) - 1
     k = int(b.shape[1])
     c = torch.empty(mb * bh, k, dtype=values.dtype, device=values.device)
-    vec = int(values.dtype == torch.float32 and k % 4 == 0
-              and _aligned(b, c))
     stream = torch.cuda.current_stream(values.device).cuda_stream
-    sym = f"bsr_spmm_{_suffix(values.dtype)}"
-    _build.check(_build.function("bsr_spmm", sym, _SPMM_ARGTYPES)(
-        values.data_ptr(), block_rowptr.data_ptr(), block_colind.data_ptr(),
-        b.data_ptr(), c.data_ptr(), mb, bh, bw, k, vec, stream), "bsr_spmm")
-    bsr_spmm_blocks.launches += 1
+    if values.dtype == torch.float64:
+        _build.check(_build.function("bsr_spmm", "bsr_spmm_f64",
+                                     _SPMM_ARGTYPES)(
+            values.data_ptr(), block_rowptr.data_ptr(),
+            block_colind.data_ptr(), b.data_ptr(), c.data_ptr(), mb, bh, bw,
+            k, 0, stream), "bsr_spmm")
+        bsr_spmm_blocks.launches += 1
+        return c
+    ncb = -(-int(b.shape[0]) // max(bw, 1))
+    col_ptr, col_order = (column_order if column_order is not None
+                          else block_column_order(block_rowptr, block_colind,
+                                                  ncb))
+    partial = torch.empty(cap, bh, k, dtype=torch.float32,
+                          device=values.device)
+    vec = int(k % 4 == 0 and _aligned(b, c, partial))
+    _build.check(_build.function("bsr_spmm", "bsr_spmm_f32",
+                                 _SPMM_F32_ARGTYPES)(
+        values.data_ptr(), block_rowptr.data_ptr(), col_ptr.data_ptr(),
+        col_order.data_ptr(), b.data_ptr(), partial.data_ptr(), c.data_ptr(),
+        mb, int(col_ptr.shape[0]) - 1, bh, bw, k, vec, stream), "bsr_spmm")
+    bsr_spmm_blocks.launches += 2     # the products, then the row sums
     return c
 
 
@@ -204,4 +261,8 @@ def bsr_spmm(a: BSR, b: torch.Tensor) -> torch.Tensor:
     m, n = a.shape
     if b.dim() != 2 or b.shape[0] != n:
         raise ValueError(f"bsr_spmm: A is {a.shape}, B is {tuple(b.shape)}")
-    return _apply(bsr_spmm_blocks, a, b)
+    if not _t.on_cuda(a.values):
+        return _apply(bsr_spmm_blocks, a, b)
+    # the f32 kernel's column list, made once and kept on the BSR
+    return _apply(functools.partial(bsr_spmm_blocks,
+                                    column_order=a.column_order), a, b)

@@ -184,6 +184,47 @@ def test_bsr_capacity_padding_is_not_read():
         to_np(bk.bsr_spmm(b, torch.from_numpy(bmat))))
 
 
+@pytest.mark.parametrize("name,k,capacity,empty_rows", [
+    ("8x128", 40, 64, (0, 3, 7)), ("8x8", 33, None, (1,)),
+    ("128x128", 16, 8, (0,))])
+def test_bsr_column_walk_matches_reference_and_jax(name, k, capacity,
+                                                   empty_rows):
+    """The f32 kernel's schedule (each block's product into its slot, by
+    block column, then each block row's slots summed in order) equals
+    the plain SpMM and JAX's, with empty block rows and capacity padding
+    that holds garbage; the column list names each stored block once, in
+    block-row order within a column."""
+    m, n, bs, nb = SHAPES[name]
+    dense = _block_dense(m, n, *bs, 3 * nb, seed=12, empty_rows=empty_rows)
+    a, b = _pair(dense, bs, capacity=capacity)
+    assert b.capacity > b.nnz_blocks
+    junk = b.values.clone()
+    junk[b.nnz_blocks:] = 1e30
+    b = dataclasses.replace(b, values=junk)
+    col_ptr, col_order = b.column_order
+    assert b.column_order is b.column_order          # made once
+    order = col_order[: b.nnz_blocks].long()
+    assert sorted(order.tolist()) == list(range(b.nnz_blocks))
+    cols = b.block_colind[order]
+    assert bool((cols[1:] >= cols[:-1]).all())
+    for j in range(n // bs[1]):
+        blocks = col_order[col_ptr[j]:col_ptr[j + 1]]
+        assert bool((b.block_colind[blocks.long()] == j).all())
+        assert bool((blocks[1:] > blocks[:-1]).all())
+    bmat = np.random.default_rng(13).standard_normal((n, k)).astype(
+        np.float32)
+    bt = torch.from_numpy(bmat)
+    walk = bk.bsr_spmm_columns_reference(b.values, b.block_rowptr,
+                                         b.block_colind, bt, b.column_order)
+    ref = bk.bsr_spmm_reference(b.values, b.block_rowptr, b.block_colind, bt)
+    csr = sp.CSR.from_dense(dense)
+    assert_entries_close(walk, ref, csr, bmat)
+    assert_entries_close(walk, jax_bsr_spmm(a, jnp.asarray(bmat),
+                                            interpret=True), csr, bmat)
+    for i in empty_rows:
+        assert not walk[i * bs[0]:(i + 1) * bs[0]].any()
+
+
 def test_bsr_f64_and_complex_take_their_dtype():
     """The base path computes in result_type(A, x): float64 blocks stay
     float64; a complex operand runs as real planes."""
