@@ -41,8 +41,18 @@ atomics) must give the same bits twice, and the two tensor-core SpMM
 kernels (``band_spmm_stream`` on the headline band at k = 256, the f32
 ``bsr_spmm`` on the block cell) ten times; both also run on all-positive
 operands (|A| and |B|) there, where the tensor cores' truncated sums
-would drift most.  The band kernel is also held to its plain version on
-panels and x views that are not 16-byte aligned.
+would drift most.  The block SpGEMM kernel (f32 on the tensor cores by
+the 3xTF32 split, f64 on the FP64 tensor cores) must give the same bits
+ten times in both dtypes.  The complex ROUTE2 pass (one launch per
+launch range over both value planes) runs 50 times back to back on the
+100k cell's aux level, and is held to its plain version and to the four
+real applies it replaced, there and on the 300k complex64 plan.  The
+band kernel is also held to its plain version on panels and x views
+that are not 16-byte aligned.  The three 3xTF32 kernels run at the edges
+of the f32 range (+-FLT_MAX, infinities, and 2^-120 against 2^120
+through the entry points' ``tf32_exact`` gate), and the f32 BSR SpMM
+past a lowered slot-scratch budget, whose cut calls must give the uncut
+call's bits.
 
 Tolerance everywhere: |y - y_ref| <= 64 * eps_f32 * scale * (|A|.|x|)
 per row (per entry of C against (|A|.|B|) for SpMM), the dot-product
@@ -80,7 +90,7 @@ from spblas_tpu_torch import _build, native
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.convert import bsr_to_csr
-from spblas_tpu_torch.kernels import banded, dia, route2
+from spblas_tpu_torch.kernels import banded, dia, plans, route2
 from spblas_tpu_torch.kernels import bsr_kernels as bk
 from spblas_tpu_torch.kernels import bsr_spgemm as bsg
 from spblas_tpu_torch.kernels import mul_fill as mf
@@ -101,12 +111,12 @@ spgemm_ops = importlib.import_module("spblas_tpu_torch.ops.spgemm")
 EPS32 = torch.finfo(torch.float32).eps
 DEVICE = "cuda"   # where the script makes its own operands
 # data-sheet memory bandwidth (bytes/s), non-tensor-core f32 and f64
-# peaks and the dense TF32 tensor-core peak (flop/s) by part; the first
-# name fragment found in the card's name wins
-_PARTS = (("H100 PCIe", 2.0e12, 51e12, 26e12, 378e12),
-          ("H100 NVL", 3.9e12, 60e12, 30e12, 417.5e12),
-          ("H100", 3.35e12, 67e12, 34e12, 494.7e12),
-          ("H200", 4.8e12, 67e12, 34e12, 494.7e12))
+# peaks, the dense TF32 tensor-core peak and the FP64 tensor-core peak
+# (flop/s) by part; the first name fragment found in the card's name wins
+_PARTS = (("H100 PCIe", 2.0e12, 51e12, 26e12, 378e12, 51e12),
+          ("H100 NVL", 3.9e12, 60e12, 30e12, 417.5e12, 60e12),
+          ("H100", 3.35e12, 67e12, 34e12, 494.7e12, 67e12),
+          ("H200", 4.8e12, 67e12, 34e12, 494.7e12, 67e12))
 _SLEEP_CYCLES = 50_000_000   # ~25 ms of device sleep ahead of a chain
 _REPLICA_BYTES = 256 << 20   # distinct inputs per chain exceed the 50 MB L2
 
@@ -142,6 +152,12 @@ ROUTE_MAIN = [("uniform_300k_deg10", lambda: gen.generate_csr(
                   1_000_000, 1_000_000, 10_000_000, seed=3))]
 CX_MAIN = ("uniform_100k_deg10_c64", lambda: gen.generate_csr(
     100_000, 100_000, 1_000_000, seed=5, complex_=True))
+# kernel only: the 300k matrix in complex64, whose plan passes the slab
+# kernel's SLAB_MIN_CHUNKS, and the 1M one, whose plan is rotated
+CX_ONLY = ("uniform_300k_deg10_c64", lambda: gen.generate_csr(
+    300_000, 300_000, 3_000_000, seed=3, complex_=True))
+CX_ROTATED = ("uniform_1m_deg10_c64", lambda: gen.generate_csr(
+    1_000_000, 1_000_000, 10_000_000, seed=3, complex_=True))
 # the bench's R-MAT graph (bench.py:768, seed 5; hub fraction 0.78) takes
 # route1_sorted; the same rows put in the chooser's degree order first
 # make its sort the identity and take route1
@@ -212,15 +228,23 @@ MUL_PANED_HUB = (600_000, 262_144, ((0, 20_000), (70_000, 30_000),
                  102, dict(panel_slots=65_536, pane_rows=512))
 # block SpGEMM: A = B = 32,768^2 of 128x128 f32 blocks, 8 seeded block
 # columns in each of the 256 block rows (16,384 pairs, 68.7 GFLOP);
-# kernel only, an (8, 128).(128, 128) product with empty block rows:
+# kernel only, f32 and f64 with empty block rows: the chooser's (8, 128)
+# A blocks against (128, 128) ones, C blocks of 16 rows, and blocks whose
+# depth and width are odd (one element a copy, no 16-byte vectors):
 # (name, block rows, block columns, blocks a row, block shape, every how
 #  many block rows is empty (0: none), seed) for A, then B's
 BSR_SPGEMM_MAIN = ("bsr_spgemm_32768_128x128",
                    (256, 256, 8, (128, 128), 0, 111),
                    (256, 256, 8, (128, 128), 0, 112))
-BSR_SPGEMM_ONLY = ("bsr_spgemm_8x128_128x128_empty_rows",
-                   (512, 64, 4, (8, 128), 3, 113),
-                   (64, 64, 4, (128, 128), 0, 114))
+BSR_SPGEMM_ONLY = [("bsr_spgemm_8x128_128x128_empty_rows",
+                    (512, 64, 4, (8, 128), 3, 113),
+                    (64, 64, 4, (128, 128), 0, 114)),
+                   ("bsr_spgemm_16x128_128x128_empty_rows",
+                    (256, 64, 4, (16, 128), 3, 115),
+                    (64, 64, 4, (128, 128), 0, 116)),
+                   ("bsr_spgemm_12x125_125x131_empty_rows",
+                    (256, 64, 4, (12, 125), 3, 117),
+                    (64, 64, 4, (125, 131), 0, 118))]
 
 # SpGEMM on the ROUTE v1 engine (SPBLAS_ROUTE_SPGEMM=1): bench.py's 2k
 # A.A product again; kernel only, a heavily duplicated stream whose out
@@ -265,6 +289,9 @@ PANED_SOURCE = "spblas_tpu_torch/csrc/route_paned_spmv.cu"
 BAND_REPLACES = "spblas_tpu/kernels/banded.py:104"
 DIA_REPLACES = "spblas_tpu/kernels/dia.py:146"
 ROUTE_REPLACES = "spblas_tpu/kernels/route2_kernel.py:119"
+# the complex pass replaces the same TPU kernel, which JAX's route_cx_spmv
+# (spblas_tpu/kernels/plans.py:124-135) dispatches four times
+CX_REPLACES = ROUTE_REPLACES
 V1_REPLACES = "spblas_tpu/kernels/route_spmv.py:82"
 PANED_REPLACES = "spblas_tpu/kernels/route_paned.py:404"
 BAND_SPMM_SOURCE = "spblas_tpu_torch/csrc/band_spmm.cu"
@@ -290,6 +317,7 @@ SOLVE_REPLACES = "spblas_tpu/kernels/route2_kernel.py:119"
 WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "dia_spmv": dia.dia_spmv_padded,
             "route2_spmv": r2k.route2_spmv_padded,
+            "route2_cx_spmv": r2k.route2_cx_spmv_padded,
             "route_spmv": rsp.route_spmv_padded,
             "route_paned_spmv": rpn.route_paned_spmv_padded,
             "band_spmm": banded.band_spmm_padded,
@@ -305,7 +333,8 @@ WRAPPERS = {"band_spmv": banded.band_spmv_padded,
 # kind -> the kernels its main-path SpMV call must launch
 KIND_KERNELS = {"band": ("band_spmv",), "bsr": ("bsr_spmv",),
                 "band_perm": ("band_spmv",),
-                "route": ("route2_spmv",), "route_cx": ("route2_spmv",),
+                "route": ("route2_spmv",),
+                "route_cx": ("route2_cx_spmv",),
                 "route1": ("route_spmv",),
                 "route1_sorted": ("route_spmv", "route2_spmv"),
                 "route_paned": ("route_paned_spmv",)}
@@ -350,7 +379,8 @@ def card_line() -> str:
 
 
 def part_rates(name: str):
-    """(memory rate, f32 peak, f64 peak, TF32 peak) of the card."""
+    """(memory rate, f32 peak, f64 peak, TF32 peak, FP64 tensor-core
+    peak) of the card."""
     for frag, *rates in _PARTS:
         if frag in name:
             return tuple(rates)
@@ -372,6 +402,14 @@ def tc_bound(nbytes, flops, rates):
     products: csrc/tf32_mma.cuh).  It reads the same work whatever
     implements it."""
     t_bytes, t_ops = nbytes / rates[0] * 1e3, 3 * flops / rates[3] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dmma_bound(nbytes, flops, rates):
+    """(bound_ms, bound_by) of an f64 matrix product on the FP64 tensor
+    cores: the larger of bytes over the memory rate and the operations
+    over the FP64 tensor-core peak."""
+    t_bytes, t_ops = nbytes / rates[0] * 1e3, flops / rates[4] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -845,51 +883,103 @@ def unpermute_csr(a):
                            (m, m), nnz=m, device=a.device)
 
 
-def route_cx_case(name, a, p, seed, rates, card):
-    """The four ``route2_spmv`` applies of a ``route_cx`` call (two value
-    planes of one ROUTE2 structure times the two planes of x), each
-    against its plain version, timed as one chain."""
-    kind, pr, pi = p
+def route_cx_case(name, a, p, seed, rates, card, race=False):
+    """``route2_cx_spmv`` (one complex pass over a ``route_cx`` plan: the
+    main range, then each aux level) against its plain version and
+    against the four real ``route2_spmv`` applies it replaced, each timed
+    as a chain; ``race``: 50 runs back to back held to the plain
+    version."""
+    kind, pr, pi, vi = p
     require(kind == "route", f"{name}: route_cx over {kind!r}")
     x = gen.generate_vector(a.shape[1], seed=seed, complex_=True)
+    x2 = r2k.pack_x2(pr, x)
+    before = r2k.route2_cx_spmv_padded.launches
+    y_k = r2k.route2_cx_spmv_padded(pr, vi, x2)
+    torch.cuda.synchronize()
+    per_call = r2k.route2_cx_spmv_padded.launches - before
+    require(per_call == len(pr.launch_ranges()),
+            f"route2_cx_spmv {name}: {per_call} launches")
+    y_p = r2k.route2_cx_spmv_reference(pr, vi, x2)
+    # |A| . |x| per row: the plan with |a_ij| (carriers keep 1, padding 0)
+    absd = r2k.route2_spmv_reference(dataclasses.replace(
+        pr, val=torch.sqrt(pr.val ** 2 + vi ** 2)), x2.abs())
+    absd = absd.view(-1)[: pr.shape[0]]
+    err = row_check(y_k.view(-1)[: pr.shape[0]],
+                    y_p.view(-1)[: pr.shape[0]], absd)
+    # the four real applies: (ar xr - ai xi) + i (ar xi + ai xr)
     xs = [r2k.pack_x2(pr, x.real.float()), r2k.pack_x2(pr, x.imag.float())]
-    err = 0.0
-    for plane in (pr, pi):
-        for x2 in xs:
-            y_k = r2k.route2_spmv_padded(plane, x2)
-            torch.cuda.synchronize()
-            err = max(err, row_check(
-                y_k, r2k.route2_spmv_reference(plane, x2),
-                r2k.route2_spmv_reference(dataclasses.replace(
-                    plane, val=plane.val.abs()), x2.abs())))
-    log(f"[check] route2_spmv {name} (4 applies): in bound, max |err| "
-        f"{err:.3e}")
-    nch = pr.nchunks
-    one = (nch * (8 * 1024 + 12 + 4 * pr.rotated) + pr.x_rows * 512
-           + 2 * r2k.out_rows(pr) * 512)
-    b_ms, b_by = bound(4 * one, 4 * 2 * nch * 1024, rates)
-
-    def copy():
-        return ([dataclasses.replace(q, val=q.val.clone()) for q in (pr, pi)],
-                [x2.clone() for x2 in xs])
 
     def four(planes, x2s, fn=r2k.route2_spmv_padded):
-        for q in planes:
-            for x2 in x2s:
-                fn(q, x2)
+        (qr, qi), (xr, xi) = planes, x2s
+        return torch.complex(fn(qr, xr) - fn(qi, xi),
+                             fn(qr, xi) + fn(qi, xr))
 
-    ins = replicas(copy, 4 * one)
-    k_ms = device_ms(four, ins)
-    p_ms = device_ms(lambda q, x2: four(q, x2, r2k.route2_spmv_reference),
-                     ins)
-    l_ms = library_ms(a, x)
+    y_4 = four((pr, pi), xs)
+    torch.cuda.synchronize()
+    err4 = row_check(y_k.view(-1)[: pr.shape[0]],
+                     y_4.view(-1)[: pr.shape[0]], absd, scale=2.0)
+    # a real x: the same pass, which reads no imaginary part of x
+    x2r = r2k.pack_x2(pr, x.real.float())
+    before = r2k.route2_cx_spmv_padded.launches
+    y_r = r2k.route2_cx_spmv_padded(pr, vi, x2r)
+    torch.cuda.synchronize()
+    require(r2k.route2_cx_spmv_padded.launches - before == per_call,
+            f"route2_cx_spmv {name}, real x: "
+            f"{r2k.route2_cx_spmv_padded.launches - before} launches")
+    rows_of = [t.view(-1)[: pr.shape[0]] for t in (
+        y_r, r2k.route2_cx_spmv_reference(pr, vi, x2r),
+        r2k.route2_spmv_reference(dataclasses.replace(
+            pr, val=torch.sqrt(pr.val ** 2 + vi ** 2)), x2r.abs()))]
+    err_r = row_check(*rows_of)
+    log(f"[check] route2_cx_spmv {name} ({per_call} launches): in bound of "
+        f"the plain version (max |err| {err:.3e}; a real x {err_r:.3e}) "
+        f"and of the four applies (max |err| {err4:.3e})")
+    del y_k, y_4, y_r, x2r, rows_of
+    if race:
+        race_check(f"route2_cx_spmv {name}",
+                   lambda: r2k.route2_cx_spmv_padded(pr, vi, x2)
+                   .view(-1)[: pr.shape[0]], y_p.view(-1)[: pr.shape[0]],
+                   absd)
+    nch = pr.nchunks
+    rows = r2k.out_rows(pr)
+    # one pass: the tile, both value planes and the per-chunk scalars
+    # once, the complex x pane once, the complex output pane twice (zeroed,
+    # then accumulated); a complex multiply-add (8 flops) a slot
+    nbytes = (nch * (12 * 1024 + 12 + 4 * pr.rotated) + pr.x_rows * 1024
+              + 2 * rows * 1024)
+    b_ms, b_by = bound(nbytes, 8 * nch * 1024, rates)
+    one = (nch * (8 * 1024 + 12 + 4 * pr.rotated) + pr.x_rows * 512
+           + 2 * rows * 512)
+    b4_ms, _ = bound(4 * one, 4 * 2 * nch * 1024, rates)
+
+    def copy():
+        q = dataclasses.replace(pr, val=pr.val.clone())
+        return q, vi.clone(), x2.clone()
+
+    def copy4():
+        return ([dataclasses.replace(q, val=q.val.clone()) for q in (pr, pi)],
+                [xx.clone() for xx in xs])
+
+    ins = replicas(copy, nbytes)
+    k_ms = device_ms(r2k.route2_cx_spmv_padded, ins)
+    p_ms = device_ms(r2k.route2_cx_spmv_reference, ins[:2], reps=4)
     del ins
+    ins = replicas(copy4, 4 * one)
+    f_ms = device_ms(four, ins)
+    del ins
+    l_ms = library_ms(a, x)
     torch.cuda.empty_cache()
-    return {"kernel": "route2_spmv", "case": name, "m": a.shape[0],
-            "n": a.shape[1], "nnz": a.nnz, "applies": 4, "nchunks": nch,
-            "fill": pr.fill, "max_abs_err": err, "kernel_ms": k_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "plain_ms": p_ms,
-            "library_ms": l_ms, "nnz_s": a.nnz / (k_ms * 1e-3),
+    return {"kernel": "route2_cx_spmv", "case": name, "m": a.shape[0],
+            "n": a.shape[1], "nnz": a.nnz, "nchunks": nch,
+            "slab_sized": nch >= route2.SLAB_MIN_CHUNKS, "fill": pr.fill,
+            "g": pr.g, "rotated": pr.rotated,
+            "n_aux_chunks": pr.n_aux_chunks, "launches_per_call": per_call,
+            "max_abs_err": err, "max_abs_err_real_x": err_r,
+            "max_abs_err_vs_four": err4,
+            "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "plain_ms": p_ms, "library_ms": l_ms, "four_apply_ms": f_ms,
+            "four_apply_launches": 4 * per_call,
+            "four_apply_bound_ms": b4_ms, "nnz_s": a.nnz / (k_ms * 1e-3),
             "card": card}
 
 
@@ -1025,6 +1115,7 @@ def bsr_cases(name, a, csr, k, seed, rates, card, spmv=True, full=False):
             f"err / limit {pos_ratio:.4f}")
         same_bits(f"bsr_spmm {name} k={k}", spmm, (v, rp, ci, b))
         extra["all_positive_err_over_limit"] = pos_ratio
+        extra["scratch_budget_cuts"] = budget_check(name, a, b)
     del absd
     nbytes = meta + b.numel() * 4 + mb * bh * k * 4
     flops = 2 * nnzb * bh * bw * k
@@ -1046,6 +1137,266 @@ def bsr_cases(name, a, csr, k, seed, rates, card, spmv=True, full=False):
                  "flop_s": flops / (k_ms * 1e-3), "card": card, **extra})
     torch.cuda.empty_cache()
     return recs
+
+
+def budget_check(name, a, b):
+    """The f32 ``bsr_spmm`` past a slot-scratch budget lowered for the run:
+    column phases of 64 columns, then ranges of block rows as well, each
+    bit-equal to the unsplit call, two launches a cut.  Returns the cut
+    counts."""
+    v, rp, ci = a.values, a.block_rowptr, a.block_colind
+    cap, bh, _ = v.shape
+    k = int(b.shape[1])
+    ncb = -(-int(b.shape[0]) // a.block_shape[1])
+    spmm = functools.partial(bk.bsr_spmm_blocks,
+                             column_order=a.column_order)
+    whole = spmm(v, rp, ci, b)
+    per_phase = cap * bh * 4 * 64          # every slot at 64 columns
+    saved = bk.SPMM_SCRATCH_BYTES
+    counts = {}
+    try:
+        for label, budget in (("column_phases", per_phase),
+                              ("block_row_ranges", per_phase // 3)):
+            bk.SPMM_SCRATCH_BYTES = budget
+            cuts = bk.spmm_phases(rp, ci, *a.column_order, cap, bh, k, ncb)
+            require(len(cuts) > 1, f"bsr_spmm {name}: {label} made one cut")
+            before = bk.bsr_spmm_blocks.launches
+            got = spmm(v, rp, ci, b)
+            torch.cuda.synchronize()
+            require(bk.bsr_spmm_blocks.launches - before == 2 * len(cuts),
+                    f"bsr_spmm {name} {label}: launches")
+            require(torch.equal(got, whole),
+                    f"bsr_spmm {name} {label}: differs from the unsplit call")
+            log(f"[same-bits] bsr_spmm {name} past a {budget}-byte budget: "
+                f"{len(cuts)} cuts ({label}), bit-equal to the unsplit call")
+            counts[label] = len(cuts)
+            del got
+    finally:
+        bk.SPMM_SCRATCH_BYTES = saved
+    return counts
+
+
+def edge_check(kname, mode, fn, ref, args, abs_args):
+    """One 3xTF32 kernel at an edge of the f32 range against its plain
+    version: with an operand at +-FLT_MAX or scaled to 2^-120 against
+    2^120 the result is finite and within 64 eps (|A| |B|); with infinite
+    operands its infinities (and their signs) and NaNs are the plain
+    version's.  Returns err / limit (None for the infinities)."""
+    y = fn(*args)
+    torch.cuda.synchronize()
+    yp = ref(*args)
+    if mode == "inf":
+        inf = torch.isinf(yp)
+        require(bool(inf.any()) and bool(torch.isnan(yp).any())
+                and torch.equal(torch.isnan(y), torch.isnan(yp))
+                and torch.equal(torch.isinf(y), inf)
+                and torch.equal(torch.sign(y[inf]), torch.sign(yp[inf])),
+                f"{kname} {mode}: infinities or NaNs differ from the plain "
+                f"version")
+        log(f"[edge] {kname} {mode}: {int(inf.sum())} infinities and "
+            f"{int(torch.isnan(yp).sum())} NaNs, as the plain version")
+        return None
+    require(bool(torch.isfinite(y).all()), f"{kname} {mode}: not finite")
+    _, ratio = limit_check(y, yp, ref(*abs_args))
+    log(f"[edge] {kname} {mode}: finite, err / limit {ratio:.4f}")
+    return ratio
+
+
+def low_end_check(kname, gated, gate_args, tc, tc_args, ref, ref_args):
+    """A scaled by 2^-120 against B scaled by 2^120 (all positive): the
+    3xTF32 split's lo parts fall on TF32's subnormal grid (2^-136), so the
+    operand's gate (``tf32_exact`` False) sends the entry point to an
+    exact kernel, held to 64 eps (|A| |B|); the tensor-core kernel on the
+    same operands is measured beside it, unchecked.  Returns (gated err /
+    limit, tensor-core err / limit)."""
+    yp = ref(*ref_args)
+    y = gated(*gate_args)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(y).all()), f"{kname} 2^-120: not finite")
+    _, ratio = limit_check(y, yp, yp)
+    y_tc = tc(*tc_args)[: yp.shape[0]]
+    torch.cuda.synchronize()
+    err = (_wide(y_tc) - _wide(yp)).abs()
+    lim = 64 * EPS32 * yp.double()
+    tc_ratio = float((err[lim > 0] / lim[lim > 0]).max())
+    log(f"[edge] {kname} 2^-120x2^120: gated to an exact kernel, err / "
+        f"limit {ratio:.4f} (the tensor-core kernel: {tc_ratio:.4f})")
+    return ratio, tc_ratio
+
+
+def b_side_limits(kname, entry, ref, a_hi, a_big, b, wrapper, per):
+    """The dense B at the edges of the f32 range, through the entry
+    point, which does not test B (``csrc/tf32_mma.cuh``, Limits) and runs
+    the tensor-core kernel (``wrapper`` adds ``per`` a call): A scaled by
+    2^120 (all positive) against B scaled by 2^-120 must stay finite, its
+    err / limit is measured; A scaled by 2^16 against pairs of B rows of
+    +inf and -inf must give the plain version's infinities and NaNs but
+    where a NaN stands for one of its infinities, which are counted.
+    Returns (err / limit, those NaNs)."""
+    before = wrapper.launches
+    b_lo = b * 2.0 ** -120
+    yp = ref(a_hi, b_lo)
+    y = entry(a_hi, b_lo)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(y).all()), f"{kname} B 2^-120: not finite")
+    lim = 64 * EPS32 * yp.double()
+    ratio = float(((_wide(y) - _wide(yp)).abs()[lim > 0]
+                   / lim[lim > 0]).max())
+    b_inf = b.clone()
+    b_inf[500::1000] = float("inf")
+    b_inf[501::1000] = -float("inf")
+    yp = ref(a_big, b_inf)
+    y = entry(a_big, b_inf)
+    torch.cuda.synchronize()
+    require(wrapper.launches == before + 2 * per,
+            f"{kname} B edges: not run on the tensor-core kernel")
+    inf = torch.isinf(yp)
+    corner = torch.isnan(y) & inf
+    require(bool(inf.any()) and bool(torch.isnan(yp).any())
+            and torch.equal(torch.isnan(y) & ~corner, torch.isnan(yp))
+            and torch.equal(torch.isinf(y), inf & ~corner)
+            and torch.equal(torch.sign(y[inf & ~corner]),
+                            torch.sign(yp[inf & ~corner])),
+            f"{kname} B inf: infinities or NaNs differ from the plain "
+            f"version other than NaN for an infinity")
+    nans = int(corner.sum())
+    log(f"[edge] {kname} B 2^-120 against A 2^120 (B not tested): err / "
+        f"limit {ratio:.4f}; B infinities against A 2^16: NaN at {nans} "
+        f"of the plain version's {int(inf.sum())} infinities, the rest "
+        f"as the plain version")
+    return ratio, nans
+
+
+def edges_phase():
+    """The three 3xTF32 kernels (``band_spmm_stream``, the f32
+    ``bsr_spmm``, the f32 ``bsr_spgemm``) at the edges of the f32 range:
+    A with +-FLT_MAX entries (one a row of C, against factors below 1/2)
+    and infinite A entries against B rows with zeros, on the kernels; A
+    scaled by 2^-120 against B scaled by 2^120 through the entry points,
+    whose ``tf32_exact`` gate routes it to an exact kernel.  Returns
+    {kernel: {mode: err / limit}}."""
+    fmax = torch.finfo(torch.float32).max
+    out = {}
+    # the band: panel column W // 2 (inside the band) of every row
+    a = gen.generate_banded_csr(16_384, 16_384, 50, seed=141)
+    plan = banded.build_band_plan(a)
+    w = plan.panels.shape[1]
+    pan = plan.panels.abs()
+    b = dense_operands(plan.shape[1], 64, 142)[0] / 200     # [0, 0.5)
+    big = pan.clone()
+    big[0::2, w // 2] = fmax
+    big[1::2, w // 2] = -fmax
+    inf = pan.clone()
+    inf[0::3, w // 2] = float("inf")
+    inf[1::3, w // 2] = -float("inf")
+    bz = b.clone()
+    bz[::5] = 0.0
+    bp, bzp = banded.pad_b(plan, b), banded.pad_b(plan, bz)
+    fn, ref = banded.band_spmm_stream_padded, banded.band_spmm_reference
+    out["band_spmm_stream"] = {
+        "flt_max": edge_check("band_spmm_stream", "flt_max", fn, ref,
+                              (big, bp), (big.abs(), bp)),
+        "inf": edge_check("band_spmm_stream", "inf", fn, ref, (inf, bzp),
+                          None)}
+    lo_plan = dataclasses.replace(plan, panels=pan * 2.0 ** -120)
+    require(not lo_plan.tf32_exact, "band 2^-120: the gate did not fire")
+    b_hi = b * 2.0 ** 120
+    bp_hi = banded.pad_b(lo_plan, b_hi)
+    m = plan.shape[0]
+    before = banded.band_spmm_padded.launches
+    out["band_spmm_stream"]["2^-120x2^120"], \
+        out["band_spmm_stream"]["2^-120x2^120_tc"] = low_end_check(
+            "band_spmm_stream", banded.band_spmm_stream, (lo_plan, b_hi),
+            fn, (lo_plan.panels, bp_hi),
+            lambda p, bb: ref(p, bb)[:m],
+            (lo_plan.panels, bp_hi))
+    require(banded.band_spmm_padded.launches == before + 1,
+            "band 2^-120: not routed to the FMA kernel")
+    hi_plan = dataclasses.replace(plan, panels=pan * 2.0 ** 120)
+    big_plan = dataclasses.replace(plan, panels=plan.panels * 2.0 ** 16)
+    require(hi_plan.tf32_exact and big_plan.tf32_exact,
+            "band B edges: the panels' gate fired")
+    out["band_spmm_stream"].update(zip(
+        ("B_2^-120", "B_inf_nans"), b_side_limits(
+            "band_spmm_stream", banded.band_spmm_stream,
+            lambda p, bb: ref(p.panels, banded.pad_b(p, bb))[:m],
+            hi_plan, big_plan, b, banded.band_spmm_stream_padded, 1)))
+    del a, plan, lo_plan, hi_plan, big_plan, pan, big, inf, bp, bzp, bp_hi
+    # BSR SpMM: column 64 of the first block of each block row
+    a = random_bsr(512, 64, 4, (8, 128), 0, 143)
+    v, rp, ci = a.values.abs(), a.block_rowptr, a.block_colind
+    first = rp[:-1].long()
+    b = dense_operands(a.shape[1], 64, 144)[0] / 200
+    big = v.clone()
+    big[first[0::2], :, 64] = fmax
+    big[first[1::2], :, 64] = -fmax
+    inf = v.clone()
+    inf[first[0::3], :, 64] = float("inf")
+    inf[first[1::3], :, 64] = -float("inf")
+    bz = b.clone()
+    bz[64::7] = 0.0
+    fn = functools.partial(bk.bsr_spmm_blocks, column_order=a.column_order)
+    ref = bk.bsr_spmm_reference
+    out["bsr_spmm"] = {
+        "flt_max": edge_check("bsr_spmm", "flt_max", fn, ref,
+                              (big, rp, ci, b), (big.abs(), rp, ci, b)),
+        "inf": edge_check("bsr_spmm", "inf", fn, ref, (inf, rp, ci, bz),
+                          None)}
+    a_lo = dataclasses.replace(a, values=v * 2.0 ** -120)
+    require(not a_lo.tf32_exact, "bsr 2^-120: the gate did not fire")
+    b_hi = b * 2.0 ** 120
+    before = bk.bsr_spmm_blocks.launches
+    out["bsr_spmm"]["2^-120x2^120"], out["bsr_spmm"]["2^-120x2^120_tc"] = \
+        low_end_check("bsr_spmm", bk.bsr_spmm, (a_lo, b_hi), fn,
+                      (a_lo.values, rp, ci, b_hi), ref,
+                      (a_lo.values, rp, ci, b_hi))
+    require(bk.bsr_spmm_blocks.launches == before + 3,
+            "bsr 2^-120: not routed to the FMA kernel (1 launch)")
+    a_hi = dataclasses.replace(a, values=v * 2.0 ** 120)
+    a_big = dataclasses.replace(a, values=a.values * 2.0 ** 16)
+    require(a_hi.tf32_exact and a_big.tf32_exact,
+            "bsr B edges: the blocks' gate fired")
+    out["bsr_spmm"].update(zip(
+        ("B_2^-120", "B_inf_nans"), b_side_limits(
+            "bsr_spmm", bk.bsr_spmm,
+            lambda o, bb: ref(o.values, rp, ci, bb), a_hi, a_big, b,
+            bk.bsr_spmm_blocks, 2)))
+    del a, a_hi, a_big, v, big, inf, b, bz
+    # block SpGEMM: column 64 of A's first block in each block row meets
+    # each B block of that block column once
+    a = random_bsr(16, 16, 4, (128, 128), 0, 145)
+    bb = random_bsr(16, 16, 4, (128, 128), 0, 146)
+    plan = bsg.bsr_spgemm_compute(a, bb)
+    args = (plan.pair_ptr, plan.pair_a, plan.pair_b)
+    av = a.values.abs()
+    bv = bb.values.abs() / (2 * float(bb.values.abs().max()))
+    first = a.block_rowptr[:-1].long()
+    big = av.clone()
+    big[first[0::2], :, 64] = fmax
+    big[first[1::2], :, 64] = -fmax
+    inf = av.clone()
+    inf[first[0::3], :, 64] = float("inf")
+    inf[first[1::3], :, 64] = -float("inf")
+    bz = bv.clone()
+    bz[:, 64, ::3] = 0.0
+    fn, ref = bsg.bsr_spgemm_blocks, bsg.bsr_spgemm_reference
+    out["bsr_spgemm"] = {
+        "flt_max": edge_check("bsr_spgemm", "flt_max", fn, ref,
+                              args + (big, bv), args + (big.abs(), bv)),
+        "inf": edge_check("bsr_spgemm", "inf", fn, ref, args + (inf, bz),
+                          None)}
+    a_lo = dataclasses.replace(a, values=a.values.abs() * 2.0 ** -120)
+    b_hi = dataclasses.replace(bb, values=bv * 2.0 ** 120)
+    require(not a_lo.tf32_exact, "bsr_spgemm 2^-120: the gate did not fire")
+    nc = plan.nnzb_c
+    out["bsr_spgemm"]["2^-120x2^120"], \
+        out["bsr_spgemm"]["2^-120x2^120_tc"] = low_end_check(
+            "bsr_spgemm", lambda *p: bsg.bsr_spgemm_numeric(*p).values[:nc],
+            (plan, a_lo, b_hi), fn, args + (a_lo.values, b_hi.values), ref,
+            args + (a_lo.values, b_hi.values))
+    torch.cuda.empty_cache()
+    emit({"edges": out})
+    return out
 
 
 def block_csr(mb, nbc, per_row, fill, seed):
@@ -1506,6 +1857,8 @@ def bsr_spgemm_case(name, a, b, rates, card, dtype=torch.float32):
     log(f"[check] bsr_spgemm {name} {tname}: in bound, max |err| "
         f"{err:.3e}")
     del c_k, c_p
+    same_bits(f"bsr_spgemm {name} {tname}", bsg.bsr_spgemm_blocks,
+              args + (av, bv))
     bh, bk_ = a.block_shape
     bw = b.block_shape[1]
     esz = av.element_size()
@@ -1515,27 +1868,31 @@ def bsr_spgemm_case(name, a, b, rates, card, dtype=torch.float32):
                + plan.nnzb_c * bh * bw) * esz + npairs * 8
               + (plan.nnzb_c + 1) * 4)
     flops = 2 * npairs * bh * bk_ * bw
-    # the f32 peak bounds the f32 case, the f64 peak the f64 one; the f32
-    # case also on the tensor cores
+    # the f32 peak bounds the f32 case, the f64 peak the f64 one; each
+    # also on the tensor cores (three TF32 products; the FP64 ones)
     b_ms, b_by = bound(nbytes, flops, rates, f64=dtype == torch.float64)
     tc_ms, tc_by = (tc_bound(nbytes, flops, rates)
-                    if dtype == torch.float32 else (None, None))
+                    if dtype == torch.float32
+                    else dmma_bound(nbytes, flops, rates))
     ins = replicas(lambda: args + (av.clone(), bv.clone()), nbytes)
     k_ms = device_ms(bsg.bsr_spgemm_blocks, ins, reps=10)
     p_ms = device_ms(bsg.bsr_spgemm_reference, ins[:1], reps=2)
     del ins
     torch.cuda.empty_cache()
-    l_ms = None
-    if dtype == torch.float32:
-        # cuSPARSE SpGEMM on the two CSR forms, its symbolic pass included
-        # (a yardstick only: where it needs more than the card holds, the
-        # record says so)
-        try:
-            l_ms = library_spgemm_ms(bsr_to_csr(a), bsr_to_csr(b))
-        except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
-            log(f"[library] bsr_spgemm {name}: cuSPARSE SpGEMM failed "
-                f"({str(e).splitlines()[0][:160]})")
-        torch.cuda.empty_cache()
+    # cuSPARSE SpGEMM on the two CSR forms in the case's dtype, its
+    # symbolic pass included (a yardstick only: where it needs more than
+    # the card holds, the record says so)
+    l_ms, l_err = None, None
+    try:
+        ca, cb = (dataclasses.replace(c, values=c.values.to(dtype))
+                  for c in (bsr_to_csr(a), bsr_to_csr(b)))
+        l_ms = library_spgemm_ms(ca, cb)
+    except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
+        l_err = str(e).splitlines()[0][:160]
+        log(f"[library] bsr_spgemm {name} {tname}: cuSPARSE SpGEMM failed "
+            f"({l_err})")
+    ca = cb = None
+    torch.cuda.empty_cache()
     # the f32 case carries the main path's name (and its launch count)
     return {"kernel": "bsr_spgemm",
             "case": name if dtype == torch.float32 else f"{name}_{tname}",
@@ -1547,7 +1904,7 @@ def bsr_spgemm_case(name, a, b, rates, card, dtype=torch.float32):
                                      == a.block_rowptr[:-1]).sum()),
             "max_abs_err": err, "kernel_ms": k_ms, "bound_ms": b_ms,
             "bound_by": b_by, "tc_bound_ms": tc_ms, "tc_bound_by": tc_by,
-            "plain_ms": p_ms, "library_ms": l_ms,
+            "plain_ms": p_ms, "library_ms": l_ms, "library_error": l_err,
             "flop_s": flops / (k_ms * 1e-3), "card": card}
 
 
@@ -1643,12 +2000,13 @@ def spgemm_phase(rates, card):
     recs.append(bsr_spgemm_case(name, a, b, rates, card))
     recs.append(bsr_spgemm_case(name, a, b, rates, card, torch.float64))
     del a, b
-    name, sa_args, sb_args = BSR_SPGEMM_ONLY
-    a, b = random_bsr(*sa_args), random_bsr(*sb_args)
-    recs.append(bsr_spgemm_case(name, a, b, rates, card))
-    require(recs[-1]["empty_block_rows"] > 0,
-            "bsr_spgemm kernel case has no empty block row")
-    del a, b
+    for name, sa_args, sb_args in BSR_SPGEMM_ONLY:
+        a, b = random_bsr(*sa_args), random_bsr(*sb_args)
+        for dt in (torch.float32, torch.float64):
+            recs.append(bsr_spgemm_case(name, a, b, rates, card, dt))
+            require(recs[-1]["empty_block_rows"] > 0,
+                    f"bsr_spgemm {name}: no empty block row")
+        del a, b
     torch.cuda.empty_cache()
     return main, recs, deferred
 
@@ -2215,6 +2573,7 @@ def run():
         spmm_band_recs += band_spmm_case(
             f"{cname}_k{k}", banded.build_band_plan(a, dtype=dt), k,
             96 + i, rates, card, csr=a)
+    edges_phase()
     bsr_recs = []
     for bname, mb, nbc, per_row, block, every, k, seed in BSR_ONLY:
         a = random_bsr(mb, nbc, per_row, block, every, seed)
@@ -2231,9 +2590,23 @@ def run():
     cx_a = CX_MAIN[1]()
     rec, plan = main_path(CX_MAIN[0], cx_a, "route_cx", 52, card)
     main.append(rec)
-    route_recs.append(route_cx_case(CX_MAIN[0], cx_a, plan, 57, rates,
-                                    card))
-    del cx_a, plan
+    cx_recs = [route_cx_case(CX_MAIN[0], cx_a, plan, 57, rates, card,
+                             race=True)]
+    require(cx_recs[0]["n_aux_chunks"] > 0,
+            f"{CX_MAIN[0]}: the complex plan has no aux level to race")
+    cx_a = CX_ONLY[1]()
+    got = plans._try_route_cx(cx_a)
+    cx_recs.append(route_cx_case(CX_ONLY[0], cx_a, got[1], 58, rates,
+                                 card))
+    require(cx_recs[1]["slab_sized"],
+            f"{CX_ONLY[0]}: the plan is below SLAB_MIN_CHUNKS")
+    cx_a = CX_ROTATED[1]()
+    got = plans._try_route_cx(cx_a)
+    cx_recs.append(route_cx_case(CX_ROTATED[0], cx_a, got[1], 59, rates,
+                                 card))
+    require(cx_recs[2]["rotated"],
+            f"{CX_ROTATED[0]}: the complex plan is not rotated")
+    del cx_a, plan, got
     rec, plan = main_path(RMAT_MAIN[0], rmat, "route1_sorted", 54, card)
     main.append(rec)
     # the main path's own v1 plan: the degree-sorted base, and its
@@ -2330,7 +2703,7 @@ def run():
     # main-path call on that matrix (0: a kernel-only shape)
     by_name = {r["main_path"]: r["launches"] for r in main}
     for r in (band_recs + list(dia_recs.values()) + route_recs + [unperm]
-              + v1_recs + paned_recs + spmm_band_recs + bsr_recs
+              + cx_recs + v1_recs + paned_recs + spmm_band_recs + bsr_recs
               + spgemm_recs + v1_recs_mul + power_recs + solve_recs):
         r["launches"] = by_name.get(r["case"], {}).get(r["kernel"], 0)
         emit(r)
@@ -2362,6 +2735,8 @@ def run():
              list(dia_recs.values())),
         line("route2_spmv", ROUTE_SOURCE, ROUTE_REPLACES, route_recs[0],
              route_recs + [unperm]),
+        line("route2_cx_spmv", ROUTE_SOURCE, CX_REPLACES, cx_recs[0],
+             cx_recs),
         line("route_spmv", V1_SOURCE, V1_REPLACES,
              of(v1_recs, "route_spmv", RMAT_MAIN[0])[0], v1_recs),
         line("route_paned_spmv", PANED_SOURCE, PANED_REPLACES,

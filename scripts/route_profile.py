@@ -12,9 +12,13 @@ the paned fill ``route2_mul_paned`` on the 100k A.A product (bench.py:254)
 and chip_smoke.py's paned hub fixture, ``band_spmv`` (f32 and bf16
 panels) and ``band_power`` (10 iterations) on the 409,600-row headline
 band (bench.py:125, seed 0), ``band_spmm_stream`` on that band at k 256
-(f32 and bf16 panels; bench.py:574) and ``bsr_spmm`` on chip_smoke.py's
+(f32 and bf16 panels; bench.py:574), ``bsr_spmm`` on chip_smoke.py's
 block cell (``BSR_MAIN``: 131,072^2, 65,536 blocks of 8x128, k 256),
-each as the CUDA chooser or ``chip_smoke.py`` builds it.
+``route_cx`` over ROUTE2 plans on uniform 100k and 300k complex64 degree
+10 (chip_smoke.py's ``CX_MAIN`` and ``CX_ONLY``: the complex pass beside
+the four real applies it replaced) and ``bsr_spgemm`` on chip_smoke.py's
+32,768^2 block product (f32, f64) and its (8,128).(128,128) case, each
+as the CUDA chooser or ``chip_smoke.py`` builds it.
 
     python3 scripts/route_profile.py [--tree DIR ...] [--kernels K,...]
                                      [--out FILE] [--no-variants]
@@ -25,7 +29,10 @@ one); the trees run one worker process each, in the order given, so
 ``--tree _checkout/parent --tree . --tree . --tree _checkout/parent``
 compares two versions in turns on one card.  ``--kernels`` picks from
 ``v1``, ``paned``, ``route2``, ``solve``, ``band``, ``mul_paned``,
-``band_mm`` and ``bsr_mm`` (``spmm`` names the last two; default: all).
+``band_mm``, ``bsr_mm``, ``cx`` and ``block_spgemm`` (``spmm`` names
+``band_mm`` and ``bsr_mm``, ``route_cx`` ``cx``, ``bsr_spgemm``
+``block_spgemm``; default: all); ``--only-variants`` names the variants
+to run (default: every one that applies).
 A worker reports, per kernel:
 
 - what ``nvcc -Xptxas -v`` says of each of its ``__global__`` functions
@@ -221,6 +228,60 @@ VARIANTS = {"no_publish": [_PUBLISH], "const_gather": [_GATHER],
             + _lever("bsr_mm", "bsr_spmm.cu", "kWarpsM", "4"),
             "lever_band_mm_warps_n_4": _lever("band_mm", "band_spmm.cu",
                                               "kWarpsN", "4"),
+            # the complex ROUTE2 kernel's blocks an SM; the block
+            # SpGEMM's copy ring (f64 and the 16-row tile)
+            "lever_cx_min_blocks_4": _lever("cx", "route2_spmv.cu",
+                                            "kMinBlocksCx", "4"),
+            "lever_cx_min_blocks_12": _lever("cx", "route2_spmv.cu",
+                                             "kMinBlocksCx", "12"),
+            "lever_spgemm_ring_4": _lever("block_spgemm", "bsr_spgemm.cu",
+                                          "kRing", "4"),
+            "lever_spgemm_small_ring_5": _lever(
+                "block_spgemm", "bsr_spgemm.cu", "kRingSmall", "5"),
+            "lever_spgemm_small_ring_5_blocks_3": _lever(
+                "block_spgemm", "bsr_spgemm.cu", "kRingSmall", "5")
+            + _lever("block_spgemm", "bsr_spgemm.cu", "kSmallMinBlocks",
+                     "3"),
+            "lever_cx_min_blocks_10": _lever("cx", "route2_spmv.cu",
+                                             "kMinBlocksCx", "10"),
+            # the block SpGEMM's 16-row tiles (bh <= 16; f64 also bh <= 8)
+            # left out: such C blocks run the 128-row tiles
+            "lever_spgemm_no_small": [[(("block_spgemm",), "bsr_spgemm.cu",
+                                        r": bh <= 16 \?", ": bh <= 0 ?"),
+                                       (("block_spgemm",), "bsr_spgemm.cu",
+                                        r"launch<double, Big64, Small64, "
+                                        r"Small64>",
+                                        "launch<double, Big64, Big64, "
+                                        "Big64>")]],
+            # the block SpGEMM's two mma steps a stage not unrolled in
+            # the f32 tile configs too (the f64 ones are not unrolled)
+            "lever_spgemm_step_unroll_1": [[(("block_spgemm",),
+                                             "bsr_spgemm.cu",
+                                             r"#pragma unroll\n(\s+for "
+                                             r"\(int s = 0; s < kDepth / 8)",
+                                             "#pragma unroll 1\n\\1")]],
+            "lever_spgemm_big_blocks_1": _lever(
+                "block_spgemm", "bsr_spgemm.cu", "kBigMinBlocks", "1"),
+            # the split's clamp in integer operations: hi's bits capped by
+            # the largest finite TF32 value of x's sign (one LOP3, one
+            # IMNMX) in place of two f32 min/max
+            "lever_split_int": [[(("band_mm", "bsr_mm", "block_spgemm"),
+                                  "tf32_mma.cuh",
+                                  r"const float h = fminf\(fmaxf\("
+                                  r"__uint_as_float\(rna\(x\)\), -m\), "
+                                  r"m\);",
+                                  "const float h = __uint_as_float(min("
+                                  "rna(x), (__float_as_uint(x) & "
+                                  "0x80000000u) | kMaxTf32));")]],
+            # the mma statements without `volatile`: the compiler may then
+            # interleave independent tiles' three-product chains
+            "lever_mma_free": [[(("band_mm", "bsr_mm", "block_spgemm"),
+                                 "tf32_mma.cuh",
+                                 r"asm volatile\(\n(\s+)\"mma\.sync",
+                                 "asm(\n\\1\"mma.sync"),
+                                (("block_spgemm",), "bsr_spgemm.cu",
+                                 r"asm volatile\(\n(\s+)\"mma\.sync",
+                                 "asm(\n\\1\"mma.sync")]],
             # the split's rounding by cvt.rna.tf32.f32 in place of the two
             # integer operations
             "lever_cvt_rna": [[(("band_mm", "bsr_mm"), "tf32_mma.cuh",
@@ -230,7 +291,9 @@ VARIANTS = {"no_publish": [_PUBLISH], "const_gather": [_GATHER],
                                 "\" : \"=r\"(r) : \"f\"(x));\n  return r;")]]}
 _SINK = ("\n#ifndef ROUTE_SINK\n#define ROUTE_SINK\n"
          "__device__ __forceinline__ void route_sink(float* p, float v) "
-         "{ if (v == 1.2345e-30f) *p = v; }\n#endif\n")
+         "{ if (v == 1.2345e-30f) *p = v; }\n"
+         "__device__ __forceinline__ void route_sink(float2* p, float2 v) "
+         "{ if (v.x == 1.2345e-30f) *p = v; }\n#endif\n")
 _SLEEP_CYCLES = 50_000_000
 _REPLICA_BYTES = 256 << 20
 
@@ -265,9 +328,11 @@ SOURCES = {"v1": ("route_spmv",), "paned": ("route_paned_spmv",),
            "route2": ("route2_spmv",), "solve": ("route2_spmv",),
            "band": ("band_spmv", "band_power"),
            "mul_paned": ("route_mul_paned", "mul_fill"),
-           "band_mm": ("band_spmm",), "bsr_mm": ("bsr_spmm",)}
+           "band_mm": ("band_spmm",), "bsr_mm": ("bsr_spmm",),
+           "cx": ("route2_spmv",), "block_spgemm": ("bsr_spgemm",)}
 # --kernels aliases
-ALIASES = {"spmm": ("band_mm", "bsr_mm")}
+ALIASES = {"spmm": ("band_mm", "bsr_mm"), "route_cx": ("cx",),
+           "bsr_spgemm": ("block_spgemm",)}
 # source -> (kernel expression, threads, dynamic shared bytes) of each
 # __global__ that a design of it may hold; those a tree lacks fail to
 # build and are left out
@@ -279,7 +344,8 @@ OCCUPANCY = {
                     ("route2_apply_kernel<false>", 128, 0),
                     ("route2_apply_kernel", 128, 0),
                     ("route2_solve_kernel", 128, 0),
-                    ("route2_slab_kernel", "kSlabThreads", "kSlabSmem")],
+                    ("route2_slab_kernel", "kSlabThreads", "kSlabSmem"),
+                    ("route2_cx_kernel<float2>", 128, 0)],
     "route_mul_paned": [("route_mul_paned_kernel", 128, 0)],
     "mul_fill": [("mul_fill_kernel", 256, 0)],
     "band_spmv": [("band::row_kernel<float>", 256, 0),
@@ -299,7 +365,20 @@ OCCUPANCY = {
                  ("tc::bsr_spmm_tc<true>", "tc::kThreads", 0),
                  ("tc::bsr_spmm_columns<true>", "tc::kThreads",
                   "tc::kSmemBytes"),
-                 ("tc::bsr_row_sums<true>", "tc::kSumThreads", 0)]}
+                 ("tc::bsr_row_sums<true>", "tc::kSumThreads", 0)],
+    # the old FMA design (32 x 8 threads at bh >= 64), then the
+    # tensor-core one
+    "bsr_spgemm": [("bsr_spgemm_kernel<float, true>", 256, 0),
+                   ("bsr_spgemm_kernel<double, true>", 256, 0),
+                   ("bsr_spgemm_tc<float, Big32, true>", "Big32::kThreads",
+                    "Layout<float, Big32>::kSmemBytes"),
+                   ("bsr_spgemm_tc<double, Big64, true>", "Big64::kThreads",
+                    "Layout<double, Big64>::kSmemBytes"),
+                   ("bsr_spgemm_tc<float, Small32, true>",
+                    "Small32::kThreads",
+                    "Layout<float, Small32>::kSmemBytes"),
+                   ("bsr_spgemm_tc<float, Tiny32, true>", "Tiny32::kThreads",
+                    "Layout<float, Tiny32>::kSmemBytes")]}
 
 
 def sources(_build, tag):
@@ -841,8 +920,8 @@ def band_bench(torch, sp, gen, rec):
 
 
 # data-sheet peaks of the H100 SXM: memory, f32 outside the tensor
-# cores, dense TF32 on them
-_HBM, _F32, _TF32 = 3.35e12, 67e12, 494.7e12
+# cores, dense TF32 on them, f64 on them
+_HBM, _F32, _TF32, _F64TC = 3.35e12, 67e12, 494.7e12, 67e12
 
 
 def spmm_bounds(nbytes, flops):
@@ -873,16 +952,22 @@ def cusparse_mm_ms(torch, a, b):
         make, a.nnz * 8 + b.numel() * 4))
 
 
-def multiply_ms(torch, sp, opt, bs, reps=20):
+def multiply_ms(torch, sp, opt, bs, reps=20, mm=False):
     """The whole ``multiply(scaled(2.0, opt), B)``, host included, over
-    the distinct ``bs`` (chip_smoke.py's ``main_path_spmm`` timing)."""
-    sp.multiply(sp.scaled(2.0, opt), bs[0])
+    the distinct ``bs`` (chip_smoke.py's ``main_path_spmm`` timing);
+    ``mm``: each of ``bs`` is an operand pair for ``multiply``."""
+    def call(i):
+        if mm:
+            return sp.multiply(*bs[i % len(bs)])
+        return sp.multiply(sp.scaled(2.0, opt), bs[i % len(bs)])
+
+    call(0)
     torch.cuda.synchronize()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
     e0.record()
     for i in range(reps):
-        sp.multiply(sp.scaled(2.0, opt), bs[i % len(bs)])
+        call(i)
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
@@ -964,10 +1049,155 @@ def bsr_mm_bench(torch, sp, gen, rec):
             lambda: bk.bsr_spmm_reference(v.abs(), rp, ci, b.abs())))}
 
 
+def within_cx(torch, ref, absref, factor=64):
+    """``within`` for a complex pane: |y - ref| per slot within
+    factor * eps * absref."""
+    cache = {}
+
+    def check(y):
+        if not cache:
+            cache["ref"] = ref().to(torch.complex128)
+            cache["abs"] = absref().double()
+        lim = factor * torch.finfo(torch.float32).eps * cache["abs"]
+        return bool(((y.to(torch.complex128) - cache["ref"]).abs()
+                     <= lim).all())
+
+    return check
+
+
+# route_cx cells: chip_smoke.py's CX_MAIN (100k) and CX_ONLY (300k, past
+# SLAB_MIN_CHUNKS), complex64, degree 10: (name, rows, seed)
+_CX = (("uniform_100k_c64", 100_000, 5), ("uniform_300k_c64", 300_000, 3))
+
+
+def cx_bench(torch, sp, gen, rec):
+    """``route_cx`` over a ROUTE2 plan, as chip_smoke.py's
+    ``route_cx_case`` times it: the complex kernel's launches (trees that
+    have it, ``*_cx``) and the four real applies it replaced (every tree,
+    ``*_four``), each held to its plain version; beside them cuSPARSE's
+    complex ``torch.mv`` and, on the 100k cell, the whole
+    ``multiply(scaled(2.0, matrix_opt(A)), x)``."""
+    from spblas_tpu_torch.kernels import plans
+    from spblas_tpu_torch.kernels import route2_kernel as r2k
+    out = {}
+
+    def cell(name, m, seed):   # a scope a cell: the checks run later
+        a = gen.generate_csr(m, m, 10 * m, seed=seed, complex_=True)
+        p = plans._try_route_cx(a)[1]
+        kind, pr, pi = p[:3]
+        assert kind == "route", kind
+        vi = torch.where(pr.val_src >= 0, pi.val, torch.zeros_like(pi.val))
+        x = gen.generate_vector(m, seed=57, complex_=True)
+        xs = [r2k.pack_x2(pr, x.real.float()),
+              r2k.pack_x2(pr, x.imag.float())]
+        absref = functools.partial(
+            r2k.route2_spmv_reference, dataclasses.replace(
+                pr, val=torch.sqrt(pr.val ** 2 + vi ** 2)),
+            r2k.pack_x2(pr, x.abs()))
+
+        def four(qr, qi, xr, xi, fn=r2k.route2_spmv_padded):
+            return torch.complex(fn(qr, xr) - fn(qi, xi),
+                                 fn(qr, xi) + fn(qi, xr))
+
+        nch, rows = pr.nchunks, r2k.out_rows(pr)
+        one = (nch * (8 * 1024 + 12 + 4 * pr.rotated) + pr.x_rows * 512
+               + 2 * rows * 512)
+        cx_bytes = (nch * (12 * 1024 + 12 + 4 * pr.rotated)
+                    + pr.x_rows * 1024 + 2 * rows * 1024)
+        rec[name] = {"nchunks": nch, "launch_ranges":
+                     len(pr.launch_ranges()), "rotated": pr.rotated,
+                     "four_bytes": 4 * one, "cx_bytes": cx_bytes,
+                     "four_bound_ms": 4 * one / _HBM * 1e3,
+                     "cx_bound_ms": cx_bytes / _HBM * 1e3,
+                     "cusparse_ms": csr_ms(torch, a, x)}
+        out[f"{name}_four"] = (four, reps_of(lambda: (
+            dataclasses.replace(pr, val=pr.val.clone()),
+            dataclasses.replace(pi, val=pi.val.clone()),
+            xs[0].clone(), xs[1].clone()), 4 * one),
+            (plans.route_cx_spmv, (p, x)), within_cx(
+                torch, lambda: four(pr, pi, *xs,
+                                    fn=r2k.route2_spmv_reference),
+                absref, factor=128))
+        if hasattr(r2k, "route2_cx_spmv_padded"):
+            x2 = r2k.pack_x2(pr, x)
+            out[f"{name}_cx"] = (r2k.route2_cx_spmv_padded, reps_of(
+                lambda: (dataclasses.replace(pr, val=pr.val.clone()),
+                         p[3].clone(), x2.clone()), cx_bytes),
+                (plans.route_cx_spmv, (p, x)), within_cx(
+                    torch, lambda: r2k.route2_cx_spmv_reference(
+                        pr, p[3], x2), absref))
+        if m == _CX[0][1]:
+            opt = sp.matrix_opt(a)
+            xv = [gen.generate_vector(m, seed=53 + i, complex_=True)
+                  for i in range(4)]
+            rec[name]["multiply_ms"] = multiply_ms(torch, sp, opt, xv)
+
+    for c in _CX:
+        cell(*c)
+    return out
+
+
+def spgemm_bench(torch, sp, gen, rec):
+    """``bsr_spgemm_blocks`` on chip_smoke.py's block products
+    (``BSR_SPGEMM_MAIN``: 32,768^2 of 128x128 blocks; the kernel-only
+    ``BSR_SPGEMM_ONLY``: (8, 128).(128, 128), 16-row C blocks, odd
+    depths and widths; each in f32 and f64), as
+    ``bsr_spgemm_case`` times them, each held to its plain version;
+    bounds on the tensor cores (three TF32 products; the FP64 ones) and
+    the whole f32 ``multiply(scaled(2.0, A), B)``."""
+    from spblas_tpu_torch.kernels import bsr_spgemm as bsg
+    sys.path.insert(0, os.getcwd())
+    import chip_smoke as cs
+    out = {}
+
+    def case(tag, a, b, plan, dt):   # a scope a case: the checks run later
+        args = (plan.pair_ptr, plan.pair_a, plan.pair_b)
+        bh, bk = a.block_shape
+        bw = b.block_shape[1]
+        av = a.values.to(dt).contiguous()
+        bv = b.values.to(dt).contiguous()
+        esz = av.element_size()
+        nbytes = ((a.nnz_blocks * bh * bk + b.nnz_blocks * bk * bw
+                   + plan.nnzb_c * bh * bw) * esz + plan.npairs * 8
+                  + (plan.nnzb_c + 1) * 4)
+        flops = 2 * plan.npairs * bh * bk * bw
+        t_bytes = nbytes / _HBM * 1e3
+        name = f"{tag}_{str(dt).split('.')[-1]}"
+        rec[name] = {"pairs": plan.npairs, "nnzb_c": plan.nnzb_c,
+                     "blocks": [bh, bk, bw], "bytes": nbytes,
+                     "flops": flops,
+                     "tc_bound_ms": max(t_bytes, (
+                         3 * flops / _TF32 if dt == torch.float32
+                         else flops / _F64TC) * 1e3)}
+        out[name] = (bsg.bsr_spgemm_blocks, reps_of(
+            lambda: args + (av.clone(), bv.clone()), nbytes),
+            (bsg.bsr_spgemm_blocks, args + (av, bv)), within(
+                torch, lambda: bsg.bsr_spgemm_reference(*args, av, bv),
+                lambda: bsg.bsr_spgemm_reference(*args, av.abs(),
+                                                 bv.abs())), 10)
+
+    for tag, (_, sa, sb) in (
+            ("main", cs.BSR_SPGEMM_MAIN),
+            *((f"only{i}" if i else "only", c)
+              for i, c in enumerate(cs.BSR_SPGEMM_ONLY))):
+        a, b = cs.random_bsr(*sa), cs.random_bsr(*sb)
+        plan = bsg.bsr_spgemm_compute(a, b)
+        for dt in (torch.float32, torch.float64):
+            case(tag, a, b, plan, dt)
+        if tag == "main":
+            ops = [sp.scaled(2.0, dataclasses.replace(a, values=a.values
+                                                      * s))
+                   for s in (1.0, -0.5, 0.25, 2.0)]
+            rec["multiply_ms"] = multiply_ms(
+                torch, sp, None, [(o, b) for o in ops], mm=True)
+    return out
+
+
 BENCHES = {"v1": v1_bench, "paned": paned_bench, "route2": route2_bench,
            "solve": solve_bench, "band": band_bench,
            "mul_paned": mul_paned_bench, "band_mm": band_mm_bench,
-           "bsr_mm": bsr_mm_bench}
+           "bsr_mm": bsr_mm_bench, "cx": cx_bench,
+           "block_spgemm": spgemm_bench}
 # worker options the benches read (--graph)
 OPTS = {}
 
@@ -999,7 +1229,8 @@ def worker(args):
     for k in kernels:
         rec[k] = {}
         benches[k] = BENCHES[k](torch, sp, gen, rec[k])
-    variants = ["base"] + (list(VARIANTS) if args.variants else [])
+    chosen = [v for v in args.only_variants.split(",") if v] or VARIANTS
+    variants = ["base"] + (list(chosen) if args.variants else [])
     csrc0, build0 = _build.CSRC, _build.BUILD
     for v in variants:
         tags = set(kernels)
@@ -1052,6 +1283,8 @@ def main():
     ap.add_argument("--trace-dir", default="profile_out/traces")
     ap.add_argument("--graph", action="store_true",
                     help="also replay each solve from a CUDA graph")
+    ap.add_argument("--only-variants", default="",
+                    help="comma-separated variants to run (default: all)")
     ap.add_argument("--kernels", default=",".join(BENCHES),
                     help="comma-separated subset of "
                     + ",".join([*BENCHES, *ALIASES]))
@@ -1070,7 +1303,8 @@ def main():
     for tree in trees:
         cmd = [sys.executable, str(Path(__file__).resolve()), "--worker",
                "--trace-dir", str(Path(args.trace_dir).resolve()),
-               "--kernels", args.kernels]
+               "--kernels", args.kernels,
+               "--only-variants", args.only_variants]
         if args.graph:
             cmd.append("--graph")
         if tree not in seen and not args.no_variants:

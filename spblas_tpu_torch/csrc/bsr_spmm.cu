@@ -39,8 +39,16 @@
 // C element one owner that sums its block row's slots in block order: an
 // empty block row writes zeros.  Bytes a call at the block cell: the
 // blocks once from device memory (and three times from the L2), B once,
-// the 0.54 GB of slots written and read, C once: about 1.2 GB.
-// f64 (bsr_spmm_kernel, f64 FMAs, spmm_tile.cuh): a CTA is (one block
+// the 0.54 GB of slots written and read, C once: about 1.2 GB.  The
+// wrapper bounds the slots (kernels/bsr_kernels.py, SPMM_SCRATCH_BYTES,
+// 1 GiB): past it a call walks k in column phases of a multiple of the
+// 64-column k-tile, each phase its own columns of B and C (ldb, ldc), and
+// where one 64-column phase alone passes it, ranges of block rows too.
+// A slot's product and a row's order of sums do not change with the
+// cut, so a cut call gives the same bits.
+// f64, and f32 blocks with values below 2^-112 (bsr_spmm_f32_fma; see
+// tf32_mma.cuh, Limits) (bsr_spmm_kernel, FMAs, spmm_tile.cuh): a CTA is
+// (one block
 // row, a chunk of 8*RG of its rows, a k-tile of 256 columns), with 64 x
 // RG threads (RG = 1 at bh = 8, up to 4 at bh >= 32); each thread owns an
 // 8-row by 4-column register tile; each block's columns are staged 32 at
@@ -172,8 +180,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
 template <bool VEC>
 __device__ __forceinline__ void stage_b(const float* __restrict__ bsl,
                                         int q0, int depth, int k,
-                                        long long col0, uint32_t* sHi,
-                                        uint32_t* sLo) {
+                                        long long ldb, long long col0,
+                                        uint32_t* sHi, uint32_t* sLo) {
   const int rows = (depth + 7) & ~7;
   if constexpr (VEC) {
     constexpr int kPieces = kTileCols / 4;
@@ -181,8 +189,7 @@ __device__ __forceinline__ void stage_b(const float* __restrict__ bsl,
       const int c = idx / kPieces, jj = (idx % kPieces) * 4;
       const bool in = c < depth && col0 + jj < k;
       cp_async16(sHi + c * kStrideB + jj,
-                 in ? bsl + static_cast<long long>(q0 + c) * k + col0 + jj
-                    : bsl, in);
+                 in ? bsl + (q0 + c) * ldb + col0 + jj : bsl, in);
     }
     asm volatile("cp.async.commit_group;\n" ::);
     asm volatile("cp.async.wait_group 0;\n" ::);
@@ -197,9 +204,7 @@ __device__ __forceinline__ void stage_b(const float* __restrict__ bsl,
     for (int idx = threadIdx.x; idx < rows * kTileCols; idx += kThreads) {
       const int c = idx / kTileCols, jj = idx % kTileCols;
       const bool in = c < depth && col0 + jj < k;
-      const float x =
-          in ? __ldg(bsl + static_cast<long long>(q0 + c) * k + col0 + jj)
-             : 0.f;
+      const float x = in ? __ldg(bsl + (q0 + c) * ldb + col0 + jj) : 0.f;
       tf32::split(x, sHi[c * kStrideB + jj], sLo[c * kStrideB + jj]);
     }
   }
@@ -239,7 +244,7 @@ bsr_spmm_columns(const float* __restrict__ values,
                  const int* __restrict__ col_ptr,
                  const int* __restrict__ col_order,
                  const float* __restrict__ b, float* __restrict__ partial,
-                 int bh, int bw, int k, int ktiles) {
+                 int bh, int bw, int k, long long ldb, int ktiles) {
   extern __shared__ __align__(16) uint32_t sHi[];
   uint32_t* const sLo = sHi + kDepth * kStrideB;
   const int j = static_cast<int>(blockIdx.x / ktiles);
@@ -252,11 +257,11 @@ bsr_spmm_columns(const float* __restrict__ values,
   const int g = lane >> 2, t = lane & 3;
   const long long stacked = static_cast<long long>(nj) * bh;
   const long long ccol = col0 + wn * kWarpCols + 2 * t;   // + 8jn
-  const float* bsl = b + static_cast<long long>(j) * bw * k;
+  const float* bsl = b + static_cast<long long>(j) * bw * ldb;
   for (int q0 = 0; q0 < bw; q0 += kDepth) {   // once for bw <= kDepth
     const int depth = min(kDepth, bw - q0);
     if (q0 > 0) __syncthreads();   // every warp is done with the slice
-    stage_b<VEC>(bsl, q0, depth, k, col0, sHi, sLo);
+    stage_b<VEC>(bsl, q0, depth, k, ldb, col0, sHi, sLo);
     const int sb = 2 * t * kStrideB + wn * kWarpCols + g;   // + c0 rows
     for (long long m0 = wm * kWarpRows; m0 < stacked;
          m0 += kWarpsM * kWarpRows) {
@@ -352,7 +357,7 @@ template <bool VEC>
 __global__ void __launch_bounds__(kSumThreads)
 bsr_row_sums(const float* __restrict__ partial,
              const int* __restrict__ rowptr, float* __restrict__ c, int bh,
-             int k, long long rows) {
+             int k, long long ldc, long long rows) {
   const int kq = (k + 3) / 4;
   const long long q = static_cast<long long>(blockIdx.x) * kSumThreads
                       + threadIdx.x;
@@ -374,7 +379,7 @@ bsr_row_sums(const float* __restrict__ partial,
       }
     }
   }
-  float* out = c + row * k + col;
+  float* out = c + row * ldc + col;
   if constexpr (VEC) {
     *reinterpret_cast<float4*>(out) = make_float4(s[0], s[1], s[2], s[3]);
   } else {
@@ -389,7 +394,7 @@ template <bool VEC>
 cudaError_t launch_vec(const float* v, const int* rp, const int* cp,
                        const int* co, const float* bb, float* part,
                        float* out, int mb, int ncb, int bh, int bw, int k,
-                       cudaStream_t st) {
+                       long long ldb, long long ldc, cudaStream_t st) {
   const int ktiles = (k + kTileCols - 1) / kTileCols;
   const long long grid = static_cast<long long>(ncb) * ktiles;
   const long long rows = static_cast<long long>(mb) * bh;
@@ -399,7 +404,8 @@ cudaError_t launch_vec(const float* v, const int* rp, const int* cp,
     return cudaErrorInvalidValue;
   }
   if (bw == 0) {   // every product is empty
-    return cudaMemsetAsync(out, 0, rows * k * sizeof(float), st);
+    return cudaMemset2DAsync(out, ldc * sizeof(float), 0, k * sizeof(float),
+                             rows, st);
   }
   if (grid > 0) {
     static bool raised = false;   // the shared-memory limit, once
@@ -412,11 +418,11 @@ cudaError_t launch_vec(const float* v, const int* rp, const int* cp,
     }
     bsr_spmm_columns<VEC><<<static_cast<unsigned>(grid), kThreads,
                             kSmemBytes, st>>>(v, cp, co, bb, part, bh, bw, k,
-                                              ktiles);
+                                              ldb, ktiles);
   }
   if (sums > 0) {
     bsr_row_sums<VEC><<<static_cast<unsigned>(sums), kSumThreads, 0, st>>>(
-        part, rp, out, bh, k, rows);
+        part, rp, out, bh, k, ldc, rows);
   }
   return cudaGetLastError();
 }
@@ -430,14 +436,16 @@ cudaError_t launch_vec(const float* v, const int* rp, const int* cp,
 // k).  One dtype for values, b and c.  f32 takes, in place of colind, the
 // column list (col_ptr: (ncb + 1,) int32 offsets into col_order, the
 // stored blocks' indices sorted by block column, stably) and partial:
-// (capacity, bh, k) f32 scratch, each stored block's slot written by
-// pass 1 and read by pass 2.  vec != 0 when k is a multiple of
-// 4 and b, c and partial are 16-byte aligned (f64 ignores it).
+// (stored blocks, bh, k) f32 scratch, each stored block's slot written by
+// pass 1 and read by pass 2; its k columns are a column phase of B and C,
+// whose rows are ldb and ldc floats apart (kernels/bsr_kernels.py walks
+// the phases).  vec != 0 when k, ldb and ldc are multiples of 4 and b, c
+// and partial are 16-byte aligned (f64 ignores it).
 extern "C" int bsr_spmm_f32(const void* values, const void* rowptr,
                             const void* col_ptr, const void* col_order,
                             const void* b, void* partial, void* c, int mb,
-                            int ncb, int bh, int bw, int k, int vec,
-                            void* stream) {
+                            int ncb, int bh, int bw, int k, long long ldb,
+                            long long ldc, int vec, void* stream) {
   const float* v = static_cast<const float*>(values);
   const int* rp = static_cast<const int*>(rowptr);
   const int* cp = static_cast<const int*>(col_ptr);
@@ -448,9 +456,20 @@ extern "C" int bsr_spmm_f32(const void* values, const void* rowptr,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       vec ? tc::launch_vec<true>(v, rp, cp, co, bb, part, out, mb, ncb, bh,
-                                 bw, k, st)
+                                 bw, k, ldb, ldc, st)
           : tc::launch_vec<false>(v, rp, cp, co, bb, part, out, mb, ncb, bh,
-                                  bw, k, st));
+                                  bw, k, ldb, ldc, st));
+}
+
+// f32 on the FMA kernel (as f64): the route for blocks with nonzero
+// values below 2^-112, where the 3xTF32 split keeps fewer bits than f32
+// (kernels/bsr_kernels.py, BSR.tf32_exact; tf32_mma.cuh, Limits)
+extern "C" int bsr_spmm_f32_fma(const void* values, const void* rowptr,
+                                const void* colind, const void* b, void* c,
+                                int mb, int bh, int bw, int k, int vec,
+                                void* stream) {
+  return launch_fma<float>(values, rowptr, colind, b, c, mb, bh, bw, k,
+                           stream);
 }
 
 extern "C" int bsr_spmm_f64(const void* values, const void* rowptr,

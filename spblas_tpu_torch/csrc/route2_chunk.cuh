@@ -51,12 +51,59 @@ constexpr int kSubs = 8;
 constexpr int kLanes = 128;
 
 // the slab rows a chunk's threads gather (t1), each thread's column for
-// the sublane selects and the any_lane pull (col), the hub sums
-struct Shared {
-  float t1[kSubs][kLanes];
-  float col[kSubs][kLanes];
-  float red[kLanes / 32];
+// the sublane selects and the any_lane pull (col), the hub sums; V is
+// float, or float2 (re, im) for the complex body
+template <class V>
+struct SharedT {
+  V t1[kSubs][kLanes];
+  V col[kSubs][kLanes];
+  V red[kLanes / 32];
 };
+using Shared = SharedT<float>;
+using SharedCx = SharedT<float2>;
+
+// the body's arithmetic on a value: f32, or complex64 as float2
+__device__ __forceinline__ float vmul(float a, float b) { return a * b; }
+__device__ __forceinline__ float2 vmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+__device__ __forceinline__ float vadd(float a, float b) { return a + b; }
+__device__ __forceinline__ float2 vadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float vfma(float a, float b, float c) {
+  return c + a * b;
+}
+__device__ __forceinline__ float2 vfma(float2 a, float2 b, float2 c) {
+  return vadd(c, vmul(a, b));
+}
+__device__ __forceinline__ float vshfl_down(float v, int off) {
+  return __shfl_down_sync(0xffffffffu, v, off);
+}
+__device__ __forceinline__ float2 vshfl_down(float2 v, int off) {
+  return make_float2(__shfl_down_sync(0xffffffffu, v.x, off),
+                     __shfl_down_sync(0xffffffffu, v.y, off));
+}
+template <class V>
+__device__ __forceinline__ V vzero();
+template <>
+__device__ __forceinline__ float vzero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ float2 vzero<float2>() {
+  return make_float2(0.f, 0.f);
+}
+// a gathered source value as the body's type: a real x in a complex
+// product is (x, 0)
+template <class V>
+__device__ __forceinline__ V widen(float x);
+template <>
+__device__ __forceinline__ float widen<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float2 widen<float2>(float x) {
+  return make_float2(x, 0.f);
+}
+template <class V>
+__device__ __forceinline__ V widen(float2 x) { return x; }
 
 // v[idx] for idx in 0..7 without dynamic register indexing
 __device__ __forceinline__ float pick8(const float (&v)[kSubs], int idx) {
@@ -76,10 +123,13 @@ __device__ __forceinline__ int bits(unsigned t, int shift, unsigned mask) {
 // `l2` the rows are read through L2 (ld.cg): other blocks write src
 // during the launch (the persistent solve), and L1 is not coherent.  The
 // caller synchronises the block before reading dst across lanes.
-__device__ __forceinline__ void slab_route(float (&dst)[kSubs][kLanes],
+// The complex body gathers float2 rows, or float rows of a real x
+// (widened to (x, 0)).
+template <class V, class X>
+__device__ __forceinline__ void slab_route(V (&dst)[kSubs][kLanes],
                                            const unsigned (&t)[kSubs],
                                            int shift, long long sb,
-                                           const float* src,
+                                           const X* src,
                                            long long src_rows, int g,
                                            bool l2 = false) {
   const int j = threadIdx.x;
@@ -87,9 +137,9 @@ __device__ __forceinline__ void slab_route(float (&dst)[kSubs][kLanes],
 #pragma unroll
   for (int a = 0; a < kSubs; ++a) {
     const long long row = sb + min(bits(t[a], shift, 255), r2_max);
-    dst[a][j] = row >= src_rows ? 0.f
-                : l2            ? __ldcg(src + row * kLanes + j)
-                                : src[row * kLanes + j];
+    dst[a][j] = row >= src_rows ? vzero<V>()
+                : l2            ? widen<V>(__ldcg(src + row * kLanes + j))
+                                : widen<V>(src[row * kLanes + j]);
   }
 }
 
@@ -109,11 +159,26 @@ __device__ __forceinline__ void load_lanes(unsigned (&t)[kSubs],
   }
 }
 
+// thread j's lane column of chunk k's routing tile and complex values
+// (the real plane val, the imaginary plane val_im), loaded evict-first
+__device__ __forceinline__ void load_lanes_cx(
+    unsigned (&t)[kSubs], float2 (&v)[kSubs], const int* __restrict__ tile,
+    const float* __restrict__ val, const float* __restrict__ val_im,
+    long long k, int j) {
+  const long long q = k * (kSubs * kLanes) + j;
+#pragma unroll
+  for (int a = 0; a < kSubs; ++a) {
+    const long long i = q + a * kLanes;
+    t[a] = static_cast<unsigned>(__ldcs(tile + i));
+    v[a] = make_float2(__ldcs(val + i), __ldcs(val_im + i));
+  }
+}
+
 // out[i] = in[field(t[i])] through the thread's own column of `col`
-__device__ __forceinline__ void pull(float (&out)[kSubs],
-                                     const float (&in)[kSubs],
+template <class V>
+__device__ __forceinline__ void pull(V (&out)[kSubs], const V (&in)[kSubs],
                                      const unsigned (&t)[kSubs], int shift,
-                                     float (&col)[kSubs][kLanes], int j) {
+                                     V (&col)[kSubs][kLanes], int j) {
 #pragma unroll
   for (int i = 0; i < kSubs; ++i) col[i][j] = in[i];
 #pragma unroll
@@ -136,34 +201,37 @@ struct GroupBarrier {
 // gather, depth drop and multiply, segmented prefix, pend select,
 // any_lane pull, publish into the window yb of dst.  rk is the chunk's
 // rho (rotated plans only).  Every thread of the 128 must call it (it
-// meets `bar` on hub and any_lane chunks).
-template <class Bar>
+// meets `bar` on hub and any_lane chunks).  V = float2 is the complex
+// body (route2_spmv.cu's route2_cx_kernel): complex values, panes of
+// (re, im) pairs, one float2 atomicAdd a published slot.
+template <class Bar, class V>
 __device__ __forceinline__ void finish(
-    Shared& sh, const unsigned (&t)[kSubs], const float (&v)[kSubs],
-    int flag, long long yb, int rk, float* dst, long long dst_rows,
+    SharedT<V>& sh, const unsigned (&t)[kSubs], const V (&v)[kSubs],
+    int flag, long long yb, int rk, V* dst, long long dst_rows,
     int dist_max, int any_lane, int ww, int rotated, int j, Bar bar) {
-  float rs[kSubs];
+  V rs[kSubs];
   if (flag == 2) {
     // hub chunk: identity lanes, the whole tile sums to one scalar
-    float part = 0.f;
+    V part = vzero<V>();
 #pragma unroll
-    for (int a = 0; a < kSubs; ++a) part += sh.t1[a][j] * v[a];
+    for (int a = 0; a < kSubs; ++a) part = vfma(sh.t1[a][j], v[a], part);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
-      part += __shfl_down_sync(0xffffffffu, part, off);
+      part = vadd(part, vshfl_down(part, off));
     if ((j & 31) == 0) sh.red[j >> 5] = part;
     bar();
-    const float sum = sh.red[0] + sh.red[1] + sh.red[2] + sh.red[3];
+    const V sum =
+        vadd(vadd(vadd(sh.red[0], sh.red[1]), sh.red[2]), sh.red[3]);
 #pragma unroll
     for (int s = 0; s < kSubs; ++s) rs[s] = sum;
   } else {
     // lane gather, then depth drop and multiply
-    float t2[kSubs], p[kSubs];
+    V t2[kSubs], p[kSubs];
 #pragma unroll
     for (int a = 0; a < kSubs; ++a) t2[a] = sh.t1[a][bits(t[a], 8, 127)];
     pull(p, t2, t, 15, sh.col, j);
 #pragma unroll
-    for (int d = 0; d < kSubs; ++d) p[d] *= v[d];
+    for (int d = 0; d < kSubs; ++d) p[d] = vmul(p[d], v[d]);
     // segmented prefix with the simultaneous semantics of a roll: run
     // i downward so P[i - step] is still the previous step's value (the
     // loops unroll fully, so p stays in registers)
@@ -173,7 +241,7 @@ __device__ __forceinline__ void finish(
       if (step > dist_max) break;
 #pragma unroll
       for (int i = kSubs - 1; i >= step; --i) {
-        if (bits(t[i], 18, 7) >= step) p[i] += p[i - step];
+        if (bits(t[i], 18, 7) >= step) p[i] = vadd(p[i], p[i - step]);
       }
     }
     pull(rs, p, t, 21, sh.col, j);
@@ -189,7 +257,7 @@ __device__ __forceinline__ void finish(
 
   // publish every vA slot
   const bool rot = rotated && flag != 2;
-  float* out = dst + yb * kLanes + j;
+  V* out = dst + yb * kLanes + j;
   const long long lim = dst_rows - yb;   // window rows in bounds
 #pragma unroll
   for (int s = 0; s < kSubs; ++s) {

@@ -5,7 +5,9 @@
 // with the solve mode and route_paned_spmv.cu.
 //
 // Replaces the TPU kernel spblas_tpu/kernels/route2_kernel.py::
-// _route2_kernel (pl.pallas_call in route2_dispatch).  Which pane a
+// _route2_kernel (pl.pallas_call in route2_dispatch); route2_cx_spmv_f32
+// replaces the four dispatches of it that JAX's route_cx_spmv
+// (spblas_tpu/kernels/plans.py) runs for a complex64 matrix.  Which pane a
 // chunk reads is the caller's choice per launch: x for the first launch
 // (flag-0 and flag-2 chunks), the output pane itself for each aux level
 // after it.
@@ -213,6 +215,52 @@ __global__ void __launch_bounds__(kSlabThreads, 1)
                      P.any_lane, P.ww, P.rotated, j, bar);
     }
   }
+}
+
+// The complex product (route2_cx_spmv_f32): one plan, two value planes.
+// A block a chunk, as route2_apply_kernel, running the chunk body on
+// float2 values: the real plane val and the imaginary plane val_im (0 on
+// every aux carrier and padding slot, made with the plan), the source a
+// pane of (re, im) pairs (X = float2) or a real x (X = float, read as
+// (x, 0)), the output a pane of (re, im) pairs that each published slot
+// enters with one float2 atomicAdd (sm_90, global memory).  So the
+// routing tile, the slab geometry and the publish run once for both
+// planes, where four real applies ran them four times.  No slab kernel:
+// a slab of two planes (256 KB at g = 32) does not fit an SM's 227 KB,
+// so launch ranges of any size run a block a chunk.
+struct PlanCx {
+  const int* tile;
+  const float* val;
+  const float* val_im;
+  const int* slab_base;
+  const int* y_base;
+  const int* src_flag;
+  const int* rho;          // null unless rotated
+  const void* src;         // (src_rows, 128) of X; may alias dst
+  float2* dst;
+  long long src_rows, dst_rows;
+  int g, dist_max, any_lane, ww, rotated;
+};
+
+constexpr int kMinBlocksCx = 8;   // blocks an SM of the complex kernel
+
+template <class X>
+__global__ void __launch_bounds__(kLanes, kMinBlocksCx)
+    route2_cx_kernel(PlanCx P, long long lo) {
+  __shared__ route2::SharedCx sh;
+  const int j = threadIdx.x;
+  const long long k = lo + blockIdx.x;
+  unsigned t[kSubs];
+  float2 v[kSubs];
+  route2::load_lanes_cx(t, v, P.tile, P.val, P.val_im, k, j);
+  const int flag = __ldg(P.src_flag + k);
+  const long long yb = __ldg(P.y_base + k);
+  const int rk = (P.rotated && flag != 2) ? __ldg(P.rho + k) : 0;
+  route2::slab_route(sh.t1, t, 0, __ldg(P.slab_base + k),
+                     static_cast<const X*>(P.src), P.src_rows, P.g);
+  __syncthreads();
+  route2::finish(sh, t, v, flag, yb, rk, P.dst, P.dst_rows, P.dist_max,
+                 P.any_lane, P.ww, P.rotated, j, route2::BlockBarrier{});
 }
 
 // blocks of the slab kernel the current device holds at once (per
@@ -427,6 +475,42 @@ extern "C" int route2_spmv_f32(const void* tile, const void* val,
     } else {
       route2_apply_kernel<<<static_cast<unsigned>(hi - lo), kLanes, 0,
                             st>>>(P, lo);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The complex product: chunks [lo, hi) of the plan (tile, slab_base,
+// y_base, src_flag, rho as route2_spmv_f32) with the value planes val and
+// val_im (nchunks, 8, 128) f32, reading src (src_rows, 128) of (re, im)
+// f32 pairs (x_cx != 0) or of f32 (a real x), accumulating into dst
+// (dst_rows, 128) of (re, im) pairs.
+extern "C" int route2_cx_spmv_f32(const void* tile, const void* val,
+                                  const void* val_im, const void* slab_base,
+                                  const void* y_base, const void* src_flag,
+                                  const void* rho, long long lo, long long hi,
+                                  const void* src, int x_cx,
+                                  long long src_rows, void* dst,
+                                  long long dst_rows, int g, int dist_max,
+                                  int any_lane, int ww, int rotated,
+                                  void* stream) {
+  if (hi > lo) {
+    const PlanCx P{static_cast<const int*>(tile),
+                   static_cast<const float*>(val),
+                   static_cast<const float*>(val_im),
+                   static_cast<const int*>(slab_base),
+                   static_cast<const int*>(y_base),
+                   static_cast<const int*>(src_flag),
+                   static_cast<const int*>(rho),
+                   src,
+                   static_cast<float2*>(dst),
+                   src_rows, dst_rows, g, dist_max, any_lane, ww, rotated};
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const unsigned grid = static_cast<unsigned>(hi - lo);
+    if (x_cx) {
+      route2_cx_kernel<float2><<<grid, kLanes, 0, st>>>(P, lo);
+    } else {
+      route2_cx_kernel<float><<<grid, kLanes, 0, st>>>(P, lo);
     }
   }
   return static_cast<int>(cudaGetLastError());

@@ -142,6 +142,14 @@ class BSR:
         return block_column_order(self.block_rowptr, self.block_colind,
                                   self.shape[1] // self.block_shape[1])
 
+    @functools.cached_property
+    def tf32_exact(self) -> bool:
+        """:func:`types.tf32_exact` of the stored blocks, made on first use
+        and kept: False sends the f32 SpMM and block SpGEMM off the
+        3xTF32 tensor-core kernels (values below 2^-112 keep fewer bits
+        there)."""
+        return _t.tf32_exact(self.values[: self.nnz_blocks])
+
     def block_row_ids(self) -> torch.Tensor:
         """Per-block block-row index, (capacity,); padded blocks map to
         mb."""

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -61,6 +62,12 @@ class BandPlan:
     @property
     def nblocks(self) -> int:
         return int(self.panels.shape[0]) // _R
+
+    @functools.cached_property
+    def tf32_exact(self) -> bool:
+        """:func:`types.tf32_exact` of the panels, made on first use and
+        kept: False sends :func:`band_spmm_stream` to the FMA kernel."""
+        return _t.tf32_exact(self.panels)
 
 
 def band_halfwidth(a: CSR) -> int:
@@ -297,7 +304,12 @@ def band_spmm(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
 
 def band_spmm_stream(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
     """C = A @ B with each row block's B window streamed through shared
-    memory."""
+    memory, on the tensor cores.  Panels with nonzero f32 entries below
+    2^-112 (``plan.tf32_exact`` False), where the 3xTF32 split keeps fewer
+    bits, take :func:`band_spmm`'s f32 FMAs instead.  B is not tested
+    (``csrc/tf32_mma.cuh``, Limits)."""
+    if not plan.tf32_exact:
+        return band_spmm(plan, b)
     c = band_spmm_stream_padded(plan.panels, pad_b(plan, b))
     return c[: plan.shape[0]].to(
         torch.promote_types(plan.panels.dtype, b.dtype))

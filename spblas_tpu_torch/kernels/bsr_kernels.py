@@ -31,6 +31,12 @@ from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.formats.bsr import BSR, block_column_order
 
 _KERNEL_DTYPES = (torch.float32, torch.float64)
+# bytes of the f32 SpMM's slot scratch a call may hold (its block
+# products, one (bh, k) slot a stored block): past it a call walks k in
+# column phases, and ranges of block rows where one phase of
+# _SPMM_KTILE columns alone passes it
+SPMM_SCRATCH_BYTES = 1 << 30
+_SPMM_KTILE = 64           # the f32 kernel's k-tile (csrc/bsr_spmm.cu)
 # entries of a block's B slice gathered at once by the plain SpMM (keeps
 # its (entries, bw, k) intermediate near 1 GB at the main path's widths)
 _REF_GATHER_ELEMS = 1 << 28
@@ -111,6 +117,29 @@ def bsr_spmm_columns_reference(values, block_rowptr, block_colind, b,
     return out[:mb].reshape(mb * bh, k).to(values.dtype)
 
 
+def bsr_spmm_cuts_reference(values, block_rowptr, block_colind, b,
+                            column_order=None, budget=None) -> torch.Tensor:
+    """The f32 kernel's walk cut as :func:`spmm_phases` cuts a call past
+    the scratch ``budget``: :func:`bsr_spmm_columns_reference` on each
+    cut's blocks, column list and columns of B, into its block rows and
+    columns of C.  Returns (mb * bh, k) in the blocks' dtype."""
+    cap, bh, bw = values.shape
+    mb = block_rowptr.shape[0] - 1
+    k = int(b.shape[1])
+    ncb = -(-int(b.shape[0]) // max(bw, 1))
+    col_ptr, col_order = (column_order if column_order is not None
+                          else block_column_order(block_rowptr, block_colind,
+                                                  ncb))
+    c = torch.empty(mb * bh, k, dtype=values.dtype, device=values.device)
+    for r0, r1, e0, rp, cp, co, p0, p1 in spmm_phases(
+            block_rowptr, block_colind, col_ptr, col_order, cap, bh, k, ncb,
+            budget):
+        e1 = e0 + int(co.shape[0])
+        c[r0 * bh:r1 * bh, p0:p1] = bsr_spmm_columns_reference(
+            values[e0:e1], rp, block_colind[e0:e1], b[:, p0:p1], (cp, co))
+    return c
+
+
 def _check_operands(values, block_rowptr, block_colind, x, ndim) -> None:
     if not (values.device == block_rowptr.device == block_colind.device
             == x.device):
@@ -141,13 +170,13 @@ def _aligned(*ts) -> bool:
 _SPMV_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
     ctypes.c_void_p,)
 # (values, rowptr, colind, b, c, mb, bh, bw, k, vec, stream) of
-# bsr_spmm_f64
+# bsr_spmm_f64 and bsr_spmm_f32_fma
 _SPMM_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
     ctypes.c_void_p,)
 # (values, rowptr, col_ptr, col_order, b, partial, c, mb, ncb, bh, bw, k,
-# vec, stream) of bsr_spmm_f32
-_SPMM_F32_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (
-    ctypes.c_void_p,)
+# ldb, ldc, vec, stream) of bsr_spmm_f32
+_SPMM_F32_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
 
 
 def _suffix(dtype) -> str:
@@ -178,12 +207,13 @@ bsr_spmv_blocks.launches = 0
 
 
 def bsr_spmm_blocks(values, block_rowptr, block_colind, b,
-                    column_order=None) -> torch.Tensor:
+                    column_order=None, tc=True) -> torch.Tensor:
     """C = A @ B over raw BSR arrays of one real dtype and a row-major B;
     returns (mb * bh, k).  CUDA tensors launch ``bsr_spmm.cu`` (f32: its
-    two passes over the column list ``column_order``, from
-    ``BSR.column_order`` or built here; f64: one launch); CPU tensors
-    take :func:`bsr_spmm_reference`."""
+    two tensor-core passes over the column list ``column_order``, from
+    ``BSR.column_order`` or built here, cut past the scratch budget; with
+    ``tc`` False, or f64: one FMA launch); CPU tensors take
+    :func:`bsr_spmm_reference`."""
     _check_operands(values, block_rowptr, block_colind, b, 2)
     if not _t.on_cuda(values):
         return bsr_spmm_reference(values, block_rowptr, block_colind, b)
@@ -192,8 +222,10 @@ def bsr_spmm_blocks(values, block_rowptr, block_colind, b,
     k = int(b.shape[1])
     c = torch.empty(mb * bh, k, dtype=values.dtype, device=values.device)
     stream = torch.cuda.current_stream(values.device).cuda_stream
-    if values.dtype == torch.float64:
-        _build.check(_build.function("bsr_spmm", "bsr_spmm_f64",
+    if values.dtype == torch.float64 or not tc:
+        _build.check(_build.function("bsr_spmm",
+                                     f"bsr_spmm_{_suffix(values.dtype)}"
+                                     + ("" if tc else "_fma"),
                                      _SPMM_ARGTYPES)(
             values.data_ptr(), block_rowptr.data_ptr(),
             block_colind.data_ptr(), b.data_ptr(), c.data_ptr(), mb, bh, bw,
@@ -204,16 +236,77 @@ def bsr_spmm_blocks(values, block_rowptr, block_colind, b,
     col_ptr, col_order = (column_order if column_order is not None
                           else block_column_order(block_rowptr, block_colind,
                                                   ncb))
-    partial = torch.empty(cap, bh, k, dtype=torch.float32,
-                          device=values.device)
+    cuts = spmm_phases(block_rowptr, block_colind, col_ptr, col_order, cap,
+                       bh, k, ncb)
+    # one scratch for every cut, each cut's slots from its start
+    partial = torch.empty(max(max(int(co.shape[0]) * (p1 - p0)
+                                  for *_, co, p0, p1 in cuts), 1)
+                          * bh, dtype=torch.float32, device=values.device)
     vec = int(k % 4 == 0 and _aligned(b, c, partial))
-    _build.check(_build.function("bsr_spmm", "bsr_spmm_f32",
-                                 _SPMM_F32_ARGTYPES)(
-        values.data_ptr(), block_rowptr.data_ptr(), col_ptr.data_ptr(),
-        col_order.data_ptr(), b.data_ptr(), partial.data_ptr(), c.data_ptr(),
-        mb, int(col_ptr.shape[0]) - 1, bh, bw, k, vec, stream), "bsr_spmm")
-    bsr_spmm_blocks.launches += 2     # the products, then the row sums
+    fn = _build.function("bsr_spmm", "bsr_spmm_f32", _SPMM_F32_ARGTYPES)
+    for r0, r1, e0, rp, cp, co, p0, p1 in cuts:
+        _build.check(fn(
+            values[e0:].data_ptr(), rp.data_ptr(),
+            cp.data_ptr(), co.data_ptr(), b.data_ptr() + 4 * p0,
+            partial.data_ptr(), c.data_ptr() + 4 * (r0 * bh * k + p0),
+            r1 - r0, int(cp.shape[0]) - 1, bh, bw, p1 - p0, k, k, vec,
+            stream), "bsr_spmm")
+        bsr_spmm_blocks.launches += 2     # the products, then the row sums
     return c
+
+
+def spmm_phases(block_rowptr, block_colind, col_ptr, col_order, cap, bh,
+                k, ncb, budget=None):
+    """The cuts of one f32 SpMM call whose slot scratch would pass
+    ``budget`` (default :data:`SPMM_SCRATCH_BYTES`): a list of (r0, r1,
+    e0, rowptr, col_ptr, col_order, p0, p1), block rows [r0, r1) (their
+    blocks from e0 on; ``rowptr`` and ``col_order`` count from e0) by
+    columns [p0, p1) of B and C.  One cut, the whole call, when the ``cap`` slots fit; else
+    column phases of the widest multiple of the 64-column k-tile that
+    fits; else 64-column phases over ranges of block rows whose blocks
+    fit.  Each cut's ``col_order`` keeps the call's order, so every slot
+    and every row sum is the one the whole call would compute.  Raises
+    where one block row's blocks alone pass the budget."""
+    budget = SPMM_SCRATCH_BYTES if budget is None else budget
+    mb = int(block_rowptr.shape[0]) - 1
+    slot = bh * 4                          # bytes of one slot column
+    if cap * slot * k <= budget:
+        return [(0, mb, 0, block_rowptr, col_ptr, col_order, 0, k)]
+    kp = budget // max(cap * slot, 1) // _SPMM_KTILE * _SPMM_KTILE
+    cols = [(p0, min(k, p0 + max(kp, _SPMM_KTILE)))
+            for p0 in range(0, k, max(kp, _SPMM_KTILE))]
+    if kp >= _SPMM_KTILE:
+        return [(0, mb, 0, block_rowptr, col_ptr, col_order, p0, p1)
+                for p0, p1 in cols]
+    width = min(k, _SPMM_KTILE)
+    rp = block_rowptr.tolist()
+    per_block = slot * width
+    ranges, r0 = [], 0
+    while r0 < mb:
+        if (rp[r0 + 1] - rp[r0]) * per_block > budget:
+            raise ValueError(
+                f"bsr_spmm: block row {r0} holds {rp[r0 + 1] - rp[r0]} "
+                f"blocks, past the {budget}-byte scratch budget at "
+                f"{width} columns")
+        r1 = r0 + 1
+        while r1 < mb and (rp[r1 + 1] - rp[r0]) * per_block <= budget:
+            r1 += 1
+        ranges.append((r0, r1))
+        r0 = r1
+    dev = col_order.device
+    out = []
+    for r0, r1 in ranges:
+        e0, e1 = rp[r0], rp[r1]
+        keep = (col_order >= e0) & (col_order < e1)
+        co = (col_order[keep] - e0).to(torch.int32)
+        counts = torch.bincount(block_colind[co.long() + e0].long(),
+                                minlength=ncb)[:ncb]
+        cp = torch.zeros(ncb + 1, dtype=torch.int32, device=dev)
+        cp[1:] = torch.cumsum(counts, 0)
+        rpc = (block_rowptr[r0:r1 + 1] - e0).contiguous()
+        out += [(r0, r1, e0, rpc, cp, co.contiguous(), p0, p1)
+                for p0, p1 in cols]
+    return out
 
 
 bsr_spmm_blocks.launches = 0
@@ -263,6 +356,10 @@ def bsr_spmm(a: BSR, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"bsr_spmm: A is {a.shape}, B is {tuple(b.shape)}")
     if not _t.on_cuda(a.values):
         return _apply(bsr_spmm_blocks, a, b)
-    # the f32 kernel's column list, made once and kept on the BSR
+    # the f32 kernel's column list, made once and kept on the BSR; blocks
+    # with nonzero f32 entries below 2^-112 (a.tf32_exact False) take the
+    # FMA kernel, where the 3xTF32 split would keep fewer bits (B is not
+    # tested: csrc/tf32_mma.cuh, Limits)
     return _apply(functools.partial(bsr_spmm_blocks,
-                                    column_order=a.column_order), a, b)
+                                    column_order=a.column_order,
+                                    tc=a.tf32_exact), a, b)

@@ -6,8 +6,10 @@ With block structure the product is a stream of dense (bh, bk) @
 (numpy on the host, small); the numeric phase sums each C block's pair
 products.  On a CUDA tensor :func:`bsr_spgemm_blocks` launches the
 hand-written kernel ``csrc/bsr_spgemm.cu`` (which replaces the TPU
-kernel ``bsr_spgemm.py::_numeric_kernel``); on a CPU tensor it runs
-:func:`bsr_spgemm_reference`, the plain PyTorch version.
+kernel ``bsr_spgemm.py::_numeric_kernel``): on the tensor cores, f32 by
+the 3xTF32 split of ``csrc/tf32_mma.cuh``, f64 by the FP64 tensor cores.
+On a CPU tensor it runs :func:`bsr_spgemm_reference`, the plain PyTorch
+version.
 
 Layout contract: A is BSR with blocks (bh, bk); B is BSR with blocks
 (bk, bw); C comes out BSR with blocks (bh, bw).  The kernel takes any
@@ -204,15 +206,22 @@ def bsr_spgemm_blocks(pair_ptr, pair_a, pair_b, a_values,
 bsr_spgemm_blocks.launches = 0
 
 
-def _blocks(plan: BsrSpgemmPlan, av, bv, out_dtype) -> torch.Tensor:
+def _blocks(plan: BsrSpgemmPlan, av, bv, out_dtype,
+            exact=True) -> torch.Tensor:
     """The C blocks in ``out_dtype``: one kernel call for real operands,
-    real planes (up to four calls) for complex ones."""
+    real planes (up to four calls) for complex ones.  ``exact`` False
+    (operands with nonzero f32 values below 2^-112, where the 3xTF32
+    split keeps fewer bits) runs the f32 products on the f64 kernel: exact
+    products, rounded once to f32."""
     pp, pa, pb = plan.pair_ptr, plan.pair_a, plan.pair_b
     if not out_dtype.is_complex:
         dt = out_dtype if out_dtype in _KERNEL_DTYPES else torch.float32
+        if dt == torch.float32 and not exact:
+            dt = torch.float64
         return bsr_spgemm_blocks(pp, pa, pb, av.to(dt).contiguous(),
                                  bv.to(dt).contiguous()).to(out_dtype)
-    real = torch.float64 if out_dtype == torch.complex128 else torch.float32
+    real = torch.float64 if out_dtype == torch.complex128 or not exact \
+        else torch.float32
 
     def planes(t):
         if not t.is_complex():
@@ -248,7 +257,8 @@ def bsr_spgemm_numeric(plan: BsrSpgemmPlan, a: BSR, b: BSR) -> BSR:
                                             device=dev),
                    nnz_blocks=0, shape=plan.shape,
                    block_shape=plan.block_shape)
-    c_blocks = _blocks(plan, a.values, b.values, out_dtype)
+    c_blocks = _blocks(plan, a.values, b.values, out_dtype,
+                       exact=a.tf32_exact and b.tf32_exact)
     cap = _t.quantize_capacity(max(nnzb_c, 1))
     pad = cap - nnzb_c
     values = torch.cat([c_blocks, c_blocks.new_zeros(pad, bh, bw)]) \

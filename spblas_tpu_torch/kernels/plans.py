@@ -17,7 +17,10 @@ the matrix living on a CUDA device.  The matvec ladder, in order:
                             un-permute, kind route1_sorted; x and y past
                             the TPU's VMEM: paned ROUTE2
                             (csrc/route_paned_spmv.cu), kind route_paned
-  general, complex64     -> two real plans of the kind above (route_cx)
+  general, complex64     -> two real plans of the kind above (route_cx);
+                            over ROUTE2 one pass of the complex kernel
+                            (route2_cx_spmv_f32 in csrc/route2_spmv.cu),
+                            over the other kinds four real applies
   general                -> SELL (torch ops)
 
 The matmul ladder (:func:`build_matmul_plan`) shares the structured
@@ -57,7 +60,9 @@ from spblas_tpu_torch.kernels.bsr_kernels import bsr_spmm, bsr_spmv
 from spblas_tpu_torch.kernels.dia import (build_dia_plan, dia_fill_fraction,
                                           dia_spmm, dia_spmv)
 from spblas_tpu_torch.kernels.route2 import Route2Plan, build_route2_plan
-from spblas_tpu_torch.kernels.route2_kernel import route2_spmv
+from spblas_tpu_torch.kernels.route2_kernel import (cx_imag_plane,
+                                                    route2_cx_spmv,
+                                                    route2_spmv)
 from spblas_tpu_torch.kernels.route_paned import (build_route_paned_plan,
                                                   estimate_paned_bytes,
                                                   route_paned_spmv)
@@ -339,20 +344,27 @@ def _try_route_paned(a):
 def _try_route_cx(a):
     """Complex64 general sparsity: two real ROUTE plans of the kind
     ``_try_route`` picks over the same structure (re/im value planes),
-    the imaginary one by a values refresh of the real one.  Returns
-    ("route_cx", (kind, plan_re, plan_im)) or None."""
+    the imaginary one by a values refresh of the real one; over a ROUTE2
+    plan also the complex kernel's imaginary plane (``cx_imag_plane``:
+    0 on the aux carriers), None for the other kinds.  Returns
+    ("route_cx", (kind, plan_re, plan_im, val_im)) or None."""
     ar = dataclasses.replace(a, values=a.values.real.contiguous())
     got = _try_route(ar)
     if got is None:
         return None
     kind, plan = got
-    return ("route_cx", (kind, plan, plan.update_values(a.values.imag)))
+    pi = plan.update_values(a.values.imag)
+    val_im = cx_imag_plane(plan, pi) if kind == "route" else None
+    return ("route_cx", (kind, plan, pi, val_im))
 
 
 def route_cx_spmv(p, x):
-    """(a+ib)(x+iy) = (ax-by) + i(ay+bx): four real ROUTE SpMVs (two
-    for a real x)."""
-    kind, pr, pi = p
+    """(a+ib)(x+iy): over a ROUTE2 plan one pass of the complex kernel
+    (``route2_cx_spmv``); over the other kinds (ax-by) + i(ay+bx), four
+    real ROUTE SpMVs (two for a real x)."""
+    kind, pr, pi, val_im = p
+    if kind == "route":
+        return route2_cx_spmv(pr, val_im, x)
     if x.is_complex():
         xr, xi = x.real.float(), x.imag.float()
         yr = plan_spmv((kind, pr), xr) - plan_spmv((kind, pi), xi)

@@ -18,6 +18,15 @@ launch writes, so each launch may run its chunks in any order; chunks
 publish with atomic adds, so sums into one row are taken in another
 order than the TPU's.
 
+The complex product (:func:`route2_cx_spmv`, ``route_cx`` over a ROUTE2
+plan) runs one plan with two value planes in one pass:
+:func:`route2_cx_spmv_padded` launches ``route2_cx_spmv_f32`` of
+``csrc/route2_spmv.cu`` once per launch range over a complex64 x pane
+(or a real x) into a complex64 output pane, where the JAX package's
+``route_cx_spmv`` runs four real applies; its imaginary plane
+(:func:`cx_imag_plane`) carries aux partial sums by 0, as 1 + 0i must.
+CPU tensors take :func:`route2_cx_spmv_reference`.
+
 The solve mode (:func:`route2_solve`, the TPU kernel run with
 ``init_from_x``) runs a plan from ``route2.build_route2_solve_plan``
 over one pane that starts at y0 = b/(alpha*d): every chunk gathers from
@@ -51,10 +60,11 @@ from spblas_tpu_torch.kernels.route2 import (B2_LF, B2_R2, B2_SD2, B_DIST,
 
 
 def pack_x2(plan: Route2Plan, x: torch.Tensor) -> torch.Tensor:
-    """x as the kernel reads it: the flat (x_rows * 128,) f32 pane, x in
+    """x as the kernel reads it: the flat (x_rows * 128,) f32 pane (a
+    complex x: complex64, the complex kernel's (re, im) pairs), x in
     front, the extension columns at ``nat_slots``, zeros elsewhere."""
     n = plan.shape[1]
-    xf = x.float()
+    xf = x.to(torch.complex64) if x.is_complex() else x.float()
     if plan.ext_cols.numel():
         xf = torch.cat([F.pad(xf, (0, plan.nat_slots - n)),
                         xf[plan.ext_cols.long()]])
@@ -163,16 +173,16 @@ def route2_spmv_reference(plan: Route2Plan,
 
 
 def _check_operands(plan: Route2Plan, x2: torch.Tensor,
-                    x_rows=None) -> None:
+                    x_rows=None, x_dtypes=(torch.float32,)) -> None:
     arrays = (plan.tile, plan.val, plan.slab_base, plan.y_base,
               plan.src_flag) + ((plan.rho,) if plan.rotated else ())
     if any(a.device != x2.device for a in arrays):
         raise ValueError(f"plan on {plan.tile.device}, x2 on {x2.device}")
     if any(a.dtype != torch.int32 for a in arrays if a is not plan.val):
         raise TypeError("plan index arrays must be int32")
-    if plan.val.dtype != torch.float32 or x2.dtype != torch.float32:
-        raise TypeError(f"val and x2 must be float32, got {plan.val.dtype}"
-                        f" and {x2.dtype}")
+    if plan.val.dtype != torch.float32 or x2.dtype not in x_dtypes:
+        raise TypeError(f"val must be float32 and x2 one of {x_dtypes}, "
+                        f"got {plan.val.dtype} and {x2.dtype}")
     if plan.tile.shape != (plan.nchunks, SUBS, LANES) \
             or plan.val.shape != plan.tile.shape \
             or x2.shape != ((x_rows or plan.x_rows) * LANES,):
@@ -246,6 +256,100 @@ def route2_spmv(plan: Route2Plan, x: torch.Tensor) -> torch.Tensor:
     """y = A @ x through a ROUTE2 plan, in x's dtype (computed in f32)."""
     pane = route2_spmv_padded(plan, pack_x2(plan, x))
     return pane.view(-1)[: plan.shape[0]].to(x.dtype)
+
+
+# ------------------------------------------------------------------ #
+# the complex product: one plan, two value planes, one pass
+# ------------------------------------------------------------------ #
+
+def cx_imag_plane(plan: Route2Plan, imag: Route2Plan) -> torch.Tensor:
+    """The complex kernel's imaginary value plane: ``imag.val`` (the plan
+    refreshed with the imaginary CSR values) with 0 at every slot that
+    holds no entry (``val_src`` < 0).  ``update_values`` keeps such a
+    slot's baked value, 1.0 on an aux carrier, which is right for a real
+    apply; one complex product must carry a partial sum by 1 + 0i."""
+    return torch.where(plan.val_src >= 0, imag.val,
+                       torch.zeros((), dtype=imag.val.dtype,
+                                   device=imag.val.device)).contiguous()
+
+
+def route2_cx_spmv_reference(plan: Route2Plan, val_im: torch.Tensor,
+                             x2: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the complex kernel: the chunk body of
+    :func:`chunk_reference` on complex64 values ``plan.val + i val_im``
+    over the packed x pane (complex64, or f32 for a real x), launch range
+    by launch range.  Returns the (rows, 128) complex64 pane."""
+    val = torch.complex(plan.val, val_im)
+    xs = x2.view(-1, LANES)
+    pane = torch.zeros(out_rows(plan), LANES, dtype=torch.complex64,
+                       device=x2.device)
+    for i, (lo, hi) in enumerate(plan.launch_ranges()):
+        if hi > lo:
+            chunk_reference(
+                plan.tile[lo:hi], val[lo:hi], plan.slab_base[lo:hi],
+                plan.y_base[lo:hi], plan.src_flag[lo:hi],
+                plan.rho[lo:hi] if plan.rotated else None,
+                xs if i == 0 else pane, pane, g=plan.g,
+                dist_max=plan.dist_max, any_lane=plan.any_lane,
+                ww=plan.row_window_mult, rotated=plan.rotated)
+    return pane
+
+
+# (tile, val, val_im, slab_base, y_base, src_flag, rho, lo, hi, src, x_cx,
+#  src_rows, dst, dst_rows, g, dist_max, any_lane, ww, rotated, stream) of
+# route2_cx_spmv_f32
+_CX_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_longlong,) * 2 + (
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+    ctypes.c_longlong) + (ctypes.c_int,) * 5 + (ctypes.c_void_p,)
+
+
+def route2_cx_spmv_padded(plan: Route2Plan, val_im: torch.Tensor,
+                          x2: torch.Tensor) -> torch.Tensor:
+    """y = (A_re + i A_im) x over one ROUTE2 plan whose ``val`` is the
+    real plane, with the imaginary plane ``val_im`` (from
+    :func:`cx_imag_plane`) and the packed x pane ``x2`` (complex64, or f32
+    for a real x); returns the (rows, 128) complex64 output pane.  CUDA
+    tensors launch ``route2_cx_spmv_f32`` of ``route2_spmv.cu`` once per
+    launch range (the main range, then each aux level); CPU tensors take
+    :func:`route2_cx_spmv_reference`."""
+    _check_operands(plan, x2, x_dtypes=(torch.float32, torch.complex64))
+    if val_im.shape != plan.val.shape or val_im.dtype != torch.float32 \
+            or val_im.device != plan.val.device \
+            or not val_im.is_contiguous():
+        raise ValueError("val_im must be a contiguous f32 plane shaped as "
+                         "the plan's values, on its device")
+    if not _t.on_cuda(x2):
+        return route2_cx_spmv_reference(plan, val_im, x2)
+    rows = out_rows(plan)
+    pane = torch.zeros(rows, LANES, dtype=torch.complex64, device=x2.device)
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    fn = _build.function("route2_spmv", "route2_cx_spmv_f32", _CX_ARGTYPES)
+    rho = plan.rho.data_ptr() if plan.rotated else None
+    for i, (lo, hi) in enumerate(plan.launch_ranges()):
+        if hi <= lo:
+            continue
+        src, x_cx, src_rows = ((x2, int(x2.is_complex()), plan.x_rows)
+                               if i == 0 else (pane, 1, rows))
+        _build.check(fn(
+            plan.tile.data_ptr(), plan.val.data_ptr(), val_im.data_ptr(),
+            plan.slab_base.data_ptr(), plan.y_base.data_ptr(),
+            plan.src_flag.data_ptr(), rho, lo, hi, src.data_ptr(), x_cx,
+            src_rows, pane.data_ptr(), rows, plan.g, plan.dist_max,
+            int(plan.any_lane), plan.row_window_mult, int(plan.rotated),
+            stream), "route2_cx_spmv")
+        route2_cx_spmv_padded.launches += 1
+    return pane
+
+
+route2_cx_spmv_padded.launches = 0
+
+
+def route2_cx_spmv(plan: Route2Plan, val_im: torch.Tensor,
+                   x: torch.Tensor) -> torch.Tensor:
+    """y = (A_re + i A_im) @ x through one ROUTE2 plan and its imaginary
+    value plane, in one pass (complex64; x real or complex)."""
+    pane = route2_cx_spmv_padded(plan, val_im, pack_x2(plan, x))
+    return pane.view(-1)[: plan.shape[0]]
 
 
 # ------------------------------------------------------------------ #

@@ -88,6 +88,32 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.resolve_conj().numpy()
 
 
+# the least magnitude of a nonzero f32 operand whose 3xTF32 split keeps
+# f32 accuracy: the split's lo part lies on TF32's subnormal grid of
+# 2^-136 (measured on the card, csrc/tf32_mma.cuh), so below 2^-112 an
+# operand keeps fewer bits than f32
+TF32_TINY = 2.0 ** -112
+
+
+def tf32_exact(values: torch.Tensor) -> bool:
+    """True when every entry of an f32 (or complex64) ``values`` is finite
+    and none that is nonzero lies below :data:`TF32_TINY` in magnitude:
+    then the 3xTF32 tensor-core kernels keep f32 accuracy on it and
+    propagate its infinities and NaNs as the f32 product does
+    (``csrc/tf32_mma.cuh``, Limits).  bf16 values must also be finite (a
+    bf16 panel is not split); f64 is never split: True.  One pass over
+    ``values`` and one host read; callers keep the answer with the
+    operand (``BSR.tf32_exact``, ``BandPlan.tf32_exact``)."""
+    if values.dtype == torch.bfloat16:
+        return bool(torch.isfinite(values).all())
+    if values.dtype not in (torch.float32, torch.complex64):
+        return True
+    v = torch.view_as_real(values) if values.is_complex() else values
+    mag = v.abs()
+    return not bool((((mag > 0) & (mag < TF32_TINY))
+                     | ~torch.isfinite(mag)).any())
+
+
 def wide_matmul(fn, *ts) -> torch.Tensor:
     """``fn(*ts)`` (a matmul, bmm or einsum) computed in float64 (complex128
     for complex operands) and cast back to the operands' result type.  A

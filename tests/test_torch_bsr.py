@@ -26,6 +26,7 @@ from spblas_tpu.kernels.bsr_spgemm import (bsr_spgemm_compute as
 import spblas_tpu_torch as tsp
 from spblas_tpu_torch.kernels import bsr_spgemm as tbs
 from spblas_tpu_torch.formats.convert import to_csr as port_to_csr
+from spblas_tpu_torch.kernels import banded
 from spblas_tpu_torch.kernels import bsr_kernels as bk
 from spblas_tpu_torch.utils import interop
 
@@ -223,6 +224,105 @@ def test_bsr_column_walk_matches_reference_and_jax(name, k, capacity,
                                             interpret=True), csr, bmat)
     for i in empty_rows:
         assert not walk[i * bs[0]:(i + 1) * bs[0]].any()
+
+
+@pytest.mark.parametrize("cuts", ["columns", "rows"])
+def test_bsr_spmm_scratch_budget_cuts_give_the_same_values(cuts):
+    """Past the slot-scratch budget the f32 call walks k in column phases
+    of whole 64-column k-tiles, and, where one such phase alone passes
+    it, ranges of block rows too; every slot and every row sum stays the
+    one the whole call computes, so a cut call gives the same values as
+    the unsplit one (and each cut's scratch is within the budget)."""
+    m, n, bs, nb = SHAPES["8x128"]
+    dense = _block_dense(m, n, *bs, 3 * nb, seed=31, empty_rows=(2, 5))
+    _, b = _pair(dense, bs, capacity=64)
+    k = 200
+    bt = torch.from_numpy(np.random.default_rng(32).standard_normal(
+        (n, k)).astype(np.float32))
+    cap, bh, _ = b.values.shape
+    # room for every slot at 64 columns; or for the fullest block row's
+    # slots at 64 columns, and not for all of them: block-row ranges
+    per_block = bh * 4 * 64
+    budget = (cap * per_block if cuts == "columns"
+              else int(torch.diff(b.block_rowptr).max()) * per_block + 1)
+    col_ptr, col_order = b.column_order
+    got = bk.spmm_phases(b.block_rowptr, b.block_colind, col_ptr, col_order,
+                         cap, bh, k, n // bs[1], budget)
+    assert len(got) > 1
+    for r0, r1, e0, rp, cp, co, p0, p1 in got:
+        assert int(rp[0]) == 0 and int(rp[-1]) <= int(co.shape[0])
+        assert p0 % 64 == 0 and (p1 == k or (p1 - p0) % 64 == 0)
+        slots = int(co.shape[0]) if cuts == "rows" else cap
+        assert slots * bh * (p1 - p0) * 4 <= budget
+    if cuts == "rows":
+        assert len({(r0, r1) for r0, r1, *_ in got}) > 1
+    else:
+        assert {(r0, r1) for r0, r1, *_ in got} == {(0, m // bs[0])}
+    whole = bk.bsr_spmm_columns_reference(b.values, b.block_rowptr,
+                                          b.block_colind, bt, b.column_order)
+    cut = bk.bsr_spmm_cuts_reference(b.values, b.block_rowptr,
+                                     b.block_colind, bt, b.column_order,
+                                     budget)
+    assert torch.equal(cut, whole)
+    with pytest.raises(ValueError):
+        bk.spmm_phases(b.block_rowptr, b.block_colind, col_ptr, col_order,
+                       cap, bh, k, n // bs[1], bh * 4)
+
+
+def test_low_end_operands_take_the_exact_kernels(monkeypatch):
+    """The 3xTF32 gate (``tf32_exact``): blocks or panels with nonzero f32
+    values below 2^-112 send the f32 BSR SpMM to the FMA kernel
+    (``tc=False``), the block SpGEMM to the f64 kernel and the streamed
+    band SpMM to the resident FMA kernel; other operands keep the tensor
+    cores.  The routed results equal the plain sums."""
+    m, n, bs, nb = SHAPES["8x128"]
+    dense = _block_dense(m, n, *bs, 3 * nb, seed=41)
+    _, b = _pair(dense, bs)
+    tiny = dataclasses.replace(b, values=b.values * 2.0 ** -120)
+    assert b.tf32_exact and not tiny.tf32_exact
+    bmat = torch.from_numpy(np.random.default_rng(42).standard_normal(
+        (n, 24)).astype(np.float32)) * 2.0 ** 120
+    seen = []
+
+    def spy(*args, tc=True, **kw):
+        seen.append(tc)
+        return bk.bsr_spmm_reference(*args[:4])
+
+    monkeypatch.setattr(bk, "bsr_spmm_blocks", spy)
+    monkeypatch.setattr(bk._t, "on_cuda", lambda t: True)
+    for op in (b, tiny):
+        got = bk.bsr_spmm(op, bmat)
+        assert torch.equal(got, bk.bsr_spmm_reference(
+            op.values, op.block_rowptr, op.block_colind, bmat))
+    assert seen == [True, False]
+    monkeypatch.undo()
+
+    dtypes = []
+    real = tbs.bsr_spgemm_blocks
+
+    def spgemm_spy(*args):
+        dtypes.append(args[3].dtype)
+        return real(*args)
+
+    monkeypatch.setattr(tbs, "bsr_spgemm_blocks", spgemm_spy)
+    bt = tsp.BSR.from_dense(dense.T.copy(), bs[::-1], device="cpu")
+    for op in (b, tiny):
+        tbs.bsr_spgemm(op, bt)
+    assert dtypes == [torch.float32, torch.float64]
+
+    calls = []
+    band = banded.build_band_plan(tsp.CSR.from_dense(
+        np.triu(np.tril(dense[:, :m], 3), -3), device="cpu"))
+    monkeypatch.setattr(banded, "band_spmm_padded",
+                        lambda *a: calls.append("fma") or
+                        banded.band_spmm_reference(*a))
+    monkeypatch.setattr(banded, "band_spmm_stream_padded",
+                        lambda *a: calls.append("tc") or
+                        banded.band_spmm_reference(*a))
+    for plan in (band, dataclasses.replace(
+            band, panels=band.panels * 2.0 ** -120)):
+        banded.band_spmm_stream(plan, bmat[:m])
+    assert calls == ["tc", "fma"]
 
 
 def test_bsr_f64_and_complex_take_their_dtype():

@@ -333,3 +333,87 @@ def test_main_path_route_matches_jax(complex_, monkeypatch):
     assert y.dtype == (torch.complex64 if complex_ else torch.float32)
     want = sp.multiply(sp.scaled(2.0, a), jnp.asarray(x))
     assert_rows_close(y, want, a, x, scale=2.0)
+
+
+# ------------------------------------------------------------------ #
+# the complex product over one ROUTE2 plan (route_cx, kind route)
+# ------------------------------------------------------------------ #
+
+CX_CASES = ("hub_row_aux", "aux_carriers", "rotated", "hub_deg_256_ww8")
+
+
+def _cx_plans(name):
+    """(complex scipy CSR, real plan, imaginary plan, the complex
+    kernel's imaginary plane) on the CPU."""
+    make, kw = FIXTURES[name]
+    a = make()
+    im = np.random.default_rng(17).standard_normal(a.nnz).astype(np.float32)
+    pr = tr2.build_route2_plan(a.indptr, a.indices, a.data, a.shape, a.nnz,
+                               device="cpu", **kw)
+    pi = pr.update_values(torch.from_numpy(im))
+    ac = sps.csr_matrix((a.data + 1j * im, a.indices, a.indptr),
+                        shape=a.shape).astype(np.complex64)
+    return ac, pr, pi, tk.cx_imag_plane(pr, pi)
+
+
+@pytest.mark.parametrize("name", CX_CASES)
+def test_cx_imag_plane_zero_only_at_carriers(name):
+    """The complex kernel's imaginary plane is ``pi.val`` with 0 at every
+    slot that holds no entry: it differs from ``pi`` only at val_src < 0
+    slots, and there only where ``pi`` carries a nonzero (the aux
+    carriers' 1.0)."""
+    _, pr, pi, vi = _cx_plans(name)
+    diff = (vi != pi.val).numpy()
+    src = pr.val_src.numpy()
+    assert (src[diff] < 0).all()
+    assert (vi.numpy()[src < 0] == 0).all()
+    assert np.array_equal(vi.numpy()[src >= 0], pi.val.numpy()[src >= 0])
+    if pr.n_aux_chunks:
+        assert diff.any() and (pi.val.numpy()[diff] == 1.0).all()
+
+
+@pytest.mark.parametrize("x_kind", ["complex", "real"])
+@pytest.mark.parametrize("name", CX_CASES)
+def test_cx_plain_matches_four_applies(name, x_kind):
+    """One pass of the complex plain version (the complex kernel's
+    arithmetic) against the four-apply composition of the real plain
+    version, (ax - by) + i(ay + bx), and against the float64 product, on
+    plans with aux levels, hub chunks and a rotated supercell plan; a
+    real x takes the same pass."""
+    ac, pr, pi, vi = _cx_plans(name)
+    assert pr.n_aux_chunks > 0 or pr.rotated or pr.has_hub
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal(ac.shape[1]).astype(np.float32)
+    if x_kind == "complex":
+        x = (x + 1j * rng.standard_normal(ac.shape[1])).astype(np.complex64)
+    xt = torch.from_numpy(x)
+    y = tk.route2_cx_spmv(pr, vi, xt)
+    assert y.dtype == torch.complex64 and y.shape == (ac.shape[0],)
+    xr = xt.real.float() if xt.is_complex() else xt
+    if xt.is_complex():
+        xi = xt.imag.float()
+        four = torch.complex(
+            tk.route2_spmv(pr, xr) - tk.route2_spmv(pi, xi),
+            tk.route2_spmv(pr, xi) + tk.route2_spmv(pi, xr))
+    else:
+        four = torch.complex(tk.route2_spmv(pr, xr), tk.route2_spmv(pi, xr))
+    ref = types.SimpleNamespace(shape=ac.shape, nnz=ac.nnz,
+                                rowptr=ac.indptr, colind=ac.indices,
+                                values=ac.data)
+    # the four-apply sum rounds each of its two products, so it is held
+    # to the bound of both planes' magnitudes, as the complex pass is
+    assert_rows_close(y, four, ref, x, factor=128)
+    assert_rows_close(y, ac.astype(np.complex128) @ x.astype(np.complex128),
+                      ref, x)
+
+
+def test_cx_padded_rejects_bad_operands():
+    """The complex wrapper checks the pane's dtype and the plane's shape
+    before it runs anything."""
+    _, pr, _, vi = _cx_plans("hub_row_aux")
+    x2 = tk.pack_x2(pr, torch.ones(pr.shape[1], dtype=torch.complex64))
+    assert x2.dtype == torch.complex64
+    with pytest.raises(TypeError):
+        tk.route2_cx_spmv_padded(pr, vi, x2.to(torch.complex128))
+    with pytest.raises(ValueError):
+        tk.route2_cx_spmv_padded(pr, vi[:-1], x2)
