@@ -18,41 +18,48 @@ SpMV cells: the 409,600-row banded headline matrix, the 1000x1000
 stencil, the 800x800 FEM mesh, the 64^3 stencil, uniform 300k and 1M
 degree-10 matrices, a complex64 uniform 100k matrix, the 131k R-MAT
 graph as it comes and with its rows in the chooser's degree order, a
-uniform 4M degree-10 matrix, the 300k matrix held in float64, a 131,072^2
-matrix of half-full 8x128 blocks and the headline band under a random
-symmetric permutation.  SpMM cells: the headline band at k = 256, uniform
-100k degree 10 at k = 256 and 64, the block matrix at k = 256, the
-permuted band at k = 64, the stencil at k = 64 and a complex64 band at
-k = 32.  SpGEMM cells: bench.py's 2k and 100k A.A products (the ROUTE2-mul
-engines), the 2k one again on the ROUTE v1 engine, and a BSR.BSR
-product.  The headline band laid out on the card from random diagonals
-runs 10 power iterations.  SpTRSV cells: bench.py's 20k triangular factor
-and its 1M-row 15,625-level chain, and a 1.2M-row chain that takes the
-blocked solve.
+uniform 4M degree-10 matrix, the 300k matrix held in float64, a
+131,072^2 matrix of half-full 8x128 blocks and the headline band under a
+random symmetric permutation.  SpMM cells: the headline band at k = 256,
+uniform 100k degree 10 at k = 256 and 64, the block matrix at k = 256,
+the permuted band at k = 64, the stencil at k = 64, a complex64 band at
+k = 32 and a band at k = 8 (its B within the resident switch).  SpGEMM
+cells: bench.py's 2k and 100k A.A products (the ROUTE2-mul engines), the
+2k one again on the ROUTE v1 engine, and a BSR.BSR product.  The
+headline band laid out on the card from random diagonals runs 10 power
+iterations.  SpTRSV cells: bench.py's 20k triangular factor and its
+1M-row 15,625-level chain, and a 1.2M-row chain that takes the blocked
+solve.
 
-The ROUTE v1 kernel runs every level of a plan in one launch, ordered
-by device counters, and the paned and resident ROUTE2 kernels one launch
-per aux level: each runs 50 times back to back on a plan with aux levels,
-every result checked (a wait that lets a chunk read too early gives a
-wrong row).  So does the SpTRSV solve, one persistent launch a solve
-ordered by device counters, on the 20k factor and on a factor with hub
-rows (aux levels).  The paned SpGEMM fill (one owner a slot, no
+The ROUTE v1 kernel runs every level of a plan in one launch, ordered by
+device counters, and the paned and resident ROUTE2 kernels one launch
+per aux level: each runs 50 times back to back on a plan with aux
+levels, every result checked (a wait that lets a chunk read too early
+gives a wrong row).  So does the SpTRSV solve, one persistent launch a
+solve ordered by device counters, on the 20k factor and on a factor with
+hub rows (aux levels).  The paned SpGEMM fill (one owner a slot, no
 atomics) must give the same bits twice, and the two tensor-core SpMM
 kernels (``band_spmm_stream`` on the headline band at k = 256, the f32
 ``bsr_spmm`` on the block cell) ten times; both also run on all-positive
 operands (|A| and |B|) there, where the tensor cores' truncated sums
-would drift most.  The block SpGEMM kernel (f32 on the tensor cores by
-the 3xTF32 split, f64 on the FP64 tensor cores) must give the same bits
-ten times in both dtypes.  The complex ROUTE2 pass (one launch per
-launch range over both value planes) runs 50 times back to back on the
-100k cell's aux level, and is held to its plain version and to the four
-real applies it replaced, there and on the 300k complex64 plan.  The
-band kernel is also held to its plain version on panels and x views
-that are not 16-byte aligned.  The three 3xTF32 kernels run at the edges
-of the f32 range (+-FLT_MAX, infinities, and 2^-120 against 2^120
-through the entry points' ``tf32_exact`` gate), and the f32 BSR SpMM
-past a lowered slot-scratch budget, whose cut calls must give the uncut
-call's bits.
+would drift most.  Both band SpMM kernels (the resident FMA kernel and
+the tensor-core one) give the same bits ten times on every band shape (k
+= 256, 64, 33 and 32, f32 and bf16 panels) and read B in place with the
+padded form's bits; the permuted band's one launch (B gathered and C
+scattered through perm) gives the unfused path's bits, and the complex
+band's one pass (complex and real B) is held to its plain version and to
+the four real products it replaced.  The block SpGEMM kernel (f32 on the
+tensor cores by the 3xTF32 split, f64 on the FP64 tensor cores) must
+give the same bits ten times in both dtypes.  The complex ROUTE2 pass
+(one launch per launch range over both value planes) runs 50 times back
+to back on the 100k cell's aux level, and is held to its plain version
+and to the four real applies it replaced, there and on the 300k
+complex64 plan.  The band kernel is also held to its plain version on
+panels and x views that are not 16-byte aligned.  The three 3xTF32
+kernels run at the edges of the f32 range (+-FLT_MAX, infinities, and
+2^-120 against 2^120 through the entry points' ``tf32_exact`` gate), and
+the f32 BSR SpMM past a lowered slot-scratch budget, whose cut calls
+must give the uncut call's bits.
 
 Tolerance everywhere: |y - y_ref| <= 64 * eps_f32 * scale * (|A|.|x|)
 per row (per entry of C against (|A|.|B|) for SpMM), the dot-product
@@ -194,6 +201,9 @@ PERM_MAIN = ("band_perm_409600_h50", 82, 64)
 DIA_SPMM_K = 64
 # complex64 values on the odd_h_wide structure (band_cx)
 CX_BAND_MAIN = ("banded_100k_h7_c64_k32", 100_037, 120_000, 15, 11, 32)
+# a band whose B fits the resident switch: odd_h_wide at k 8 (B's
+# 120,000 rows past the window length, so the in-place read trims them)
+SMALL_BAND_K = 8
 # kernel-only SpMM shapes: odd k on odd_h_wide, bf16 panels; BSR blocks
 # of (128, 128) and (8, 8) with empty block rows:
 # (name, block rows, block columns, blocks a row, block shape,
@@ -298,6 +308,9 @@ BAND_SPMM_SOURCE = "spblas_tpu_torch/csrc/band_spmm.cu"
 BSR_SPMV_SOURCE = "spblas_tpu_torch/csrc/bsr_spmv.cu"
 BSR_SPMM_SOURCE = "spblas_tpu_torch/csrc/bsr_spmm.cu"
 BAND_SPMM_REPLACES = "spblas_tpu/kernels/banded.py:164"
+# the complex pass replaces the JAX band_cx SpMM's four _spmm_kernel
+# products (spblas_tpu/kernels/plans.py:95-101)
+BAND_CX_REPLACES = BAND_SPMM_REPLACES
 BAND_STREAM_REPLACES = "spblas_tpu/kernels/banded.py:403"
 BSR_SPMV_REPLACES = "spblas_tpu/kernels/bsr_pallas.py:128"
 BSR_SPMM_REPLACES = "spblas_tpu/kernels/bsr_pallas.py:33"
@@ -321,6 +334,7 @@ WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "route_spmv": rsp.route_spmv_padded,
             "route_paned_spmv": rpn.route_paned_spmv_padded,
             "band_spmm": banded.band_spmm_padded,
+            "band_spmm_cx": banded.band_spmm_cx,
             "band_spmm_stream": banded.band_spmm_stream_padded,
             "bsr_spmv": bk.bsr_spmv_blocks,
             "bsr_spmm": bk.bsr_spmm_blocks,
@@ -339,9 +353,11 @@ KIND_KERNELS = {"band": ("band_spmv",), "bsr": ("bsr_spmv",),
                 "route1_sorted": ("route_spmv", "route2_spmv"),
                 "route_paned": ("route_paned_spmv",)}
 # kind -> the kernels its main-path SpMM call must launch (the band kind
-# at the spmm_banded shape streams B: its resident B passes 6 MB)
+# at the spmm_banded shape streams B: its resident B passes 6 MB; the
+# small band cell names its own, the resident kernel)
 SPMM_KIND_KERNELS = {"band": ("band_spmm_stream",), "bsr": ("bsr_spmm",),
-                     "band_perm": ("band_spmm",), "band_cx": ("band_spmm",)}
+                     "band_perm": ("band_spmm",),
+                     "band_cx": ("band_spmm_cx",)}
 # engine -> the kernels a main-path SpGEMM (compute, then one fill; for
 # BSR the one-shot multiply) must launch
 SPGEMM_KIND_KERNELS = {"resident": ("route2_mul",),
@@ -1011,14 +1027,18 @@ def library_mm_ms(a, b):
 def band_spmm_case(name, plan, k, seed, rates, card, csr=None,
                    full=False):
     """Both band SpMM kernels on one plan and one B against their plain
-    version; returns one record per kernel.  ``full``: the streamed
-    (tensor-core) kernel also on all-positive operands, |A| and |B|, and
-    10 times on one input for the same bits."""
+    version, each 10 times on one input for the same bits, and each in
+    its in-place form (B unpadded at pad_l: the plan entry points' read)
+    for the padded form's bits, timed beside the padded form and the
+    ``pad_b`` copy it dropped; returns one record per kernel.  ``full``:
+    the streamed (tensor-core) kernel also on all-positive operands, |A|
+    and |B|."""
     b = dense_operands(plan.shape[1], k, seed)[0]
     bp = banded.pad_b(plan, b)
     c_p = banded.band_spmm_reference(plan.panels, bp)
     absd = banded.band_spmm_reference(plan.panels.abs(), bp.abs())
     rows, w = plan.panels.shape
+    m = plan.shape[0]
     # panels, the padded B and C, each once; the padded product's flops
     nbytes = (plan.panels.numel() * plan.panels.element_size()
               + bp.numel() * 4 + rows * k * 4)
@@ -1030,34 +1050,185 @@ def band_spmm_case(name, plan, k, seed, rates, card, csr=None,
                                    absd, absd)
         log(f"[check] band_spmm_stream {name} all-positive: in bound, "
             f"err / limit {pos_ratio:.4f}")
-        same_bits(f"band_spmm_stream {name}",
-                  banded.band_spmm_stream_padded, (plan.panels, bp))
         del pos
     ins = replicas(lambda: (plan.panels.clone(), bp.clone()), nbytes)
+    ins_b = replicas(lambda: (plan.panels.clone(), b.clone()), nbytes)
     p_ms = device_ms(banded.band_spmm_reference, ins)
+    pad_ms = device_ms(lambda _, bb: banded.pad_b(plan, bb), ins_b)
     l_ms = library_mm_ms(csr, b) if csr is not None else None
     recs = []
-    for kname, fn in (("band_spmm", banded.band_spmm_padded),
-                      ("band_spmm_stream", banded.band_spmm_stream_padded)):
+    for kname, fn, fused in (
+            ("band_spmm", banded.band_spmm_padded,
+             banded.band_spmm_inplace),
+            ("band_spmm_stream", banded.band_spmm_stream_padded,
+             banded.band_spmm_stream_inplace)):
         c_k = fn(plan.panels, bp)
         torch.cuda.synchronize()
         err, ratio = limit_check(c_k, c_p, absd)
         log(f"[check] {kname} {name}: in bound, max |err| {err:.3e}, "
             f"err / limit {ratio:.4f}")
+        same_bits(f"{kname} {name}", fn, (plan.panels, bp))
+
+        def inplace(p, bb, fused=fused):
+            return fused(p, bb, plan.pad_l, m)
+
+        require(torch.equal(inplace(plan.panels, b), c_k[:m]),
+                f"{kname} {name}: B in place differs from the padded B")
         del c_k
         k_ms = device_ms(fn, ins)
-        recs.append({"kernel": kname, "case": name, "m": plan.shape[0],
+        i_ms = device_ms(inplace, ins_b)
+        log(f"[time] {kname} {name}: padded B {k_ms:.4f} ms + pad_b "
+            f"{pad_ms:.4f} ms; B in place {i_ms:.4f} ms (same bits)")
+        recs.append({"kernel": kname, "case": name, "m": m,
                      "n": plan.shape[1], "k": k, "width": w,
+                     "pad_l": plan.pad_l,
                      "panels": str(plan.panels.dtype).split(".")[-1],
                      "max_abs_err": err, "max_err_over_limit": ratio,
-                     "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "same_bits_runs": 10, "kernel_ms": k_ms,
+                     "inplace_ms": i_ms, "pad_b_ms": pad_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
                      "tc_bound_ms": tc_ms, "tc_bound_by": tc_by,
                      "plain_ms": p_ms, "library_ms": l_ms,
                      "flop_s": 2 * rows * w * k / (k_ms * 1e-3),
                      "card": card})
         if full and kname == "band_spmm_stream":
             recs[-1]["all_positive_err_over_limit"] = pos_ratio
-    del ins, c_p, absd, bp
+    del ins, ins_b, c_p, absd, bp
+    torch.cuda.empty_cache()
+    return recs
+
+
+def band_perm_spmm_case(name, pp, k, seed, rates, card, csr):
+    """The permuted band's SpMM in one resident launch (B's rows gathered
+    by perm as the kernel reads them, C's rows written through perm)
+    against its plain version, 10 times for the same bits, bit-equal to
+    the unfused path it replaced (B padded and gathered by
+    ``index_select``, the padded kernel, C gathered back by rank), and
+    timed beside that path's three parts."""
+    band = pp.band
+    m = pp.shape[0]
+    rows, w = band.panels.shape
+    mp = pp.perm.shape[0]
+    b = dense_operands(m, k, seed)[0]
+
+    def fused(p, bb):
+        return banded.band_spmm_inplace(p, bb, band.pad_l, m, perm=pp.perm)
+
+    def gather(bb):
+        return banded.pad_b(band, banded._pad_rows(bb, mp).index_select(
+            0, pp.perm)[:m])
+
+    def scatter(cc):
+        return banded._pad_rows(cc, mp).index_select(0, pp.rank)[:m]
+
+    c_k = fused(band.panels, b)
+    torch.cuda.synchronize()
+    c_p = banded.band_spmm_inplace_reference(band.panels, b, band.pad_l, m,
+                                             pp.perm)
+    absd = banded.band_spmm_inplace_reference(band.panels.abs(), b.abs(),
+                                              band.pad_l, m, pp.perm)
+    err, ratio = limit_check(c_k, c_p, absd)
+    log(f"[check] band_spmm {name} (fused gather and scatter): in bound, "
+        f"max |err| {err:.3e}, err / limit {ratio:.4f}")
+    same_bits(f"band_spmm {name} (fused)", fused, (band.panels, b))
+    c_u = banded.band_spmm_padded(band.panels, gather(b))
+    require(torch.equal(scatter(c_u), c_k),
+            f"band_spmm {name}: the fused launch differs from the unfused "
+            f"path's bits")
+    del c_p, absd, c_k
+    # panels, B, C and perm, each once
+    nbytes = (band.panels.numel() * band.panels.element_size()
+              + 2 * m * k * 4 + mp * 4)
+    b_ms, b_by = bound(nbytes, 2 * rows * w * k, rates)
+    tc_ms, tc_by = tc_bound(nbytes, 2 * rows * w * k, rates)
+    ins = replicas(lambda: (band.panels.clone(), b.clone()), nbytes)
+    k_ms = device_ms(fused, ins)
+    g_ms = device_ms(gather, [(bb,) for _, bb in ins])
+    bps = [(p, gather(bb)) for p, bb in ins[:2]]
+    u_ms = device_ms(banded.band_spmm_padded, bps)
+    s_ms = device_ms(scatter, [(c_u,), (c_u.clone(),)])
+    p_ms = device_ms(lambda p, bb: banded.band_spmm_inplace_reference(
+        p, bb, band.pad_l, m, pp.perm), ins[:2], reps=4)
+    l_ms = library_mm_ms(csr, b)
+    log(f"[time] band_spmm {name}: fused {k_ms:.4f} ms; unfused: gather "
+        f"{g_ms:.4f} + kernel {u_ms:.4f} + scatter {s_ms:.4f} ms")
+    del ins, bps, c_u
+    torch.cuda.empty_cache()
+    return {"kernel": "band_spmm", "case": name, "m": m, "n": m, "k": k,
+            "width": w, "pad_l": band.pad_l, "panels": "float32",
+            "form": "fused perm", "max_abs_err": err,
+            "max_err_over_limit": ratio, "same_bits_runs": 10,
+            "kernel_ms": k_ms, "unfused_gather_ms": g_ms,
+            "unfused_kernel_ms": u_ms, "unfused_scatter_ms": s_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "tc_bound_ms": tc_ms,
+            "tc_bound_by": tc_by, "plain_ms": p_ms, "library_ms": l_ms,
+            "flop_s": 2 * rows * w * k / (k_ms * 1e-3), "card": card}
+
+
+def band_cx_spmm_case(name, planes, csr, k, seed, rates, card):
+    """The complex pass (one launch over both panel planes) with a
+    complex64 and a real B against its plain version, 10 times for the
+    same bits and within twice the limit of the four real resident
+    products it replaced, timed beside them (their B splits and the
+    complex assembly included); returns one record per B."""
+    pr, pi = planes
+    m, n = pr.shape
+    rows, w = pr.panels.shape
+    mod = torch.sqrt(pr.panels ** 2 + pi.panels ** 2)
+    bc = dense_operands(n, k, seed, cx=True)[0]
+
+    def one(p0, p1, bb):
+        return banded.band_spmm_cx(p0, p1, bb, pr.pad_l, m)
+
+    def plain(p0, p1, bb):
+        return banded.band_spmm_cx_reference(p0, p1, bb, pr.pad_l, m)
+
+    def four(p0, p1, bb):
+        return plans._cx_apply(banded.band_spmm, (
+            dataclasses.replace(pr, panels=p0),
+            dataclasses.replace(pi, panels=p1)), bb)
+
+    recs = []
+    for label, b in (("", bc), ("_real_b", bc.real.contiguous())):
+        case = f"{name}{label}"
+        c_k = one(pr.panels, pi.panels, b)
+        torch.cuda.synchronize()
+        absd = banded.band_spmm_inplace_reference(mod, b.abs(), pr.pad_l, m)
+        err, ratio = limit_check(c_k, plain(pr.panels, pi.panels, b), absd)
+        err4, _ = limit_check(c_k, four(pr.panels, pi.panels, b), absd,
+                              scale=2.0)
+        log(f"[check] band_spmm_cx {case}: in bound, max |err| {err:.3e}, "
+            f"err / limit {ratio:.4f}; against the four real products "
+            f"{err4:.3e}")
+        same_bits(f"band_spmm_cx {case}", one, (pr.panels, pi.panels, b))
+        del c_k, absd
+        # both planes, B and the complex C, each once; 8 flops a complex
+        # multiply-add (4 with a real B)
+        nbytes = (2 * rows * w * 4 + b.numel() * b.element_size()
+                  + m * k * 8)
+        flops = (8 if b.is_complex() else 4) * rows * w * k
+        b_ms, b_by = bound(nbytes, flops, rates)
+        tc_ms, tc_by = tc_bound(nbytes, flops, rates)
+        ins = replicas(lambda: (pr.panels.clone(), pi.panels.clone(),
+                                b.clone()), nbytes)
+        k_ms = device_ms(one, ins)
+        f_ms = device_ms(four, ins)
+        p_ms = device_ms(plain, ins[:2], reps=4)
+        l_ms = library_mm_ms(csr, b.to(torch.complex64))
+        log(f"[time] band_spmm_cx {case}: {k_ms:.4f} ms; four real "
+            f"products {f_ms:.4f} ms")
+        recs.append({"kernel": "band_spmm_cx", "case": case, "m": m,
+                     "n": n, "k": k, "width": w, "pad_l": pr.pad_l,
+                     "b": str(b.dtype).split(".")[-1], "max_abs_err": err,
+                     "max_err_over_limit": ratio,
+                     "max_abs_err_vs_four": err4, "same_bits_runs": 10,
+                     "kernel_ms": k_ms, "four_apply_ms": f_ms,
+                     "four_apply_launches": 4, "bound_ms": b_ms,
+                     "bound_by": b_by, "tc_bound_ms": tc_ms,
+                     "tc_bound_by": tc_by, "plain_ms": p_ms,
+                     "library_ms": l_ms,
+                     "flop_s": flops / (k_ms * 1e-3), "card": card})
+        del ins
     torch.cuda.empty_cache()
     return recs
 
@@ -1526,10 +1697,12 @@ def spmm_check(a, b, c, scale):
     return err, ratio
 
 
-def main_path_spmm(name, a, kind, k, seed, card, opt=None):
+def main_path_spmm(name, a, kind, k, seed, card, opt=None, expect=None):
     """``multiply(scaled(2.0, matrix_opt(A)), B)``: the first call (plan
     build included, unless ``opt`` already holds one), the check against
-    float64, and 20 timed calls over distinct B."""
+    float64, and 20 timed calls over distinct B.  ``expect``: the kernels
+    the call must launch, where ``SPMM_KIND_KERNELS`` names others for
+    the kind."""
     cx = a.dtype.is_complex
     n = a.shape[1]
     count = max(2, min(20, _SPMM_OPERAND_BYTES // (n * k * (8 if cx
@@ -1566,11 +1739,8 @@ def main_path_spmm(name, a, kind, k, seed, card, opt=None):
            "first_call_s": first_s, "ms": ms,
            "distinct_b": count,
            "flop_s": 2 * a.nnz * k / (ms * 1e-3), "card": card}
-    if got == "band":
-        # the wrapper's padded copy of B, made every call (device time)
-        plan = (opt._plans.get("matmul") or opt._plans["matvec"])[1]
-        rec["pad_b_ms"] = device_ms(lambda bb: banded.pad_b(plan, bb),
-                                    [(bb,) for bb in bs[:2]])
+    if expect is not None:
+        rec["kernels"] = list(expect)
     emit(rec)
     del bs
     torch.cuda.empty_cache()
@@ -2647,10 +2817,14 @@ def run():
     pa = permuted_csr(head, pseed)
     rec, plan = main_path(pname, pa, "band_perm", 90, card)
     main.append(rec)
-    spmm_band_recs += band_spmm_case(f"{pname}_k{pk}", plan.band, pk, 91,
-                                     rates, card, csr=pa)
-    main.append(main_path_spmm(f"{pname}_k{pk}", pa, "band_perm", pk, 92,
-                               card)[0])
+    spmm_band_recs.append(band_perm_spmm_case(f"{pname}_k{pk}", plan, pk,
+                                              91, rates, card, pa))
+    spmm_band_recs += band_spmm_case(f"{pname}_k{pk}_padded", plan.band,
+                                     pk, 91, rates, card, csr=pa)
+    rec = main_path_spmm(f"{pname}_k{pk}", pa, "band_perm", pk, 92, card)[0]
+    require(rec["launches"]["band_spmm"] == 1,
+            f"{pname}: {rec['launches']['band_spmm']} band_spmm launches")
+    main.append(rec)
     del pa, plan
     torch.cuda.empty_cache()
     # SpMM over the band (B streamed), SELL, DIA and the complex band
@@ -2669,12 +2843,28 @@ def run():
     ca = gen.generate_banded_csr(m, n, bw, seed=seed, dtype=np.complex64)
     rec, opt = main_path_spmm(cname, ca, "band_cx", ck, 98, card)
     main.append(rec)
-    require(rec["launches"]["band_spmm"] == 4,
-            f"{cname}: {rec['launches']['band_spmm']} band_spmm launches")
+    require(rec["launches"]["band_spmm_cx"] == 1
+            and rec["launches"]["band_spmm"] == 0,
+            f"{cname}: {rec['launches']['band_spmm_cx']} complex and "
+            f"{rec['launches']['band_spmm']} real band SpMM launches")
+    cx_planes = opt._plans["matmul"][1]
+    spmm_cx_recs = band_cx_spmm_case(cname, cx_planes, ca, ck, 97, rates,
+                                     card)
     spmm_band_recs += band_spmm_case(
-        cname, opt._plans["matmul"][1][0], ck, 99, rates, card,
+        f"{cname}_real_plane", cx_planes[0], ck, 99, rates, card,
         csr=dataclasses.replace(ca, values=ca.values.real.contiguous()))
-    del ca, opt
+    del ca, opt, cx_planes
+    # a band whose B fits the resident switch: the resident kernel, B
+    # read in place (its rows past the window trimmed by the read)
+    _, m, n, bw, _, seed = band_cases["odd_h_wide"]
+    sa = gen.generate_banded_csr(m, n, bw, seed=seed)
+    rec = main_path_spmm(f"odd_h_wide_k{SMALL_BAND_K}", sa, "band",
+                         SMALL_BAND_K, 94, card, expect=("band_spmm",))[0]
+    require(rec["launches"]["band_spmm"] == 1
+            and rec["launches"]["band_spmm_stream"] == 0,
+            f"odd_h_wide_k{SMALL_BAND_K}: not one resident launch")
+    main.append(rec)
+    del sa
     torch.cuda.empty_cache()
     # SpGEMM: the two-phase main paths on the mul engines, the block
     # SpGEMM through multiply, and their kernels
@@ -2692,7 +2882,7 @@ def run():
               "trsv": TRSV_KIND_KERNELS, "power": POWER_KIND_KERNELS}
     for r in main:
         table = tables.get(r.get("op"), KIND_KERNELS)
-        for k in table.get(r["kind"], ()):
+        for k in r.get("kernels") or table.get(r["kind"], ()):
             require(r["launches"][k] > 0,
                     f"{r['main_path']} ({r['kind']}) did not launch {k}")
     launches = {k: sum(r["launches"][k] for r in main) for k in WRAPPERS}
@@ -2703,7 +2893,8 @@ def run():
     # main-path call on that matrix (0: a kernel-only shape)
     by_name = {r["main_path"]: r["launches"] for r in main}
     for r in (band_recs + list(dia_recs.values()) + route_recs + [unperm]
-              + cx_recs + v1_recs + paned_recs + spmm_band_recs + bsr_recs
+              + cx_recs + v1_recs + paned_recs + spmm_band_recs
+              + spmm_cx_recs + bsr_recs
               + spgemm_recs + v1_recs_mul + power_recs + solve_recs):
         r["launches"] = by_name.get(r["case"], {}).get(r["kernel"], 0)
         emit(r)
@@ -2742,8 +2933,10 @@ def run():
         line("route_paned_spmv", PANED_SOURCE, PANED_REPLACES,
              paned_recs[-1], paned_recs),
         line("band_spmm", BAND_SPMM_SOURCE, BAND_SPMM_REPLACES,
-             of(spmm_band_recs, "band_spmm", spmm_name)[0],
+             of(spmm_band_recs, "band_spmm", f"{pname}_k{pk}")[0],
              of(spmm_band_recs, "band_spmm")),
+        line("band_spmm_cx", BAND_SPMM_SOURCE, BAND_CX_REPLACES,
+             of(spmm_cx_recs, "band_spmm_cx", cname)[0], spmm_cx_recs),
         line("band_spmm_stream", BAND_SPMM_SOURCE, BAND_STREAM_REPLACES,
              of(spmm_band_recs, "band_spmm_stream", spmm_name)[0],
              of(spmm_band_recs, "band_spmm_stream")),

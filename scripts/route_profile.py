@@ -155,6 +155,11 @@ def _lever(tag, fname, const, value):
 _CONST_B = [(("band_mm",), "band_spmm.cu",
              r"bp \+ \(r0 \+ c0 \+ cc\) \* k \+ col0 \+ j",
              "bp + ((r0 + c0 + cc) & 1023) * k + col0 + j"),
+            (("band_mm",), "band_spmm.cu",
+             r"bp \+ q \* k \+ col0 \+ j", "bp + (q & 1023) * k + col0 + j"),
+            (("band_res",), "band_spmm.cu",
+             r"a\.b \+ static_cast<long long>\(src\[t\]\) \* a\.kf",
+             "a.b + static_cast<long long>(src[t] & 1023) * a.kf"),
             (("bsr_mm",), "bsr_spmm.cu",
              r"b \+ static_cast<long long>\(colind\[e\]\) \* bw \* k", "b"),
             (("bsr_mm",), "bsr_spmm.cu",
@@ -165,6 +170,9 @@ _CONST_A = [(("band_mm",), "band_spmm.cu",
             (("band_mm",), "band_spmm.cu",
              r"panels \+ \(r0 \+ r\) \* w \+ c\b",
              "panels + ((r0 + r) & 1023) * w + c"),
+            (("band_res",), "band_spmm.cu",
+             r"p \+ \(r0 \+ r\) \* a\.w \+ c0 \+ cc",
+             "p + ((r0 + r) & 1023) * a.w + c0 + cc"),
             (("bsr_mm",), "bsr_spmm.cu",
              r"values \+ static_cast<long long>\(e\) \* bh \* bw", "values")]
 # the old FMA bsr_spmm only (whose f32 entry point launches it; the f64
@@ -228,6 +236,22 @@ VARIANTS = {"no_publish": [_PUBLISH], "const_gather": [_GATHER],
             + _lever("bsr_mm", "bsr_spmm.cu", "kWarpsM", "4"),
             "lever_band_mm_warps_n_4": _lever("band_mm", "band_spmm.cu",
                                               "kWarpsN", "4"),
+            # the resident band SpMM's CTAs an SM (its register cap),
+            # columns of W a stage and ring stages
+            "lever_res_blocks_2": _lever("band_res", "band_spmm.cu",
+                                         "kResBlocks", "2"),
+            "lever_res_blocks_4": _lever("band_res", "band_spmm.cu",
+                                         "kResBlocks", "4"),
+            "lever_res_chunk_32": _lever("band_res", "band_spmm.cu",
+                                         "kResChunk", "32"),
+            "lever_res_stages_4": _lever("band_res", "band_spmm.cu",
+                                         "kResStages", "4"),
+            # measurement only (stale shared memory, out of bound): the
+            # resident kernel with its ring filled once, not in the loop
+            "diag_res_no_fetch": [[(("band_res",), "band_spmm.cu",
+                                    r"if \(nx < nchunks\) \{\n(\s+)fetch<T, "
+                                    r"KTF, MODE>",
+                                    "if (false) {\n\\1fetch<T, KTF, MODE>")]],
             # the complex ROUTE2 kernel's blocks an SM; the block
             # SpGEMM's copy ring (f64 and the 16-row tile)
             "lever_cx_min_blocks_4": _lever("cx", "route2_spmv.cu",
@@ -328,10 +352,12 @@ SOURCES = {"v1": ("route_spmv",), "paned": ("route_paned_spmv",),
            "route2": ("route2_spmv",), "solve": ("route2_spmv",),
            "band": ("band_spmv", "band_power"),
            "mul_paned": ("route_mul_paned", "mul_fill"),
-           "band_mm": ("band_spmm",), "bsr_mm": ("bsr_spmm",),
+           "band_mm": ("band_spmm",), "band_res": ("band_spmm",),
+           "bsr_mm": ("bsr_spmm",),
            "cx": ("route2_spmv",), "block_spgemm": ("bsr_spgemm",)}
 # --kernels aliases
 ALIASES = {"spmm": ("band_mm", "bsr_mm"), "route_cx": ("cx",),
+           "resident": ("band_res",),
            "bsr_spgemm": ("block_spgemm",)}
 # source -> (kernel expression, threads, dynamic shared bytes) of each
 # __global__ that a design of it may hold; those a tree lacks fail to
@@ -354,9 +380,21 @@ OCCUPANCY = {
                   ("band::row_kernel<__nv_bfloat16, 8>", "band::kThreads",
                    928),
                   ("band::row_kernel<float, 1>", "band::kThreads", 928)],
-    # the old FMA designs, then the tensor-core ones
+    # the old FMA designs, then the tensor-core ones and the resident
+    # FMA kernel of PR 12 (real k-tiles of 64 and 32 floats, bf16, the
+    # complex pass)
     "band_spmm": [("band_spmm_stream<float, true>", 256, 0),
                   ("band_spmm_stream<__nv_bfloat16, true>", 256, 0),
+                  ("band_spmm_resident<float, true>", 256, 0),
+                  ("res::band_spmm_res<float, 64, 0>", "res::kThreads",
+                   "res::Layout<float, 64, 0>::kSmemBytes"),
+                  ("res::band_spmm_res<float, 32, 0>", "res::kThreads",
+                   "res::Layout<float, 32, 0>::kSmemBytes"),
+                  ("res::band_spmm_res<__nv_bfloat16, 64, 0>",
+                   "res::kThreads",
+                   "res::Layout<__nv_bfloat16, 64, 0>::kSmemBytes"),
+                  ("res::band_spmm_res<float, 64, 1>", "res::kThreads",
+                   "res::Layout<float, 64, 1>::kSmemBytes"),
                   ("tc::band_spmm_tc<float, true, true>", "tc::kThreads",
                    "tc::kSmemBytes"),
                   ("tc::band_spmm_tc<__nv_bfloat16, true, true>",
@@ -973,6 +1011,15 @@ def multiply_ms(torch, sp, opt, bs, reps=20, mm=False):
     return e0.elapsed_time(e1) / reps
 
 
+def _sha1(torch, y):
+    """A hash of a result's bits, to compare two trees' outputs."""
+    import hashlib
+    if y.is_complex():
+        y = torch.view_as_real(y)
+    return hashlib.sha1(y.detach().contiguous().view(torch.uint8).cpu()
+                        .numpy().tobytes()).hexdigest()
+
+
 def band_mm_bench(torch, sp, gen, rec):
     """``band_spmm_stream_padded`` on the headline plan at k 256 with f32
     and bf16 panels (chip_smoke.py's ``band_spmm_case``, seed 85), the
@@ -991,7 +1038,8 @@ def band_mm_bench(torch, sp, gen, rec):
         nbytes = (plan.panels.numel() * plan.panels.element_size()
                   + bp.numel() * 4 + rows * k * 4)
         rec[name] = dict(spmm_bounds(nbytes, 2 * rows * w * k), width=w,
-                         k=k)
+                         k=k, sha1=_sha1(torch, banded.band_spmm_stream_padded(
+                             plan.panels, bp)))
         out[name] = (banded.band_spmm_stream_padded, reps_of(
             lambda p=plan, bb=bp: (p.panels.clone(), bb.clone()), nbytes),
             (banded.band_spmm_stream, (plan, b)), within(
@@ -999,13 +1047,110 @@ def band_mm_bench(torch, sp, gen, rec):
                 banded.band_spmm_reference(p.panels, bb),
                 lambda p=plan, bb=bp:
                 banded.band_spmm_reference(p.panels.abs(), bb.abs())))
+    # chip_smoke.py's bf16 kernel case: odd_h_tall_bf16 at k 64 (seed 97)
+    tall = banded.build_band_plan(gen.generate_banded_csr(
+        60_001, 50_000, 66, seed=13), dtype=torch.bfloat16)
+    bt = dense_b(torch, 50_000, 64, 97)[0]
+    rec["band_stream_bf16_k64"] = {"sha1": _sha1(
+        torch, banded.band_spmm_stream_padded(tall.panels,
+                                              banded.pad_b(tall, bt)))}
     rec["cusparse_ms"] = cusparse_mm_ms(torch, a, b)
     opt = sp.matrix_opt(a)
     bs = dense_b(torch, m, k, 86, 4)
     rec["multiply_ms"] = multiply_ms(torch, sp, opt, bs)
     rec["multiply_kind"] = (opt._plans.get("matmul")
                             or opt._plans["matvec"])[0]
-    del a, opt, bs
+    del a, opt, bs, tall, bt
+    return out
+
+
+# the resident band SpMM's cells (chip_smoke.py's band_spmm_case shapes):
+# (name, m, n, bandwidth, bf16 panels, seed, k); the headline band at
+# k 64 has the permuted band's shape (409,600 rows, W 232)
+_RES = (("res_head_k64", 409_600, 409_600, 100, False, 0, 64),
+        ("res_head_k256", 409_600, 409_600, 100, False, 0, 256),
+        ("res_odd_k33", 100_037, 120_000, 15, False, 11, 33),
+        ("res_bf16_k64", 60_001, 50_000, 66, True, 13, 64))
+
+
+def band_res_bench(torch, sp, gen, rec):
+    """The resident band SpMM (``band_spmm_padded`` over a padded B, as
+    every tree has it) on ``_RES``, each with a hash of its output's
+    bits; on trees with the in-place forms also one launch over a random
+    row index on the headline band at k 64 (``res_perm_k64``, a harder
+    gather than RCM's), and the complex pass (``band_spmm_cx``) on
+    odd_h_wide's structure in complex64 at k 32 (chip_smoke.py's
+    ``CX_BAND_MAIN``), complex and real B."""
+    import numpy as np
+    from spblas_tpu_torch.kernels import banded, plans
+    out, made = {}, {}
+    for name, m, n, bw, bf16, seed, k in _RES:
+        if (m, bf16) not in made:
+            made[m, bf16] = banded.build_band_plan(
+                gen.generate_banded_csr(m, n, bw, seed=seed),
+                dtype=torch.bfloat16 if bf16 else None)
+        plan = made[m, bf16]
+        b = dense_b(torch, n, k, 85)[0]
+        bp = banded.pad_b(plan, b)
+        rows, w = plan.panels.shape
+        nbytes = (plan.panels.numel() * plan.panels.element_size()
+                  + bp.numel() * 4 + rows * k * 4)
+        rec[name] = dict(spmm_bounds(nbytes, 2 * rows * w * k), width=w,
+                         k=k, sha1=_sha1(torch, banded.band_spmm_padded(
+                             plan.panels, bp)))
+        out[name] = (banded.band_spmm_padded, reps_of(
+            lambda p=plan, bb=bp: (p.panels.clone(), bb.clone()), nbytes),
+            (banded.band_spmm, (plan, b)), within(
+                torch, lambda p=plan, bb=bp:
+                banded.band_spmm_reference(p.panels, bb),
+                lambda p=plan, bb=bp:
+                banded.band_spmm_reference(p.panels.abs(), bb.abs())))
+    if not hasattr(banded, "band_spmm_inplace"):
+        return out
+    plan, m, k = made[409_600, False], 409_600, 64
+    rows, w = plan.panels.shape
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    perm = torch.randperm(rows, generator=g, device="cuda").to(torch.int32)
+    b = dense_b(torch, m, k, 85)[0]
+
+    def fused(p, bb):
+        return banded.band_spmm_inplace(p, bb, plan.pad_l, m, perm=perm)
+
+    nbytes = plan.panels.numel() * 4 + 2 * m * k * 4 + rows * 4
+    rec["res_perm_k64"] = dict(spmm_bounds(nbytes, 2 * rows * w * k),
+                               width=w, k=k)
+    out["res_perm_k64"] = (fused, reps_of(
+        lambda: (plan.panels.clone(), b.clone()), nbytes),
+        (fused, (plan.panels, b)), within(
+            torch, lambda: banded.band_spmm_inplace_reference(
+                plan.panels, b, plan.pad_l, m, perm),
+            lambda: banded.band_spmm_inplace_reference(
+                plan.panels.abs(), b.abs(), plan.pad_l, m, perm)))
+    ca = gen.generate_banded_csr(100_037, 120_000, 15, seed=11,
+                                 dtype=np.complex64)
+    pr, pi = plans._build_band_cx(ca)
+    mc, kc = 100_037, 32
+    rows, w = pr.panels.shape
+    mod = torch.sqrt(pr.panels ** 2 + pi.panels ** 2)
+    g.manual_seed(98)
+    bc = torch.complex(torch.rand(120_000, kc, generator=g, device="cuda"),
+                       torch.rand(120_000, kc, generator=g, device="cuda"))
+    for name, bb in (("cx_k32", bc), ("cx_k32_real_b", bc.real.contiguous())):
+        def one(p0, p1, b2):
+            return banded.band_spmm_cx(p0, p1, b2, pr.pad_l, mc)
+
+        nbytes = 2 * rows * w * 4 + bb.numel() * bb.element_size() \
+            + mc * kc * 8
+        flops = (8 if bb.is_complex() else 4) * rows * w * kc
+        rec[name] = dict(spmm_bounds(nbytes, flops), width=w, k=kc)
+        out[name] = (one, reps_of(lambda bb=bb: (
+            pr.panels.clone(), pi.panels.clone(), bb.clone()), nbytes),
+            (plans.band_cx_spmm, ((pr, pi), bb)), within_cx(
+                torch, lambda bb=bb: banded.band_spmm_cx_reference(
+                    pr.panels, pi.panels, bb, pr.pad_l, mc),
+                lambda bb=bb: banded.band_spmm_inplace_reference(
+                    mod, bb.abs(), pr.pad_l, mc)))
     return out
 
 
@@ -1196,6 +1341,7 @@ def spgemm_bench(torch, sp, gen, rec):
 BENCHES = {"v1": v1_bench, "paned": paned_bench, "route2": route2_bench,
            "solve": solve_bench, "band": band_bench,
            "mul_paned": mul_paned_bench, "band_mm": band_mm_bench,
+           "band_res": band_res_bench,
            "bsr_mm": bsr_mm_bench, "cx": cx_bench,
            "block_spgemm": spgemm_bench}
 # worker options the benches read (--graph)
@@ -1232,19 +1378,29 @@ def worker(args):
     chosen = [v for v in args.only_variants.split(",") if v] or VARIANTS
     variants = ["base"] + (list(chosen) if args.variants else [])
     csrc0, build0 = _build.CSRC, _build.BUILD
+    # every variant's sources at once, one nvcc each, all started together
+    started, vtags = {}, {}
+    for v in variants[1:]:
+        vdir = build0 / "variants" / v
+        vsrc, tags = variant_csrc(csrc0, vdir / "csrc", VARIANTS[v])
+        vtags[v] = tags & set(kernels)
+        _build.CSRC, _build.BUILD = vsrc, vdir / "build"
+        started[v] = {n: _build._start(n) for k in vtags[v]
+                      for n in sources(_build, k)}
+    _build.CSRC, _build.BUILD = csrc0, build0
+    prebuilt = {v: {n: ptxas_report(_build._finish(n, st))
+                    for n, st in sts.items()} for v, sts in started.items()}
     for v in variants:
         tags = set(kernels)
         if v != "base":
             vdir = build0 / "variants" / v
-            vsrc, tags = variant_csrc(csrc0, vdir / "csrc", VARIANTS[v])
-            tags &= set(kernels)
+            tags = vtags[v]
             if not tags:
                 continue
-            _build.CSRC, _build.BUILD = vsrc, vdir / "build"
+            _build.CSRC, _build.BUILD = vdir / "csrc", vdir / "build"
             _build._libs.clear()
             _build._fns.clear()
-            report = build_report(_build, [n for k in tags
-                                           for n in sources(_build, k)])
+            report = prebuilt[v]
             rec.setdefault("variant_ptxas", {})[v] = {
                 f: {"registers": r.get("registers"),
                     "spills": r.get("spill_stores", 0)

@@ -1,12 +1,14 @@
-// The register tile of the FMA SpMM kernels: the resident band SpMM
-// (band_spmm.cu, band_spmm_*) and the f64 BSR SpMM (bsr_spmm.cu).  Each
-// thread owns 8 output rows by 4 output columns, takes its 8 A values
-// from a transposed shared-memory chunk (one broadcast read per value
-// across the warp) and its 4 B values from one row of B (16 bytes where
-// the columns allow), and does 32 FMAs per pair of reads.  All sums are
-// f32 (or f64) FMAs, full precision as the TPU kernels' Precision.HIGHEST
-// dots; the streamed band SpMM and the f32 BSR SpMM reach the same
-// accuracy on the tensor cores instead (tf32_mma.cuh).
+// The register tile of the FMA BSR SpMM kernel (bsr_spmm.cu,
+// bsr_spmm_kernel: f64 blocks, and f32 blocks that the tensor cores'
+// split would not keep exact); the resident band SpMM has its own design
+// (band_spmm.cu, namespace res).  Each thread owns 8 output rows by 4
+// output columns, takes its 8 A values from a transposed shared-memory
+// chunk (one broadcast read per value across the warp) and its 4 B
+// values from one row of B (16 bytes where the columns allow), and does
+// 32 FMAs per pair of reads.  All sums are f32 (or f64) FMAs, full
+// precision as the TPU kernels' Precision.HIGHEST dots; the streamed
+// band SpMM and the f32 BSR SpMM reach the same accuracy on the tensor
+// cores instead (tf32_mma.cuh).
 
 #pragma once
 

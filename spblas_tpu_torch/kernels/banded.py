@@ -11,19 +11,28 @@ tensor they run the plain PyTorch version of the same sum:
 
   band_spmv_padded         csrc/band_spmv.cu   (replaces banded.py::
                                                 _spmv_kernel)
-  band_spmm_padded         csrc/band_spmm.cu   (replaces _spmm_kernel)
-  band_spmm_stream_padded  csrc/band_spmm.cu,  (replaces
-                           second entry point   _spmm_stream_kernel)
+  band_spmm_padded,        csrc/band_spmm.cu   (replaces _spmm_kernel)
+  band_spmm_inplace        (resident)
+  band_spmm_cx             csrc/band_spmm.cu,  (the complex band's four
+                           complex entry point  _spmm_kernel products)
+  band_spmm_stream_padded, csrc/band_spmm.cu,  (replaces
+  band_spmm_stream_inplace stream entry point   _spmm_stream_kernel)
   band_power_padded        csrc/band_power.cu  (replaces _power_kernel)
+
+The SpMM kernels read B where it lies (``*_inplace``, ``band_spmm_cx``):
+the plan entry points make no padded copy of B (:func:`pad_b` is the
+``*_padded`` forms' operand).
 
 :func:`band_plan_from_diags` lays a band out from DIA storage on the
 diagonals' own device (torch ops, no host traffic), the device-side plan
 builder of the bench's headline band.
 
 :class:`PermutedBandPlan` is the RCM-reordered band of a general square
-matrix (kind ``band_perm``); its permutations are ``index_select`` by
-``perm`` and ``rank`` (the JAX package sorts by key, since the TPU has
-no fast gather; both are exact).
+matrix (kind ``band_perm``).  Its SpMV permutes x and y by
+``index_select`` by ``perm`` and ``rank`` (the JAX package sorts by key,
+since the TPU has no fast gather; both are exact); its SpMM hands
+``perm`` to the resident kernel, which gathers B's rows and scatters C's
+as it reads and writes them.
 """
 
 from __future__ import annotations
@@ -229,24 +238,139 @@ def band_spmm_reference(panels: torch.Tensor,
     return c.reshape(nblk * _R, -1)
 
 
-# (panels, bp, c, rows, w, k, vec, stream) of band_spmm*_{f32,bf16}
-_SPMM_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                  ctypes.c_void_p)
+def _window_rows(b: torch.Tensor, pad_l: int, length: int,
+                 perm: torch.Tensor | None = None) -> torch.Tensor:
+    """The rows the kernels read from B in place, as a (length, k) copy:
+    window row q is B row q - pad_l (or perm[q - pad_l]), zero where that
+    falls outside B's rows."""
+    src = torch.arange(length, device=b.device) - pad_l
+    if perm is not None:
+        inside = (src >= 0) & (src < perm.shape[0])
+        src = torch.where(inside, perm.long()[src.clamp(0, max(
+            perm.shape[0] - 1, 0))], -1)
+    valid = (src >= 0) & (src < b.shape[0])
+    bp = b.new_zeros((length,) + tuple(b.shape[1:]))
+    bp[valid] = b[src[valid]]
+    return bp
 
 
-def _launch_spmm(entry: str, panels: torch.Tensor,
-                 bp: torch.Tensor) -> torch.Tensor:
+def _scatter_rows(c: torch.Tensor, m: int,
+                  perm: torch.Tensor | None = None) -> torch.Tensor:
+    """Band row j as C row j (perm[j] with ``perm``), rows below m."""
+    if perm is None:
+        return c[:m]
+    dst = perm.long()
+    keep = dst < m
+    out = c.new_zeros((m,) + tuple(c.shape[1:]))
+    out[dst[keep]] = c[keep]
+    return out
+
+
+def band_spmm_inplace_reference(panels: torch.Tensor, b: torch.Tensor,
+                                pad_l: int, m: int,
+                                perm: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """Plain PyTorch version of the kernels' in-place read of B: the
+    windows of :func:`band_spmm_reference` over B's rows shifted by pad_l
+    (or gathered by ``perm``), zeros outside B; C's rows by
+    :func:`_scatter_rows`.  Returns (m, k) f32."""
     rows, w = panels.shape
-    k = int(bp.shape[1])
-    c = torch.empty(rows, k, dtype=torch.float32, device=panels.device)
-    vec = int(k % 4 == 0 and bp.data_ptr() % 16 == 0
-              and c.data_ptr() % 16 == 0)
+    bp = _window_rows(b.float(), pad_l, rows - _R + w, perm)
+    return _scatter_rows(band_spmm_reference(panels, bp), m, perm)
+
+
+def band_spmm_cx_reference(panels_re: torch.Tensor, panels_im: torch.Tensor,
+                           b: torch.Tensor, pad_l: int,
+                           m: int) -> torch.Tensor:
+    """Plain PyTorch version of the complex pass: (P_re + i P_im) @ B
+    over the in-place windows of B (complex64 or real), each row block's
+    product in complex128; returns (m, k) complex64."""
+    rows, w = panels_re.shape
+    nblk = rows // _R
+    bp = _window_rows(b, pad_l, rows - _R + w)
+    windows = bp.unfold(0, w, _R).transpose(1, 2)          # (nblk, w, k)
+    p = torch.complex(panels_re.double(), panels_im.double())
+    c = torch.bmm(p.view(nblk, _R, w), windows.to(torch.complex128))
+    return c.reshape(rows, -1)[:m].to(torch.complex64)
+
+
+def _check_inplace(panels: torch.Tensor, b: torch.Tensor, pad_l: int,
+                   m: int, perm: torch.Tensor | None = None,
+                   b_dtypes=(torch.float32,)) -> None:
+    """The checks of the in-place SpMM forms: B (n, k) contiguous beside
+    the panels, 0 <= pad_l, 0 <= m <= rows, and ``perm`` (rows,) int32."""
+    if panels.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"panels must be float32 or bfloat16, got "
+                        f"{panels.dtype}")
+    if b.dtype not in b_dtypes:
+        raise TypeError(f"b must be {' or '.join(map(str, b_dtypes))}, "
+                        f"got {b.dtype}")
+    if panels.dim() != 2 or panels.shape[0] % _R or b.dim() != 2:
+        raise ValueError(f"bad shapes: panels {tuple(panels.shape)}, b "
+                         f"{tuple(b.shape)}")
+    if panels.device != b.device:
+        raise ValueError(f"panels on {panels.device}, b on {b.device}")
+    if not (panels.is_contiguous() and b.is_contiguous()):
+        raise ValueError("panels and b must be contiguous")
+    rows = panels.shape[0]
+    if pad_l < 0 or not 0 <= m <= rows:
+        raise ValueError(f"pad_l {pad_l} and m {m} must be >= 0, m <= "
+                         f"{rows}")
+    if perm is not None and (perm.dtype != torch.int32
+                             or tuple(perm.shape) != (rows,)
+                             or perm.device != panels.device
+                             or not perm.is_contiguous()):
+        raise ValueError(f"perm must be a contiguous ({rows},) int32 "
+                         f"tensor beside the panels")
+
+
+# (panels, b, index, c, rows, w, k, n, pad_l, m, stream) of
+# band_spmm_{f32,bf16}
+_RES_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (
+    ctypes.c_void_p,)
+# (panels, b, c, rows, w, k, n, pad_l, m, stream) of band_spmm_stream_*
+_STREAM_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (
+    ctypes.c_void_p,)
+# (panels_re, panels_im, b, c, rows, w, k, n, pad_l, m, b_complex,
+# stream) of band_spmm_cx
+_CX_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (
+    ctypes.c_void_p,)
+
+
+def _symbol(entry: str, panels: torch.Tensor) -> str:
+    return entry + ("_bf16" if panels.dtype == torch.bfloat16 else "_f32")
+
+
+def _launch_resident(panels: torch.Tensor, b: torch.Tensor, pad_l: int,
+                     m: int, perm: torch.Tensor | None) -> torch.Tensor:
+    """One launch of the resident kernel; counted on
+    :func:`band_spmm_padded`."""
+    rows, w = panels.shape
+    n, k = b.shape
+    c = torch.empty(m, k, dtype=torch.float32, device=panels.device)
     stream = torch.cuda.current_stream(panels.device).cuda_stream
-    symbol = entry + ("_bf16" if panels.dtype == torch.bfloat16 else "_f32")
-    _build.check(_build.function("band_spmm", symbol, _SPMM_ARGTYPES)(
-        panels.data_ptr(), bp.data_ptr(), c.data_ptr(), rows, w, k, vec,
-        stream), entry)
+    _build.check(_build.function(
+        "band_spmm", _symbol("band_spmm", panels), _RES_ARGTYPES)(
+        panels.data_ptr(), b.data_ptr(),
+        None if perm is None else perm.data_ptr(), c.data_ptr(), rows, w,
+        k, n, pad_l, m, stream), "band_spmm")
+    band_spmm_padded.launches += 1
+    return c
+
+
+def _launch_stream(panels: torch.Tensor, b: torch.Tensor, pad_l: int,
+                   m: int) -> torch.Tensor:
+    """One launch of the tensor-core kernel; counted on
+    :func:`band_spmm_stream_padded`."""
+    rows, w = panels.shape
+    n, k = b.shape
+    c = torch.empty(m, k, dtype=torch.float32, device=panels.device)
+    stream = torch.cuda.current_stream(panels.device).cuda_stream
+    _build.check(_build.function(
+        "band_spmm", _symbol("band_spmm_stream", panels), _STREAM_ARGTYPES)(
+        panels.data_ptr(), b.data_ptr(), c.data_ptr(), rows, w, k, n, pad_l,
+        m, stream), "band_spmm_stream")
+    band_spmm_stream_padded.launches += 1
     return c
 
 
@@ -254,14 +378,13 @@ def band_spmm_padded(panels: torch.Tensor,
                      bp: torch.Tensor) -> torch.Tensor:
     """Core panel SpMM over pre-padded f32 B (rows >= nblk*128 + W - 128)
     with B read from device memory; returns (nblk * 128, k) f32.  CUDA
-    tensors launch ``band_spmm.cu``'s resident entry point; CPU tensors
-    take :func:`band_spmm_reference`."""
+    tensors launch ``band_spmm.cu``'s resident entry point (pad_l 0, no
+    index); CPU tensors take :func:`band_spmm_reference`.  ``launches``
+    counts every resident launch, the in-place forms' too."""
     _check_operands(panels, bp, ndim=2)
     if not _t.on_cuda(panels):
         return band_spmm_reference(panels, bp)
-    c = _launch_spmm("band_spmm", panels, bp)
-    band_spmm_padded.launches += 1
-    return c
+    return _launch_resident(panels, bp, 0, panels.shape[0], None)
 
 
 band_spmm_padded.launches = 0
@@ -271,48 +394,115 @@ def band_spmm_stream_padded(panels: torch.Tensor,
                             bp: torch.Tensor) -> torch.Tensor:
     """The same product with each row block's B window streamed through
     shared memory; CUDA tensors launch ``band_spmm.cu``'s stream entry
-    point, CPU tensors take :func:`band_spmm_reference`."""
+    point, CPU tensors take :func:`band_spmm_reference`.  ``launches``
+    counts its in-place form's launches too."""
     _check_operands(panels, bp, ndim=2)
     if not _t.on_cuda(panels):
         return band_spmm_reference(panels, bp)
-    c = _launch_spmm("band_spmm_stream", panels, bp)
-    band_spmm_stream_padded.launches += 1
-    return c
+    return _launch_stream(panels, bp, 0, panels.shape[0])
 
 
 band_spmm_stream_padded.launches = 0
 
 
+def band_spmm_inplace(panels: torch.Tensor, b: torch.Tensor, pad_l: int,
+                      m: int, perm: torch.Tensor | None = None
+                      ) -> torch.Tensor:
+    """The resident product with B read where it lies, no padded copy:
+    window row q of a row block reads B row q - pad_l, zero outside
+    [0, n); with ``perm`` (a permutation of [0, rows), as
+    :class:`PermutedBandPlan` holds) it reads B row perm[q - pad_l], zero
+    where that is >= n, and band row j is written to C row perm[j].
+    Returns (m, k) f32 C, rows at or past m dropped.  CUDA tensors launch
+    the resident kernel, CPU tensors take
+    :func:`band_spmm_inplace_reference`."""
+    _check_inplace(panels, b, pad_l, m, perm)
+    if not _t.on_cuda(panels):
+        return band_spmm_inplace_reference(panels, b, pad_l, m, perm)
+    return _launch_resident(panels, b, pad_l, m, perm)
+
+
+def band_spmm_stream_inplace(panels: torch.Tensor, b: torch.Tensor,
+                             pad_l: int, m: int) -> torch.Tensor:
+    """:func:`band_spmm_inplace` (no index) on the tensor-core kernel."""
+    _check_inplace(panels, b, pad_l, m)
+    if not _t.on_cuda(panels):
+        return band_spmm_inplace_reference(panels, b, pad_l, m)
+    return _launch_stream(panels, b, pad_l, m)
+
+
+def band_spmm_cx(panels_re: torch.Tensor, panels_im: torch.Tensor,
+                 b: torch.Tensor, pad_l: int, m: int) -> torch.Tensor:
+    """C = (P_re + i P_im) @ B over two f32 panel planes of one band (the
+    same width and pad_l) in one pass, B (n, k) complex64 or f32 read in
+    place as :func:`band_spmm_inplace` reads it; returns (m, k)
+    complex64.  CUDA tensors launch ``band_spmm.cu``'s complex entry
+    point, CPU tensors take :func:`band_spmm_cx_reference`."""
+    if panels_re.shape != panels_im.shape or panels_im.dtype != \
+            torch.float32 or panels_re.device != panels_im.device \
+            or not panels_im.is_contiguous():
+        raise ValueError("the two planes must be contiguous float32 "
+                         "panels of one shape")
+    _check_inplace(panels_re, b, pad_l, m,
+                   b_dtypes=(torch.complex64, torch.float32))
+    if panels_re.dtype != torch.float32:
+        raise TypeError(f"complex planes must be float32, got "
+                        f"{panels_re.dtype}")
+    if not _t.on_cuda(panels_re):
+        return band_spmm_cx_reference(panels_re, panels_im, b, pad_l, m)
+    rows, w = panels_re.shape
+    n, k = b.shape
+    c = torch.empty(m, k, dtype=torch.complex64, device=panels_re.device)
+    stream = torch.cuda.current_stream(panels_re.device).cuda_stream
+    _build.check(_build.function("band_spmm", "band_spmm_cx", _CX_ARGTYPES)(
+        panels_re.data_ptr(), panels_im.data_ptr(), b.data_ptr(),
+        c.data_ptr(), rows, w, k, n, pad_l, m, int(b.is_complex()),
+        stream), "band_spmm_cx")
+    band_spmm_cx.launches += 1
+    return c
+
+
+band_spmm_cx.launches = 0
+
+
 def pad_b(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
-    """B as the SpMM kernels read it: f32, rows shifted down by pad_l,
-    then padded or trimmed to L = nblk*128 - 128 + W rows (the JAX padding
-    of ``band_spmm``).  At the bench's spmm_banded shape this is a copy of
-    B made every call."""
+    """B as :func:`band_spmm_padded` reads it: f32, rows shifted down by
+    pad_l, then padded or trimmed to L = nblk*128 - 128 + W rows (the JAX
+    padding of ``band_spmm``).  A copy of B; the plan entry points read B
+    in place instead."""
     n = plan.shape[1]
     L = plan.nblocks * _R - _R + plan.width
     bp = F.pad(b.float(), (0, 0, plan.pad_l, max(0, L - plan.pad_l - n)))
     return bp[:L].contiguous()
 
 
+def _b_operand(b: torch.Tensor) -> torch.Tensor:
+    """B as the kernels read it in place: f32 and contiguous; another
+    dtype or a strided view is converted by one copy."""
+    if b.dtype == torch.float32 and b.is_contiguous():
+        return b
+    return b.float().contiguous()
+
+
 def band_spmm(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
-    """C = A @ B (dense (n, k) B) over the panel layout, B read from
-    device memory."""
-    c = band_spmm_padded(plan.panels, pad_b(plan, b))
-    return c[: plan.shape[0]].to(
-        torch.promote_types(plan.panels.dtype, b.dtype))
+    """C = A @ B (dense (n, k) B) over the panel layout on the resident
+    kernel, B read in place."""
+    c = band_spmm_inplace(plan.panels, _b_operand(b), plan.pad_l,
+                          plan.shape[0])
+    return c.to(torch.promote_types(plan.panels.dtype, b.dtype))
 
 
 def band_spmm_stream(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
     """C = A @ B with each row block's B window streamed through shared
-    memory, on the tensor cores.  Panels with nonzero f32 entries below
-    2^-112 (``plan.tf32_exact`` False), where the 3xTF32 split keeps fewer
-    bits, take :func:`band_spmm`'s f32 FMAs instead.  B is not tested
-    (``csrc/tf32_mma.cuh``, Limits)."""
+    memory, on the tensor cores, B read in place.  Panels with nonzero
+    f32 entries below 2^-112 (``plan.tf32_exact`` False), where the
+    3xTF32 split keeps fewer bits, take :func:`band_spmm`'s f32 FMAs
+    instead.  B is not tested (``csrc/tf32_mma.cuh``, Limits)."""
     if not plan.tf32_exact:
         return band_spmm(plan, b)
-    c = band_spmm_stream_padded(plan.panels, pad_b(plan, b))
-    return c[: plan.shape[0]].to(
-        torch.promote_types(plan.panels.dtype, b.dtype))
+    c = band_spmm_stream_inplace(plan.panels, _b_operand(b), plan.pad_l,
+                                 plan.shape[0])
+    return c.to(torch.promote_types(plan.panels.dtype, b.dtype))
 
 
 def band_power_reference(panels: torch.Tensor, xp: torch.Tensor,
@@ -449,6 +639,10 @@ def permuted_band_spmv(plan: PermutedBandPlan, x: torch.Tensor
 
 def permuted_band_spmm(plan: PermutedBandPlan, b: torch.Tensor
                        ) -> torch.Tensor:
-    """C = A @ B over the permuted band, with the resident band SpMM (as
-    JAX's ``plan_spmm`` does for ``band_perm``)."""
-    return _permuted_apply(band_spmm, plan, b)
+    """C = A @ B over the permuted band with the resident band SpMM (as
+    JAX's ``plan_spmm`` does for ``band_perm``), in one launch: the
+    kernel gathers B's rows by perm as it reads them and writes C's rows
+    through perm, so neither is copied."""
+    c = band_spmm_inplace(plan.band.panels, _b_operand(b), plan.band.pad_l,
+                          plan.shape[0], perm=plan.perm)
+    return c.to(torch.promote_types(plan.band.panels.dtype, b.dtype))

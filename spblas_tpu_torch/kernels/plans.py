@@ -10,7 +10,8 @@ the matrix living on a CUDA device.  The matvec ladder, in order:
   stencil/mesh           -> DIA plan (csrc/dia_spmv.cu behind its gate)
   square, RCM-bandable   -> permuted band plan (band_perm: native RCM,
                             index_select permutations, band_spmv.cu)
-  banded, complex64      -> two real band plans (band_cx)
+  banded, complex64      -> two real band plans (band_cx; SpMM: one
+                            pass of the complex kernel, band_spmm_cx)
   general, on CUDA       -> ROUTE2 plan (csrc/route2_spmv.cu), kind route;
                             hub-heavy rows: ROUTE v1 (csrc/route_spmv.cu),
                             kind route1, or degree-sorted v1 plus a ROUTE2
@@ -27,7 +28,9 @@ The matmul ladder (:func:`build_matmul_plan`) shares the structured
 rungs (``STRUCTURED_KINDS``; the plan cache aliases them across the
 ``matvec`` and ``matmul`` keys) and sends general sparsity to SELL.
 :func:`plan_spmm` runs the band SpMM kernels (``csrc/band_spmm.cu``,
-resident or streamed B by the JAX 6 MB switch), the BSR SpMM kernel
+resident or streamed B by the JAX 6 MB switch, B read in place; the
+permuted band and the complex band on the resident kernel's index and
+complex entry points), the BSR SpMM kernel
 (``csrc/bsr_spmm.cu``) and the DIA and SELL products as torch ops.
 
 Thresholds and envelopes are the JAX package's (``plans.py:46-64``,
@@ -51,6 +54,7 @@ from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.convert import to_csr
 from spblas_tpu_torch.formats.csr import CSR, host_arrays
 from spblas_tpu_torch.kernels.banded import (band_halfwidth, band_spmm,
+                                             band_spmm_cx,
                                              band_spmm_stream, band_spmv,
                                              build_band_plan,
                                              build_permuted_band_plan,
@@ -150,8 +154,19 @@ def band_cx_spmv(plans, x):
 
 
 def band_cx_spmm(plans, b):
-    """Complex band SpMM: four real resident panel SpMMs."""
-    return _cx_apply(band_spmm, plans, b)
+    """Complex band SpMM: one pass of the complex kernel over both panel
+    planes (``band_spmm_cx``), B (complex64, or real: two products) read
+    in place; JAX runs four real panel SpMMs.  The planes must share
+    their width and pad_l, as ``_build_band_cx`` builds them."""
+    pr, pi = plans
+    if pr.panels.shape != pi.panels.shape or pr.pad_l != pi.pad_l:
+        raise ValueError(f"band_cx planes differ: panels "
+                         f"{tuple(pr.panels.shape)} and "
+                         f"{tuple(pi.panels.shape)}, pad_l {pr.pad_l} "
+                         f"and {pi.pad_l}")
+    b = b.to(torch.complex64) if b.is_complex() else b.float()
+    return band_spmm_cx(pr.panels, pi.panels, b.contiguous(), pr.pad_l,
+                        pr.shape[0])
 
 
 def _dia_or_none(a):

@@ -313,12 +313,12 @@ def test_low_end_operands_take_the_exact_kernels(monkeypatch):
     calls = []
     band = banded.build_band_plan(tsp.CSR.from_dense(
         np.triu(np.tril(dense[:, :m], 3), -3), device="cpu"))
-    monkeypatch.setattr(banded, "band_spmm_padded",
+    monkeypatch.setattr(banded, "band_spmm_inplace",
                         lambda *a: calls.append("fma") or
-                        banded.band_spmm_reference(*a))
-    monkeypatch.setattr(banded, "band_spmm_stream_padded",
+                        banded.band_spmm_inplace_reference(*a))
+    monkeypatch.setattr(banded, "band_spmm_stream_inplace",
                         lambda *a: calls.append("tc") or
-                        banded.band_spmm_reference(*a))
+                        banded.band_spmm_inplace_reference(*a))
     for plan in (band, dataclasses.replace(
             band, panels=band.panels * 2.0 ** -120)):
         banded.band_spmm_stream(plan, bmat[:m])

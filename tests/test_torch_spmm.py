@@ -159,17 +159,17 @@ def test_plan_spmm_streams_b_past_the_resident_limit(monkeypatch):
     """A band plan takes the streamed kernel once the resident padded B
     passes the 6 MB switch, the resident one below it."""
     calls = []
-    for name in ("band_spmm_padded", "band_spmm_stream_padded"):
+    for name in ("band_spmm_inplace", "band_spmm_stream_inplace"):
         fn = getattr(tbanded, name)
-        monkeypatch.setattr(tbanded, name, lambda p, b, fn=fn, name=name: (
-            calls.append(name), fn(p, b))[1])
+        monkeypatch.setattr(tbanded, name, lambda *a, fn=fn, name=name: (
+            calls.append(name), fn(*a))[1])
     a = gen.generate_banded_csr(700, 700, 31, seed=9)
     plan = ("band", tbanded.build_band_plan(port_csr(a)))
     tplans.plan_spmm(plan, torch.zeros(700, 8))
     monkeypatch.setattr(tplans, "_BAND_RESIDENT_B_BYTES", 1024)
     b = _dense(700, 8, seed=15)
     c = tplans.plan_spmm(plan, torch.from_numpy(b))
-    assert calls == ["band_spmm_padded", "band_spmm_stream_padded"]
+    assert calls == ["band_spmm_inplace", "band_spmm_stream_inplace"]
     assert_entries_close(c, sp.multiply(a, jnp.asarray(b)), a, b)
 
 
