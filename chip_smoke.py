@@ -59,7 +59,14 @@ panels and x views that are not 16-byte aligned.  The three 3xTF32
 kernels run at the edges of the f32 range (+-FLT_MAX, infinities, and
 2^-120 against 2^120 through the entry points' ``tf32_exact`` gate), and
 the f32 BSR SpMM past a lowered slot-scratch budget, whose cut calls
-must give the uncut call's bits.
+must give the uncut call's bits.  The BSR SpMV kernel (a mapping by
+block shape) is held to its plain version on 8x128 (the main path's),
+8x8, 128x128, 12x125 and 3x3 blocks (the last on the 27-point
+connectivity of a 64^3 node grid, f32 and f64), each also with x one
+entry short (read in place) and x off 16-byte alignment, and gives the
+same bits ten times on each.  The ROUTE v1 SpGEMM numeric (the slot fill
+over the v1 plan's stream) gives the same bits ten times on the 2k plan
+and on the dup-40 stream.
 
 Tolerance everywhere: |y - y_ref| <= 64 * eps_f32 * scale * (|A|.|x|)
 per row (per entry of C against (|A|.|B|) for SpMM), the dot-product
@@ -213,6 +220,16 @@ BSR_ONLY = [("bsr_16384_128x128_empty_rows", 128, 128, 3, (128, 128), 4,
              256, 83),
             ("bsr_65536_8x8_empty_rows", 8_192, 8_192, 8, (8, 8), 5, 256,
              84)]
+# kernel-only SpMV shapes beside them (the same fields, no SpMM): odd
+# 12x125 blocks (the cols mapping with one-element loads); and 3x3
+# blocks on the 27-point connectivity of a 64^3 node grid, the block SpMV
+# of a 3-D linear-elasticity code on a structured hex mesh (three
+# displacement unknowns a node, 27 neighbouring nodes: 262,144 block
+# rows, 190^3 = 6,859,000 blocks), seeded values in f32 and f64:
+# (name, grid side, seed)
+BSR_SPMV_ONLY = [("bsr_49152_12x125_empty_rows", 4_096, 512, 4, (12, 125),
+                  3, None, 119)]
+FEM_BSR = ("bsr_fem_3x3_64^3", 64, 131)
 # distinct B operands of a timed SpMM chain, at most this many bytes
 _SPMM_OPERAND_BYTES = 8 << 30
 
@@ -320,7 +337,8 @@ BSR_SPGEMM_SOURCE = "spblas_tpu_torch/csrc/bsr_spgemm.cu"
 MUL_REPLACES = "spblas_tpu/kernels/route2_kernel.py:414"
 MUL_PANED_REPLACES = "spblas_tpu/kernels/route_mul_paned.py:274"
 BSR_SPGEMM_REPLACES = "spblas_tpu/kernels/bsr_spgemm.py:114"
-V1_MUL_SOURCE = "spblas_tpu_torch/csrc/route_mul.cu"
+# the ROUTE v1 SpGEMM numeric is the slot fill over the v1 plan's stream
+V1_MUL_SOURCE = "spblas_tpu_torch/csrc/mul_fill.cu"
 V1_MUL_REPLACES = "spblas_tpu/kernels/route_mul_kernel.py:69"
 POWER_SOURCE = "spblas_tpu_torch/csrc/band_power.cu"
 POWER_REPLACES = "spblas_tpu/kernels/banded.py:474"
@@ -341,9 +359,13 @@ WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "route2_mul": r2k.route2_mul_padded,
             "route2_mul_paned": mf.mul_fill,
             "bsr_spgemm": bsg.bsr_spgemm_blocks,
-            "route_mul": rmk.route_mul_padded,
+            "route_mul": mf.mul_fill,
             "band_power": banded.band_power_padded,
             "route2_solve": r2k.route2_solve_padded}
+# kernels that share one wrapper's count (the slot fill runs the numeric
+# of both the paned ROUTE2-mul and the ROUTE v1 SpGEMM engines): the
+# engine whose main path credits it
+SHARED = {"route2_mul_paned": "paned", "route_mul": "v1"}
 # kind -> the kernels its main-path SpMV call must launch
 KIND_KERNELS = {"band": ("band_spmv",), "bsr": ("bsr_spmv",),
                 "band_perm": ("band_spmv",),
@@ -371,6 +393,16 @@ POWER_KIND_KERNELS = {"band": ("band_power",)}
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def read_launches(kind):
+    """Each kernel's launch count since the counts were set to 0, a
+    shared count credited only to the kernel of ``kind`` (``SHARED``)."""
+    out = {k: w.launches for k, w in WRAPPERS.items()}
+    for k, engine in SHARED.items():
+        if kind != engine:
+            out[k] = 0
+    return out
 
 
 def log(msg):
@@ -433,22 +465,24 @@ def _wide(t):
     return t.to(torch.complex128) if t.is_complex() else t.double()
 
 
-def limit_check(y, y_ref, absdot, scale=1.0):
-    """Per-row (per-entry) tolerance; returns (max |y - y_ref|, the
-    largest err / limit, where the limit is not 0)."""
+def limit_check(y, y_ref, absdot, scale=1.0, eps=EPS32):
+    """Per-row (per-entry) tolerance 64 * eps * |scale| * absdot, eps the
+    unit roundoff of the dtype the kernel computes in (f32's unless
+    given); returns (max |y - y_ref|, the largest err / limit, where the
+    limit is not 0)."""
     err = (_wide(y) - _wide(y_ref)).abs()
-    lim = 64 * EPS32 * abs(scale) * absdot.double()
+    lim = 64 * eps * abs(scale) * absdot.double()
     bad = int((err > lim).sum())
-    require(bad == 0, f"{bad} rows outside 64*eps*(|A||x|) "
+    require(bad == 0, f"{bad} rows outside 64*eps*(|A||x|) at eps {eps:.3e} "
                       f"(max err {float(err.max()):.3e})")
     nz = lim > 0
     ratio = float((err[nz] / lim[nz]).max()) if bool(nz.any()) else 0.0
     return float(err.max()), ratio
 
 
-def row_check(y, y_ref, absdot, scale=1.0):
+def row_check(y, y_ref, absdot, scale=1.0, eps=EPS32):
     """Per-row tolerance; returns max |y - y_ref|."""
-    return limit_check(y, y_ref, absdot, scale)[0]
+    return limit_check(y, y_ref, absdot, scale, eps)[0]
 
 
 def same_bits(name, fn, args, runs=10):
@@ -1233,40 +1267,78 @@ def band_cx_spmm_case(name, planes, csr, k, seed, rates, card):
     return recs
 
 
-def bsr_cases(name, a, csr, k, seed, rates, card, spmv=True, full=False):
-    """``bsr_spmv`` (when ``spmv``) and ``bsr_spmm`` on one BSR against
-    their plain versions; returns their records.  ``full``: ``bsr_spmm``
-    also on all-positive operands, |values| and |B|, and 10 times on one
-    input for the same bits."""
+def bsr_cases(name, a, csr, k, seed, rates, card, spmv=True, spmm=True,
+              full=False):
+    """``bsr_spmv`` (when ``spmv``) and ``bsr_spmm`` (when ``spmm``) on
+    one BSR against their plain versions; returns their records.  The
+    SpMV also runs 10 times on one input for the same bits, and on x cut
+    one entry short (read in place, as a zero past its end) and on an x
+    one element off 16-byte alignment (one-element loads).  ``full``:
+    ``bsr_spmm`` also on all-positive operands, |values| and |B|, and 10
+    times on one input for the same bits."""
     v, rp, ci = a.values, a.block_rowptr, a.block_colind
     nnzb = a.nnz_blocks
     bh, bw = a.block_shape
     mb = rp.numel() - 1
+    isz = v.element_size()
+    f64 = v.dtype == torch.float64
+    # each check's limit follows the dtype the kernel computes in
+    eps = torch.finfo(v.dtype).eps
     # the stored blocks (not the capacity padding), rowptr, colind, the
     # dense operand and the output, each once
-    meta = (mb + 1) * 4 + nnzb * 4 + nnzb * bh * bw * 4
+    meta = (mb + 1) * 4 + nnzb * 4 + nnzb * bh * bw * isz
     recs = []
     if spmv:
-        x = gen.generate_vector(a.shape[1], seed=seed)
+        n = a.shape[1]
+        x = gen.generate_vector(n, seed=seed).to(v.dtype)
         y_k = bk.bsr_spmv_blocks(v, rp, ci, x)
         torch.cuda.synchronize()
-        err = row_check(y_k, bk.bsr_spmv_reference(v, rp, ci, x),
-                        bk.bsr_spmv_reference(v.abs(), rp, ci, x.abs()))
-        log(f"[check] bsr_spmv {name}: in bound, max |err| {err:.3e}")
-        nbytes = meta + x.numel() * 4 + mb * bh * 4
-        b_ms, b_by = bound(nbytes, 2 * nnzb * bh * bw, rates)
+        err, ratio = limit_check(
+            y_k, bk.bsr_spmv_reference(v, rp, ci, x),
+            bk.bsr_spmv_reference(v.abs(), rp, ci, x.abs()), eps=eps)
+        del y_k
+        short = x[:n - 1]
+        _, short_ratio = limit_check(
+            bk.bsr_spmv_blocks(v, rp, ci, short),
+            bk.bsr_spmv_reference(v, rp, ci, short),
+            bk.bsr_spmv_reference(v.abs(), rp, ci, short.abs()), eps=eps)
+        off = torch.empty(n + 1, dtype=v.dtype, device=v.device)[1:]
+        off.copy_(x)
+        off_map = bk.spmv_mapping(bh, bw, isz, bk._aligned(v, off))
+        _, off_ratio = limit_check(
+            bk.bsr_spmv_blocks(v, rp, ci, off),
+            bk.bsr_spmv_reference(v, rp, ci, x),
+            bk.bsr_spmv_reference(v.abs(), rp, ci, x.abs()), eps=eps)
+        mapping = bk.spmv_mapping(bh, bw, isz, bk._aligned(v, x))
+        log(f"[check] bsr_spmv {name} {str(v.dtype)[6:]} (mapping "
+            f"{mapping}, off alignment {off_map}): in bound at 64 eps "
+            f"{eps:.3e}, err / limit {ratio:.4f}, x short {short_ratio:.4f}, "
+            f"x off alignment {off_ratio:.4f}, max |err| {err:.3e}")
+        same_bits(f"bsr_spmv {name} {str(v.dtype)[6:]}",
+                  bk.bsr_spmv_blocks, (v, rp, ci, x))
+        del short, off
+        nbytes = meta + (x.numel() + mb * bh) * isz
+        b_ms, b_by = bound(nbytes, 2 * nnzb * bh * bw, rates, f64=f64)
         ins = replicas(lambda: (v.clone(), rp.clone(), ci.clone(),
                                 x.clone()), nbytes)
         k_ms = device_ms(bk.bsr_spmv_blocks, ins)
         p_ms = device_ms(bk.bsr_spmv_reference, ins)
         del ins
-        recs.append({"kernel": "bsr_spmv", "case": name, "m": a.shape[0],
+        torch.cuda.empty_cache()
+        recs.append({"kernel": "bsr_spmv", "case": name,
+                     "dtype": str(v.dtype)[6:], "m": a.shape[0],
                      "n": a.shape[1], "block": [bh, bw], "nnz_blocks": nnzb,
                      "empty_block_rows": int((rp[1:] == rp[:-1]).sum()),
-                     "max_abs_err": err, "kernel_ms": k_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "plain_ms": p_ms,
+                     "mapping": list(mapping), "same_bits_runs": 10,
+                     "max_abs_err": err, "max_err_over_limit": ratio,
+                     "limit_eps": eps, "kernel_ms": k_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_share": b_ms / k_ms, "plain_ms": p_ms,
                      "library_ms": library_ms(csr, x),
                      "nnz_s": a.nnz / (k_ms * 1e-3), "card": card})
+        torch.cuda.empty_cache()
+    if not spmm:
+        return recs
     b = dense_operands(a.shape[1], k, seed + 1)[0]
     # the f32 kernel's column list, as the main path keeps it on the BSR
     spmm = functools.partial(bk.bsr_spmm_blocks,
@@ -1274,14 +1346,15 @@ def bsr_cases(name, a, csr, k, seed, rates, card, spmv=True, full=False):
     c_k = spmm(v, rp, ci, b)
     torch.cuda.synchronize()
     absd = bk.bsr_spmm_reference(v.abs(), rp, ci, b.abs())
-    err, ratio = limit_check(c_k, bk.bsr_spmm_reference(v, rp, ci, b), absd)
+    err, ratio = limit_check(c_k, bk.bsr_spmm_reference(v, rp, ci, b), absd,
+                             eps=eps)
     log(f"[check] bsr_spmm {name} k={k}: in bound, max |err| {err:.3e}, "
         f"err / limit {ratio:.4f}")
     del c_k
     extra = {}
     if full:
         _, pos_ratio = limit_check(spmm(v.abs(), rp, ci, b.abs()), absd,
-                                   absd)
+                                   absd, eps=eps)
         log(f"[check] bsr_spmm {name} k={k} all-positive: in bound, "
             f"err / limit {pos_ratio:.4f}")
         same_bits(f"bsr_spmm {name} k={k}", spmm, (v, rp, ci, b))
@@ -1570,6 +1643,31 @@ def edges_phase():
     return out
 
 
+def fem_bsr(side, dtype, seed):
+    """3x3 blocks on the 27-point connectivity of a side^3 node grid (node
+    x + side*y + side^2*z couples to every node within one step in each
+    coordinate), a BSR on the card with seeded standard normal values:
+    block row i holds its neighbours in column order."""
+    nodes = side ** 3
+    i = torch.arange(nodes, device=DEVICE)
+    xyz = torch.stack([i % side, i // side % side, i // side ** 2], 1)
+    d = torch.tensor([-1, 0, 1], device=DEVICE)
+    dz, dy, dx = torch.meshgrid(d, d, d, indexing="ij")
+    step = torch.stack([dx.reshape(-1), dy.reshape(-1), dz.reshape(-1)], 1)
+    nb = xyz[:, None, :] + step[None]                     # (nodes, 27, 3)
+    ok = ((nb >= 0) & (nb < side)).all(2)
+    cols = (nb[..., 0] + side * nb[..., 1] + side ** 2 * nb[..., 2])[ok]
+    rowptr = torch.zeros(nodes + 1, dtype=torch.int64, device=DEVICE)
+    rowptr[1:] = torch.cumsum(ok.sum(1), 0)
+    nnzb = int(cols.numel())
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    vals = torch.randn(nnzb, 3, 3, generator=g, device=DEVICE, dtype=dtype)
+    return BSR(values=vals, block_rowptr=rowptr.to(torch.int32),
+               block_colind=cols.to(torch.int32), nnz_blocks=nnzb,
+               shape=(3 * nodes, 3 * nodes), block_shape=(3, 3))
+
+
 def block_csr(mb, nbc, per_row, fill, seed):
     """A (mb*8, nbc*128) CSR on the card: every block row holds
     ``per_row`` distinct seeded 8x128 blocks, each entry of a block
@@ -1588,10 +1686,11 @@ def block_csr(mb, nbc, per_row, fill, seed):
                            nnz=len(rows), device=DEVICE)
 
 
-def random_bsr(mb, nbc, per_row, block, empty_every, seed):
+def random_bsr(mb, nbc, per_row, block, empty_every, seed,
+               dtype=torch.float32):
     """A BSR on the card with ``per_row`` seeded blocks of standard normal
-    values in every block row but each ``empty_every``-th (none for 0),
-    which stays empty."""
+    values (drawn in f32, then held in ``dtype``) in every block row but
+    each ``empty_every``-th (none for 0), which stays empty."""
     rng = np.random.default_rng(seed)
     bh, bw = block
     empty = (np.arange(mb) % empty_every == 0 if empty_every
@@ -1606,7 +1705,7 @@ def random_bsr(mb, nbc, per_row, block, empty_every, seed):
     colind = np.zeros(cap, np.int32)
     colind[:nnzb] = cols
     rowptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    return BSR(values=torch.from_numpy(vals).to(DEVICE),
+    return BSR(values=torch.from_numpy(vals).to(DEVICE, dtype),
                block_rowptr=torch.from_numpy(rowptr).to(DEVICE),
                block_colind=torch.from_numpy(colind).to(DEVICE),
                nnz_blocks=nnzb, shape=(mb * bh, nbc * bw),
@@ -1644,7 +1743,7 @@ def main_path(name, a, kind, seed, card):
     y = sp.multiply(sp.scaled(2.0, opt), x)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = read_launches(kind)
     got, plan = opt._plans["matvec"]
     log(f"[main] {name}: kind {got}, launches {launches}")
     require(got == kind, f"{name}: chooser picked {got!r}, want {kind!r}")
@@ -1715,7 +1814,7 @@ def main_path_spmm(name, a, kind, k, seed, card, opt=None, expect=None):
     c = sp.multiply(sp.scaled(2.0, opt), bs[0])
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {key: w.launches for key, w in WRAPPERS.items()}
+    launches = read_launches(kind)
     got = (opt._plans.get("matmul") or opt._plans["matvec"])[0]
     log(f"[main] {name}: kind {got}, launches {launches}")
     require(got == kind, f"{name}: chooser picked {got!r}, want {kind!r}")
@@ -1962,7 +2061,7 @@ def spgemm_main(name, a, kind, expect, rates, card, deferred):
     c = sp.multiply_fill(info, sp.scaled(2.0, a0), a)
     torch.cuda.synchronize()
     first_fill_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = read_launches(kind)
     route = info.plan.route
     got = engine_kind(route)
     nnz = info.result_nnz
@@ -2089,7 +2188,7 @@ def bsr_spgemm_main(name, a, b, card):
     c = sp.multiply(sp.scaled(2.0, a), b)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = read_launches("bsr")
     log(f"[main] {name}: launches {launches}")
     require(isinstance(c, BSR) and c.shape == (a.shape[0], b.shape[1])
             and c.dtype == a.dtype
@@ -2182,45 +2281,90 @@ def spgemm_phase(rates, card):
 
 
 def route_mul_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
-    """``route_mul`` (the ROUTE v1 SpGEMM numeric) on a plan against its
-    plain version."""
+    """``route_mul`` (the ROUTE v1 SpGEMM numeric: one launch of the slot
+    fill ``mul_fill`` over the plan's expansion stream) against the plain
+    tile walker and the plain segmented sum, per slot; one owner a slot,
+    so 10 runs give the same bits.  Two bounds: the bytes the slot fill
+    must move, and the tile stream the TPU design moves."""
+    ex = plan.expansion
+    cap = plan.capacity
+    before = mf.mul_fill.launches
+    c_k = rmk.route_mul(plan, a_arr, b_arr)
+    torch.cuda.synchronize()
+    per_call = mf.mul_fill.launches - before
+    require(per_call == 1, f"route_mul {name}: {per_call} launches, want 1")
+    same_bits(f"route_mul {name}", rmk.route_mul, (plan, a_arr, b_arr))
     a2 = rmk.pad_pane(a_arr, plan.a_rows)
     b2 = rmk.pad_pane(b_arr, plan.b_rows)
-    y_k = rmk.route_mul_padded(plan, a2, b2)
-    torch.cuda.synchronize()
-    y_p = rmk.route_mul_reference(plan, a2, b2)
-    err = row_check(y_k, y_p, rmk.route_mul_reference(plan, a2.abs(),
-                                                      b2.abs()))
-    log(f"[check] route_mul {name}: in bound, max |err| {err:.3e}")
-    del y_k, y_p
+    err = row_check(c_k, rmk.route_mul_reference(plan, a2, b2).view(-1)[:cap],
+                    rmk.route_mul_reference(plan, a2.abs(), b2.abs())
+                    .view(-1)[:cap])
+    row_check(c_k, mf.mul_fill_reference(ex, a_arr, b_arr, cap),
+              mf.mul_fill_reference(ex, a_arr.abs(), b_arr.abs(), cap))
+    log(f"[check] route_mul {name}: in bound, 10 runs bit-equal, max |err| "
+        f"{err:.3e}")
+    del c_k
     ob = plan.o_base.long()
     per_window = int(torch.bincount(ob).max())
-    # each input read once (three tiles, the per-chunk scalars ab, bb,
-    # ob, the A and B panes), the out pane written twice (zeroed, then
-    # accumulated)
+    # the slot fill reads the index stream (sa, sb, run_start), A and B
+    # once and writes c once; the tile stream: three tiles, the per-chunk
+    # scalars ab, bb, ob, the A and B panes, the out pane written twice
+    # (zeroed, then accumulated)
+    ent = int(ex.sa.numel())
+    nbytes = (2 * ent + ex.nslots + 1 + cap) * 4 + (ex.a_len + ex.b_len) * 4
+    b_ms, b_by = bound(nbytes, 2 * ent, rates)
     nch = plan.nchunks
-    nbytes = (nch * (12 * 1024 + 12) + (plan.a_rows + plan.b_rows) * 512
-              + 2 * plan.out_rows * 512)
-    b_ms, b_by = bound(nbytes, 2 * nch * 1024, rates)
+    tile_bytes = (nch * (12 * 1024 + 12) + (plan.a_rows + plan.b_rows) * 512
+                  + 2 * plan.out_rows * 512)
+    tile_ms, _ = bound(tile_bytes, 2 * nch * 1024, rates)
 
     def copy():
-        return dataclasses.replace(
-            plan, tile1=plan.tile1.clone(), tile2=plan.tile2.clone(),
-            tile3=plan.tile3.clone(), a_base=plan.a_base.clone(),
-            b_base=plan.b_base.clone(), o_base=plan.o_base.clone()), \
-            a2.clone(), b2.clone()
+        return (dataclasses.replace(ex, sa=ex.sa.clone(), sb=ex.sb.clone(),
+                                    run_start=ex.run_start.clone()),
+                a_arr.clone(), b_arr.clone())
 
     ins = replicas(copy, nbytes)
-    k_ms = device_ms(rmk.route_mul_padded, ins)
-    p_ms = device_ms(rmk.route_mul_reference, ins)
+    k_ms = device_ms(lambda s_, a_, b_: mf.mul_fill(s_, a_, b_, cap), ins)
+    p_ms = device_ms(lambda s_, a_, b_: mf.mul_fill_reference(
+        s_, a_, b_, cap), ins)
     del ins
+    walk_ms = device_ms(rmk.route_mul_reference, [(plan, a2, b2)], reps=4)
     torch.cuda.empty_cache()
     return {"kernel": "route_mul", "case": name, "nchunks": nch,
             "fill": plan.fill, "g_a": plan.g_a, "g_b": plan.g_b,
-            "capacity": plan.capacity, "max_chunks_per_window": per_window,
-            "launches_per_call": 1, "max_abs_err": err, "kernel_ms": k_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "plain_ms": p_ms,
+            "capacity": cap, "max_chunks_per_window": per_window,
+            "entries": ent, "slots": ex.nslots,
+            "longest_run": int(ex.run_start.diff().max()) if ex.nslots
+            else 0, "launches_per_call": per_call, "same_bits_runs": 10,
+            "max_abs_err": err, "kernel_ms": k_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "tile_stream_bound_ms": tile_ms,
+            "plain_ms": p_ms, "tile_walker_plain_ms": walk_ms,
             "library_ms": lib_ms, "card": card}
+
+
+def v1_build_parts(plan, reps=3):
+    """Host seconds (best of ``reps``) of ``build_route_mul_plan`` from
+    the plan's own slot-sorted stream, and of the ``build_slot_stream``
+    inside it: what keeping the CUDA fill's stream adds to the v1 plan
+    build, beside the tiles."""
+    ex = plan.expansion
+    slots = np.repeat(np.arange(ex.nslots),
+                      ex.run_start.diff().cpu().numpy())
+    sa, sb = ex.sa.cpu().numpy(), ex.sb.cpu().numpy()
+    out = {}
+    for key, fn in (("slot_stream_build_s", lambda: mf.build_slot_stream(
+            slots, sa, sb, ex.a_len, ex.b_len, DEVICE)),
+                    ("plan_from_stream_s", lambda: rml.build_route_mul_plan(
+            slots, sa, sb, ex.a_len, ex.b_len, plan.capacity,
+            device=DEVICE))):
+        best = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        out[key] = best
+    return out
 
 
 def v1_phase(rates, card):
@@ -2241,6 +2385,11 @@ def v1_phase(rates, card):
     a_arr = torch.cat([2.0 * a0_vals, a0_vals.new_ones(1)])
     recs = [route_mul_case(name, info.plan.route, a_arr, a.values, rates,
                            card, rec["cusparse_spgemm_ms_with_symbolic"])]
+    recs[0].update(v1_build_parts(info.plan.route))
+    log(f"[build] route_mul {name}: plan from its stream "
+        f"{recs[0]['plan_from_stream_s']:.4f} s, of which the slot stream "
+        f"{recs[0]['slot_stream_build_s']:.4f} s (engine build "
+        f"{rec['engine_build_s']:.3f} s)")
     del info, a
     oname, (n_slots, dup, a_len, b_len, seed) = V1_OVERLAP
     rng = np.random.default_rng(seed)
@@ -2450,7 +2599,7 @@ def trsv_main(name, a, kind, levels, rates, card):
     x = sp.triangular_solve(sp.scaled(2.0, a), bs[0], info=info)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = read_launches(kind)
     log(f"[main] {name}: {kind}, {plan.num_levels} levels, launches "
         f"{launches}")
     require(x.shape == (m,) and x.dtype == torch.float32
@@ -2507,10 +2656,13 @@ def trsv_phase(rates, card):
             require(info.plan.route is not None
                     and info.plan.route.n_aux_chunks > 0,
                     f"{hname}: no route solve plan with aux levels")
-            recs.append(route2_solve_case(
-                hname, ha, info, gen.generate_vector(ha.shape[0], seed=210),
-                rates, card, None, race=True))
-            del ha, info
+            hb = gen.generate_vector(ha.shape[0], seed=210)
+            # cuSPARSE's SpSV on the same factor, as the 20k one is timed
+            lib_ms, lib_why = library_trsv_ms(ha, hb)
+            recs.append(route2_solve_case(hname, ha, info, hb, rates, card,
+                                          lib_ms, race=True))
+            recs[-1]["library_note"] = lib_why
+            del ha, info, hb
         del a
         torch.cuda.empty_cache()
     return main, recs
@@ -2567,7 +2719,7 @@ def power_phase(rates, card):
     y = banded.band_power_iterations(plan, x, iters)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
+    launches = read_launches("band")
     log(f"[main] {name}: launches {launches}")
     require(y.shape == (m,) and y.dtype == torch.float32
             and bool(torch.isfinite(y).all()), f"{name}: bad result")
@@ -2745,12 +2897,27 @@ def run():
             96 + i, rates, card, csr=a)
     edges_phase()
     bsr_recs = []
-    for bname, mb, nbc, per_row, block, every, k, seed in BSR_ONLY:
+    for bname, mb, nbc, per_row, block, every, k, seed in (BSR_ONLY
+                                                          + BSR_SPMV_ONLY):
         a = random_bsr(mb, nbc, per_row, block, every, seed)
-        bsr_recs += bsr_cases(bname, a, bsr_to_csr(a), k, seed, rates, card)
+        bsr_recs += bsr_cases(bname, a, bsr_to_csr(a), k, seed, rates, card,
+                              spmm=k is not None)
+        # the SpMV's f64 instantiations of the span and cols mappings
+        a = random_bsr(mb, nbc, per_row, block, every, seed, torch.float64)
+        bsr_recs += bsr_cases(bname, a, bsr_to_csr(a), None, seed, rates,
+                              card, spmm=False)
     require(all(r["empty_block_rows"] > 0 for r in bsr_recs),
             "BSR kernel cases have no empty block row")
     del a
+    fname, side, fseed = FEM_BSR
+    for dt in (torch.float32, torch.float64):
+        a = fem_bsr(side, dt, fseed)
+        require(a.nnz_blocks == (3 * side - 2) ** 3,
+                f"{fname}: {a.nnz_blocks} blocks")
+        bsr_recs += bsr_cases(fname, a, bsr_to_csr(a), None, fseed, rates,
+                              card, spmm=False)
+        del a
+        torch.cuda.empty_cache()
 
     # phase 3: the main path at full width, counts read around each run
     main = [main_path(hname, head, "band", 31, card)[0]]

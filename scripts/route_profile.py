@@ -17,8 +17,11 @@ block cell (``BSR_MAIN``: 131,072^2, 65,536 blocks of 8x128, k 256),
 ``route_cx`` over ROUTE2 plans on uniform 100k and 300k complex64 degree
 10 (chip_smoke.py's ``CX_MAIN`` and ``CX_ONLY``: the complex pass beside
 the four real applies it replaced) and ``bsr_spgemm`` on chip_smoke.py's
-32,768^2 block product (f32, f64) and its (8,128).(128,128) case, each
-as the CUDA chooser or ``chip_smoke.py`` builds it.
+32,768^2 block product (f32, f64) and its (8,128).(128,128) case,
+``bsr_spmv`` on the block cell's BSR, the 8x8 kernel-only shape and the
+3x3 blocks of a 27-point 64^3 node grid (f32, f64), and the ROUTE v1
+SpGEMM numeric ``route_mul`` on the 2k A.A v1 plan and the dup-40
+stream, each as the CUDA chooser or ``chip_smoke.py`` builds it.
 
     python3 scripts/route_profile.py [--tree DIR ...] [--kernels K,...]
                                      [--out FILE] [--no-variants]
@@ -29,7 +32,8 @@ one); the trees run one worker process each, in the order given, so
 ``--tree _checkout/parent --tree . --tree . --tree _checkout/parent``
 compares two versions in turns on one card.  ``--kernels`` picks from
 ``v1``, ``paned``, ``route2``, ``solve``, ``band``, ``mul_paned``,
-``band_mm``, ``bsr_mm``, ``cx`` and ``block_spgemm`` (``spmm`` names
+``band_mm``, ``bsr_mm``, ``cx``, ``block_spgemm``, ``bsr_mv`` and
+``v1_mul`` (``spmm`` names
 ``band_mm`` and ``bsr_mm``, ``route_cx`` ``cx``, ``bsr_spgemm``
 ``block_spgemm``; default: all); ``--only-variants`` names the variants
 to run (default: every one that applies).
@@ -200,9 +204,31 @@ VARIANTS = {"no_publish": [_PUBLISH], "const_gather": [_GATHER],
                                          "kPollNs", "0"),
             "lever_solve_blocks_8": _lever("solve", "route2_spmv.cu",
                                            "kSolveBlocks", "8"),
-            # the slot fill's hub cut
+            # the slot fill's hub cut; its middle tier off (runs past
+            # kLong take the whole block, as before it)
             "lever_fill_long_256": _lever("mul_paned", "mul_fill.cu",
                                           "kLong", "256"),
+            "lever_fill_mid_32": [[(("mul_paned", "v1_mul"), "mul_fill.cu",
+                                    r"(constexpr int kMid = )[^;]+;",
+                                    r"\g<1>32;")]],
+            # the small BSR SpMV's CTAs an SM (its register cap, f32 and
+            # f64) and row stages a warp, and a diagnostic (x's gathers
+            # replaced by a constant; out of bound)
+            "lever_bsr_min_small_8": _lever("bsr_mv", "bsr_spmv.cu",
+                                            "kMinSmall", "8"),
+            "lever_bsr_min_small64_4": _lever("bsr_mv", "bsr_spmv.cu",
+                                              "kMinSmall64", "4"),
+            "lever_bsr_ring_3": _lever("bsr_mv", "bsr_spmv.cu", "kRing",
+                                       "3"),
+            "lever_bsr_ring64_4": _lever("bsr_mv", "bsr_spmv.cu", "kRing64",
+                                         "4"),
+            "diag_bsr_small_no_x": [[(("bsr_mv",), "bsr_spmv.cu",
+                                      r"at < n \? __ldg\(x \+ at\) : T\(0\)",
+                                      "at < n ? T(1) : T(0)")]],
+            # every shape on the cols mapping (a warp an output row)
+            "lever_bsr_cols_only": [[(("bsr_mv",), "bsr_spmv.cu",
+                                      r"if \(mapping == kCols\)",
+                                      "if (true)")]],
             # the band row kernel's
             "lever_band_warps_4": _lever("band", "band_row.cuh", "kWarps",
                                          "4"),
@@ -354,7 +380,8 @@ SOURCES = {"v1": ("route_spmv",), "paned": ("route_paned_spmv",),
            "mul_paned": ("route_mul_paned", "mul_fill"),
            "band_mm": ("band_spmm",), "band_res": ("band_spmm",),
            "bsr_mm": ("bsr_spmm",),
-           "cx": ("route2_spmv",), "block_spgemm": ("bsr_spgemm",)}
+           "cx": ("route2_spmv",), "block_spgemm": ("bsr_spgemm",),
+           "bsr_mv": ("bsr_spmv",), "v1_mul": ("route_mul", "mul_fill")}
 # --kernels aliases
 ALIASES = {"spmm": ("band_mm", "bsr_mm"), "route_cx": ("cx",),
            "resident": ("band_res",),
@@ -399,6 +426,13 @@ OCCUPANCY = {
                    "tc::kSmemBytes"),
                   ("tc::band_spmm_tc<__nv_bfloat16, true, true>",
                    "tc::kThreads", "tc::kSmemBytes")],
+    # the one-warp-a-row design, then the three mappings (cols, span,
+    # small)
+    "bsr_spmv": [("bsr_spmv_kernel<float>", 256, 0),
+                 ("bsr_cols<float, 4, 1>", 256, 0),
+                 ("bsr_span<float, 4>", 256, 0),
+                 ("bsr_small<float>", 128, 0),
+                 ("bsr_small<double>", 128, 0)],
     "bsr_spmm": [("bsr_spmm_kernel<float, true>", 64, 0),
                  ("tc::bsr_spmm_tc<true>", "tc::kThreads", 0),
                  ("tc::bsr_spmm_columns<true>", "tc::kThreads",
@@ -1338,12 +1372,155 @@ def spgemm_bench(torch, sp, gen, rec):
     return out
 
 
+def _smoke():
+    """chip_smoke.py of this script's own tree, for its matrix builders
+    (the tree under test may predate them); imported after the tree's
+    package, which the builders then use."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke_builders",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def bsr_mv_bench(torch, sp, gen, rec):
+    """``bsr_spmv_blocks`` on the BSR that the chooser builds for
+    chip_smoke.py's block cell (``BSR_MAIN``: 131,072^2, 8x128 blocks),
+    its kernel-only 8x8 shape (``BSR_ONLY``) and the 3x3 blocks of the
+    27-point 64^3 node grid (``FEM_BSR``, f32 and f64), each held to its
+    plain version; beside them the main path's ``multiply`` on the block
+    cell (host included) and cuSPARSE's ``torch.mv`` on each CSR; bound:
+    each input once over 3.35 TB/s."""
+    from spblas_tpu_torch.formats.convert import bsr_to_csr
+    from spblas_tpu_torch.kernels import bsr_kernels as bk
+    cs = _smoke()
+    _, bargs, _ = cs.BSR_MAIN
+    ba = cs.block_csr(*bargs)
+    opt = sp.matrix_opt(ba)
+    xs = [gen.generate_vector(ba.shape[1], seed=87 + i) for i in range(4)]
+    rec["multiply_ms"] = multiply_ms(torch, sp, opt, xs)
+    kind, plan = opt._plans["matvec"]
+    assert kind == "bsr", kind
+    cases = [("bsr_131072_8x128", plan[0], ba)]
+    name, mb, nbc, per_row, block, every, _, seed = cs.BSR_ONLY[1]
+    small = cs.random_bsr(mb, nbc, per_row, block, every, seed)
+    cases.append((name, small, bsr_to_csr(small)))
+    fname, side, fseed = cs.FEM_BSR
+    for dt in (torch.float32, torch.float64):
+        fem = cs.fem_bsr(side, dt, fseed)
+        cases.append((f"{fname}_{str(dt)[6:]}", fem, bsr_to_csr(fem)))
+    out = {}
+    for name, a, csr in cases:
+        v, rp, ci = a.values, a.block_rowptr, a.block_colind
+        bh, bw = a.block_shape
+        nnzb, mb = a.nnz_blocks, rp.numel() - 1
+        isz = v.element_size()
+        x = gen.generate_vector(a.shape[1], seed=88).to(v.dtype)
+        nbytes = ((mb + 1) * 4 + nnzb * 4
+                  + (nnzb * bh * bw + x.numel() + mb * bh) * isz)
+        rec[name] = {"block": [bh, bw], "dtype": str(v.dtype)[6:],
+                     "nnz_blocks": nnzb, "bytes": nbytes,
+                     "bound_ms": nbytes / 3.35e12 * 1e3,
+                     "cusparse_ms": csr_ms(torch, csr, x)}
+        out[name] = (bk.bsr_spmv_blocks, reps_of(
+            lambda v=v, rp=rp, ci=ci, x=x: (v.clone(), rp.clone(),
+                                            ci.clone(), x.clone()), nbytes),
+            (bk.bsr_spmv, (a, x)), within(
+                torch, lambda v=v, rp=rp, ci=ci, x=x:
+                bk.bsr_spmv_reference(v, rp, ci, x),
+                lambda v=v, rp=rp, ci=ci, x=x:
+                bk.bsr_spmv_reference(v.abs(), rp, ci, x.abs())))
+    del ba, opt, xs
+    return out
+
+
+def v1_mul_bench(torch, sp, gen, rec):
+    """The ROUTE v1 SpGEMM numeric ``route_mul`` as the tree runs it (the
+    tile kernel ``route_mul.cu`` after padding both panes and zeroing an
+    out pane, or the slot fill's one launch over the plan's expansion
+    stream) on chip_smoke.py's 2k A.A v1 plan (``V1_MAIN``, bench.py:190
+    under SPBLAS_ROUTE_SPGEMM=1) and its dup-40 stream (``V1_OVERLAP``),
+    each held to the plain tile walker; beside them the whole
+    ``multiply_fill`` on the 2k plan (host included)."""
+    import numpy as np
+    from spblas_tpu_torch.kernels import route_mul as rml
+    from spblas_tpu_torch.kernels import route_mul_kernel as rmk
+    cs = _smoke()
+    name, make, _ = cs.V1_MAIN
+    a = make()
+    os.environ["SPBLAS_ROUTE_SPGEMM"] = "1"
+    try:
+        info = sp.multiply_compute(a, a)
+    finally:
+        del os.environ["SPBLAS_ROUTE_SPGEMM"]
+    oname, (n_slots, dup, a_len, b_len, seed) = cs.V1_OVERLAP
+    rng = np.random.default_rng(seed)
+    slots = np.repeat(np.arange(n_slots), rng.poisson(dup, n_slots) + 1)
+    sa = rng.integers(0, a_len, len(slots))
+    sb = rng.integers(0, b_len, len(slots))
+    dplan = rml.build_route_mul_plan(slots, sa, sb, a_len, b_len, n_slots,
+                                     device="cuda")
+    av = torch.from_numpy(rng.standard_normal(a_len).astype(np.float32))
+    bv = torch.from_numpy(rng.standard_normal(b_len).astype(np.float32))
+    out = {}
+    for nm, pl, aa, bb in ((name, info.plan.route, torch.cat([
+            2.0 * a.values, a.values.new_ones(1)]), a.values),
+            (oname, dplan, av.cuda(), bv.cuda())):
+        cap = pl.capacity
+        ex = getattr(pl, "expansion", None)
+        if ex is not None:
+            nbytes = ((2 * ex.sa.numel() + ex.nslots + 1 + cap) * 4
+                      + (ex.a_len + ex.b_len) * 4)
+
+            def copy(pl=pl, ex=ex, aa=aa, bb=bb):
+                return (dataclasses.replace(pl, expansion=dataclasses.replace(
+                    ex, sa=ex.sa.clone(), sb=ex.sb.clone(),
+                    run_start=ex.run_start.clone())), aa.clone(), bb.clone())
+        else:
+            nbytes = (pl.nchunks * (12 * 1024 + 12)
+                      + (pl.a_rows + pl.b_rows) * 512 + 2 * pl.out_rows * 512)
+
+            def copy(pl=pl, aa=aa, bb=bb):
+                return (dataclasses.replace(pl, **{
+                    f: getattr(pl, f).clone() for f in (
+                        "tile1", "tile2", "tile3", "a_base", "b_base",
+                        "o_base")}), aa.clone(), bb.clone())
+        rec[nm] = {"nchunks": pl.nchunks, "capacity": cap, "bytes": nbytes,
+                   "bound_ms": nbytes / 3.35e12 * 1e3,
+                   "stream": ex is not None}
+
+        def walk(pl=pl, aa=aa, bb=bb, f=abs):
+            a2 = rmk.pad_pane(f(aa), pl.a_rows)
+            b2 = rmk.pad_pane(f(bb), pl.b_rows)
+            return rmk.route_mul_reference(pl, a2, b2).view(-1)[:pl.capacity]
+
+        out[nm] = (rmk.route_mul, reps_of(copy, nbytes),
+                   (rmk.route_mul, (pl, aa, bb)),
+                   within(torch, lambda walk=walk: walk(f=lambda t: t),
+                          walk))
+    ops = [sp.scaled(2.0, dataclasses.replace(a, values=a.values * (
+        1 + i / 64))) for i in range(8)]
+    sp.multiply_fill(info, ops[0], a)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(20):
+        sp.multiply_fill(info, ops[i % len(ops)], a)
+    e1.record()
+    torch.cuda.synchronize()
+    rec[name]["multiply_fill_ms"] = e0.elapsed_time(e1) / 20
+    return out
+
+
 BENCHES = {"v1": v1_bench, "paned": paned_bench, "route2": route2_bench,
            "solve": solve_bench, "band": band_bench,
            "mul_paned": mul_paned_bench, "band_mm": band_mm_bench,
            "band_res": band_res_bench,
            "bsr_mm": bsr_mm_bench, "cx": cx_bench,
-           "block_spgemm": spgemm_bench}
+           "block_spgemm": spgemm_bench, "bsr_mv": bsr_mv_bench,
+           "v1_mul": v1_mul_bench}
 # worker options the benches read (--graph)
 OPTS = {}
 

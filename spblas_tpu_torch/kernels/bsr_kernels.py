@@ -7,7 +7,9 @@ hand-written kernels ``csrc/bsr_spmv.cu`` and ``csrc/bsr_spmm.cu``
 (which replace the TPU kernels ``bsr_pallas.py::_bsr_spmv_kernel`` and
 ``_bsr_spmm_kernel``); on a CPU tensor they run
 :func:`bsr_spmv_reference` and :func:`bsr_spmm_reference`, the plain
-PyTorch versions of the same sums.  The f32 SpMM kernel walks the
+PyTorch versions of the same sums.  The SpMV kernel takes any block
+shape in one of three mappings that :func:`spmv_mapping` picks from the
+shape, the dtype and the operands' alignment, and reads x in place.  The f32 SpMM kernel walks the
 blocks by block column (``BSR.column_order``), each block's product
 into its own slot of a scratch buffer, then sums each block row's slots
 in order; :func:`bsr_spmm_columns_reference` is that walk in plain
@@ -52,11 +54,14 @@ def bsr_spmv_reference(values, block_rowptr, block_colind,
                        x) -> torch.Tensor:
     """Plain PyTorch version of the kernel: y[i*bh + r] = sum over the
     blocks e of block row i of values[e, r, :] . x[colind[e]*bw:+bw], in
-    the blocks' dtype; returns (mb * bh,)."""
+    the blocks' dtype, x read as zeros past its end; returns (mb * bh,)."""
     cap, bh, bw = values.shape
     mb = block_rowptr.shape[0] - 1
-    xs = x[: (int(x.shape[0]) // bw) * bw].view(-1, bw).index_select(
-        0, block_colind.long())
+    n = int(x.shape[0])
+    idx = (block_colind.long()[:, None] * bw
+           + torch.arange(bw, device=x.device))
+    xs = x[idx.clamp(max=max(n - 1, 0))] if n else x.new_zeros(idx.shape)
+    xs = torch.where(idx < n, xs, 0)
     part = (values * xs[:, None, :]).sum(dim=2)         # (cap, bh)
     out = torch.zeros(mb + 1, bh, dtype=values.dtype, device=values.device)
     out.index_add_(0, _block_rows(block_rowptr, cap), part)
@@ -166,9 +171,12 @@ def _aligned(*ts) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-# (values, rowptr, colind, x, y, mb, bh, bw, stream) of bsr_spmv_{f32,f64}
+# (values, rowptr, colind, x, y, mb, bh, bw, n, mapping, vec, stream) of
+# bsr_spmv_{f32,f64}
 _SPMV_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
-    ctypes.c_void_p,)
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+# the SpMV kernel's mappings (csrc/bsr_spmv.cu)
+SPMV_COLS, SPMV_SPAN, SPMV_SMALL = 0, 1, 2
 # (values, rowptr, colind, b, c, mb, bh, bw, k, vec, stream) of
 # bsr_spmm_f64 and bsr_spmm_f32_fma
 _SPMM_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
@@ -183,22 +191,48 @@ def _suffix(dtype) -> str:
     return "f64" if dtype == torch.float64 else "f32"
 
 
+def spmv_mapping(bh: int, bw: int, itemsize: int, aligned: bool = True):
+    """(mapping, vec) of the SpMV kernel for (bh, bw) blocks of
+    ``itemsize``-byte values: vec, the elements of one load, is the
+    largest power of two up to 16 bytes that divides bw (1 where the
+    operands are not 16-byte aligned).  Power-of-two blocks of at most
+    32 * vec elements take ``SPMV_SPAN`` (a warp a block row in vec-wide
+    pieces), other blocks of at most 32 elements, such as 3x3,
+    ``SPMV_SMALL`` (a warp a block row, whole blocks a step, an element
+    a lane), and every other shape ``SPMV_COLS`` (a warp an output
+    row)."""
+    vec = 16 // itemsize if aligned else 1
+    while bw % vec:
+        vec //= 2
+    size = bh * bw
+    if size & (size - 1) == 0 and size <= 32 * vec:
+        return SPMV_SPAN, vec
+    if size <= 32:
+        return SPMV_SMALL, 1
+    return SPMV_COLS, vec
+
+
 def bsr_spmv_blocks(values, block_rowptr, block_colind,
                     x) -> torch.Tensor:
-    """y = A @ x over raw BSR arrays of one real dtype (x holds at least
-    every block column's slice); returns (mb * bh,).  CUDA tensors launch
-    ``bsr_spmv.cu``; CPU tensors take :func:`bsr_spmv_reference`."""
+    """y = A @ x over raw BSR arrays of one real dtype; x is read in
+    place, as zeros past its end (it may stop short of the last block
+    column); returns (mb * bh,).  CUDA tensors launch ``bsr_spmv.cu`` in
+    the mapping :func:`spmv_mapping` picks; CPU tensors take
+    :func:`bsr_spmv_reference`."""
     _check_operands(values, block_rowptr, block_colind, x, 1)
     if not _t.on_cuda(values):
         return bsr_spmv_reference(values, block_rowptr, block_colind, x)
     _, bh, bw = values.shape
     mb = int(block_rowptr.shape[0]) - 1
     y = torch.empty(mb * bh, dtype=values.dtype, device=values.device)
+    mapping, vec = spmv_mapping(bh, bw, values.element_size(),
+                                _aligned(values, x))
     stream = torch.cuda.current_stream(values.device).cuda_stream
     sym = f"bsr_spmv_{_suffix(values.dtype)}"
     _build.check(_build.function("bsr_spmv", sym, _SPMV_ARGTYPES)(
         values.data_ptr(), block_rowptr.data_ptr(), block_colind.data_ptr(),
-        x.data_ptr(), y.data_ptr(), mb, bh, bw, stream), "bsr_spmv")
+        x.data_ptr(), y.data_ptr(), mb, bh, bw, int(x.shape[0]), mapping,
+        vec, stream), "bsr_spmv")
     bsr_spmv_blocks.launches += 1
     return y
 

@@ -1,6 +1,7 @@
 """Slot fill: the fused SpGEMM numeric as a gather and a segmented sum
 over the slot-sorted expansion stream — the Hopper design of the paned
-fill of ``kernels/route_mul_paned.py``.
+fill of ``kernels/route_mul_paned.py`` and of the ROUTE v1 numeric of
+``kernels/route_mul_kernel.py``.
 
 The TPU kernel ``spblas_tpu/kernels/route_mul_paned.py::
 _paned_mul_kernel`` computes the slot sums of ``A_arr[sa] * B_arr[sb]``
@@ -8,7 +9,8 @@ by routing every product through (8, 128) tiles, since the TPU has no
 hardware gather.  Hopper has one, so the port keeps the function and
 reads the stream the tiles were packed from: a :class:`SlotStream`
 (``sa``, ``sb`` and each slot's first product, ``run_start``), built on
-the host beside the ROUTE plan (whose arrays stay bit-equal to JAX's).
+the host beside the ROUTE plan (whose arrays stay bit-equal to JAX's);
+``route_mul_kernel.py::_mul_kernel`` is replaced the same way.
 
 On a CUDA tensor :func:`mul_fill` launches the hand-written kernel
 ``csrc/mul_fill.cu`` once over every slot (one owner a slot, no atomics,
@@ -39,6 +41,8 @@ class SlotStream:
     run_start: torch.Tensor   # (nslots + 1,) int32  first product a slot
     a_len: int                # entries of A_arr every sa indexes into
     b_len: int                # entries of B_arr every sb indexes into
+    longest: int              # products of the longest run (picks the
+                              # kernel with or without its middle tier)
 
     @property
     def nslots(self) -> int:
@@ -58,14 +62,27 @@ def build_slot_stream(slots, src_a, src_b, a_len: int, b_len: int,
         raise ValueError("slots must be nondecreasing")
     nslots = int(slots[-1]) + 1 if len(slots) else 0
     run_start = np.zeros(nslots + 1, np.int64)
-    np.cumsum(np.bincount(slots, minlength=nslots), out=run_start[1:])
+    counts = np.bincount(slots, minlength=nslots)
+    np.cumsum(counts, out=run_start[1:])
 
     def put(arr):
         return torch.from_numpy(np.asarray(arr).astype(np.int32)).to(device)
 
     return SlotStream(sa=put(src_a), sb=put(src_b),
                       run_start=put(run_start), a_len=int(a_len),
-                      b_len=int(b_len))
+                      b_len=int(b_len),
+                      longest=int(counts.max()) if nslots else 0)
+
+
+def plan_stream(plan, builder: str) -> SlotStream:
+    """The expansion stream a mul plan keeps for the CUDA fill; raises on
+    a plan carried from JAX, which has none (``builder``: the function
+    that builds a plan with one)."""
+    if plan.expansion is None:
+        raise ValueError("the plan carries no expansion stream (a plan "
+                         f"carried from JAX): build it with {builder} to "
+                         "fill on CUDA")
+    return plan.expansion
 
 
 def mul_fill_reference(stream: SlotStream, a_arr: torch.Tensor,
@@ -104,9 +121,10 @@ def _check_operands(stream: SlotStream, a_arr: torch.Tensor,
         raise ValueError("stream arrays and values must be contiguous")
 
 
-# (run_start, sa, sb, A, B, c, nslots, capacity, stream) of mul_fill_f32
+# (run_start, sa, sb, A, B, c, nslots, capacity, longest, stream) of
+# mul_fill_f32
 _ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) * 2 + (
-    ctypes.c_void_p,)
+    ctypes.c_int, ctypes.c_void_p)
 
 
 def mul_fill(stream: SlotStream, a_arr: torch.Tensor, b_arr: torch.Tensor,
@@ -124,7 +142,7 @@ def mul_fill(stream: SlotStream, a_arr: torch.Tensor, b_arr: torch.Tensor,
     _build.check(fn(
         stream.run_start.data_ptr(), stream.sa.data_ptr(),
         stream.sb.data_ptr(), a_arr.data_ptr(), b_arr.data_ptr(),
-        c.data_ptr(), stream.nslots, capacity,
+        c.data_ptr(), stream.nslots, capacity, stream.longest,
         torch.cuda.current_stream(a_arr.device).cuda_stream), "mul_fill")
     if capacity:
         mul_fill.launches += 1

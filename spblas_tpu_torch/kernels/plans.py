@@ -60,7 +60,8 @@ from spblas_tpu_torch.kernels.banded import (band_halfwidth, band_spmm,
                                              build_permuted_band_plan,
                                              permuted_band_spmm,
                                              permuted_band_spmv)
-from spblas_tpu_torch.kernels.bsr_kernels import bsr_spmm, bsr_spmv
+from spblas_tpu_torch.kernels.bsr_kernels import _apply as bsr_apply
+from spblas_tpu_torch.kernels.bsr_kernels import bsr_spmm, bsr_spmv_blocks
 from spblas_tpu_torch.kernels.dia import (build_dia_plan, dia_fill_fraction,
                                           dia_spmm, dia_spmv)
 from spblas_tpu_torch.kernels.route2 import Route2Plan, build_route2_plan
@@ -462,8 +463,10 @@ def plan_spmv(plan: Tuple[str, object], x: torch.Tensor) -> torch.Tensor:
     if kind == "band_perm":
         return permuted_band_spmv(p, x)
     if kind == "bsr":
-        bsr, (m, n) = p
-        return bsr_spmv(bsr, F.pad(x, (0, bsr.shape[1] - n)))[:m]
+        # the BSR's columns run past x's to whole blocks; the kernel reads
+        # x in place, as zeros past its end
+        bsr, (m, _) = p
+        return bsr_apply(bsr_spmv_blocks, bsr, x)[:m]
     if kind == "dia":
         return dia_spmv(p, x)
     if kind == "sell":

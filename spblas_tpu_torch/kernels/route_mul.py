@@ -8,8 +8,12 @@ The plan runs the SpGEMM expansion stream
 through (8, 128) chunks of the ROUTE v1 machinery: two gathers, a
 three-pull permutation into slot-segment layout, a segmented prefix down
 the 8 depths, and a second three-pull permutation into the chunk's
-1024-slot out window.  The kernel is ``csrc/route_mul.cu`` (wrapper
-``kernels/route_mul_kernel.py``).
+1024-slot out window.  The plan also keeps the slot-sorted stream it was
+packed from (``RouteMulPlan.expansion``, a ``mul_fill.SlotStream``):
+on the card the numeric is one launch of the slot fill
+``csrc/mul_fill.cu`` over it (wrapper ``kernels/route_mul_kernel.py``),
+and the tiles run in the plain version, which the CPU tests hold to
+JAX's kernel.
 
 Gather roles (both sources are panes of 128-wide rows):
   src_b   elementwise: the element's tile sublane is its B slab
@@ -33,12 +37,14 @@ plan is a frozen dataclass of torch tensors.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from spblas_tpu_torch import native
 from spblas_tpu_torch import types as _t
+from spblas_tpu_torch.kernels.mul_fill import SlotStream, build_slot_stream
 from spblas_tpu_torch.kernels.route_plan import LANES, SLOTS, SUBS, _pick_g
 
 # tile bit fields (shift, mask)
@@ -66,6 +72,9 @@ class RouteMulPlan:
     out_rows: int
     capacity: int
     fill: float
+    # the slot-sorted stream the tiles were packed from, which the CUDA
+    # numeric reads (kernels/mul_fill.py); None on a plan carried from JAX
+    expansion: Optional[SlotStream] = None
 
     @property
     def nchunks(self) -> int:
@@ -82,6 +91,7 @@ def build_route_mul_plan(slots, src_a, src_b, a_len: int, b_len: int,
     slots = np.asarray(slots, np.int64)
     src_a = np.asarray(src_a, np.int64)
     src_b = np.asarray(src_b, np.int64)
+    expansion = build_slot_stream(slots, src_a, src_b, a_len, b_len, dev)
     g_a = _pick_g(a_len)
     g_b = _pick_g(b_len)
     win_a = g_a * SLOTS
@@ -125,7 +135,7 @@ def build_route_mul_plan(slots, src_a, src_b, a_len: int, b_len: int,
         a_base=put(ab, np.int32), b_base=put(bb, np.int32),
         o_base=put(ob, np.int32), g_a=g_a, g_b=g_b, a_rows=a_rows,
         b_rows=b_rows, out_rows=out_rows, capacity=int(capacity),
-        fill=float(fill))
+        fill=float(fill), expansion=expansion)
 
 
 # ------------------------------------------------------------------ #

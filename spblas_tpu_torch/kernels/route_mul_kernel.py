@@ -1,28 +1,29 @@
 """ROUTE v1 SpGEMM numeric executor — counterpart of
 ``spblas_tpu/kernels/route_mul_kernel.py`` (``route_mul``).
 
-On a CUDA tensor :func:`route_mul_padded` launches the hand-written
-kernel ``csrc/route_mul.cu`` (which replaces the TPU kernel
-``route_mul_kernel.py::_mul_kernel``) once over every chunk of the plan;
-on a CPU tensor it runs :func:`route_mul_reference`, the plain PyTorch
-version of the same computation.
+The TPU kernel ``route_mul_kernel.py::_mul_kernel`` routes every product
+of the slot-sorted expansion stream through (8, 128) chunks of int32
+tiles (12 KB a chunk), since the TPU has no hardware gather, and sums
+overlapping out windows in its sequential grid.  Hopper gathers in
+hardware: on a CUDA tensor :func:`route_mul` is one launch of the slot
+fill ``csrc/mul_fill.cu`` (``kernels/mul_fill.py``) over the stream the
+tiles were packed from (``RouteMulPlan.expansion``): one owner a slot,
+no atomics, the same bits on every run, no pane padding and no zeroed
+out pane.  A plan carried from JAX has no stream and is refused there.
 
-The plan has no aux levels: every chunk reads only the A and B panes, so
-one launch may run its chunks in any order.  Their out windows overlap,
-which the TPU's sequential grid makes safe; here chunks publish with
-atomic adds, so sums into one slot are taken in another order than the
-TPU's.
+On a CPU tensor :func:`route_mul` walks the tiles:
+:func:`route_mul_padded` over the packed panes runs
+:func:`route_mul_reference`, the plain PyTorch version of the TPU
+kernel's computation, which the CPU tests hold to JAX's kernel.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from spblas_tpu_torch import _build
 from spblas_tpu_torch import types as _t
+from spblas_tpu_torch.kernels.mul_fill import mul_fill, plan_stream
 from spblas_tpu_torch.kernels.route_mul import (
     LANES, SUBS, T1_LB, T1_OB, T1_Q1, T1_Q2, T1_Q3, T2_LA, T2_OA, T2_S7,
     T3_DIST, T3_P1, T3_P2, T3_P3, T3_VA, RouteMulPlan)
@@ -123,43 +124,31 @@ def _check_operands(plan: RouteMulPlan, a2: torch.Tensor,
         raise ValueError("plan arrays and panes must be contiguous")
 
 
-# (tile1, tile2, tile3, a_base, b_base, o_base, nchunks, A, a_rows, B,
-#  b_rows, out, out_rows, g_a, g_b, stream) of route_mul_f32
-_ARGTYPES = (ctypes.c_void_p,) * 6 + (ctypes.c_longlong,) + (
-    ctypes.c_void_p, ctypes.c_longlong) * 3 + (
-    ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-
-
 def route_mul_padded(plan: RouteMulPlan, a2: torch.Tensor,
                      b2: torch.Tensor) -> torch.Tensor:
-    """The plan over the packed panes ``a2`` and ``b2`` (from
-    :func:`pad_pane`); returns the (out_rows, 128) f32 out pane.  CUDA
-    tensors launch ``route_mul.cu`` once, on the current stream; CPU
-    tensors take :func:`route_mul_reference`."""
+    """The plan's tile walk over the packed panes ``a2`` and ``b2`` (from
+    :func:`pad_pane`): the (out_rows, 128) f32 out pane, by
+    :func:`route_mul_reference`.  CPU tensors only: on the card the
+    numeric is :func:`route_mul`'s slot fill, and CUDA tensors raise."""
     _check_operands(plan, a2, b2)
-    if not _t.on_cuda(a2):
-        return route_mul_reference(plan, a2, b2)
-    out = torch.zeros(plan.out_rows, LANES, dtype=torch.float32,
-                      device=a2.device)
-    stream = torch.cuda.current_stream(a2.device).cuda_stream
-    fn = _build.function("route_mul", "route_mul_f32", _ARGTYPES)
-    _build.check(fn(
-        plan.tile1.data_ptr(), plan.tile2.data_ptr(), plan.tile3.data_ptr(),
-        plan.a_base.data_ptr(), plan.b_base.data_ptr(),
-        plan.o_base.data_ptr(), plan.nchunks, a2.data_ptr(), plan.a_rows,
-        b2.data_ptr(), plan.b_rows, out.data_ptr(), plan.out_rows,
-        plan.g_a, plan.g_b, stream), "route_mul")
-    route_mul_padded.launches += 1
-    return out
-
-
-route_mul_padded.launches = 0
+    if _t.on_cuda(a2):
+        raise ValueError("route_mul_padded walks the tiles on the CPU "
+                         "only: on CUDA tensors route_mul runs the slot "
+                         "fill over plan.expansion")
+    return route_mul_reference(plan, a2, b2)
 
 
 def route_mul(plan: RouteMulPlan, a_arr: torch.Tensor,
               b_arr: torch.Tensor) -> torch.Tensor:
     """c_values (capacity,) f32 = the slot sums of A_arr[src_a] *
-    B_arr[src_b]."""
+    B_arr[src_b].  On CUDA tensors one launch of the slot fill
+    (:func:`mul_fill`) over the plan's expansion stream writes the whole
+    capacity; on CPU tensors the plain tile walker runs over the packed
+    panes."""
+    if _t.on_cuda(a_arr):
+        return mul_fill(plan_stream(plan, "build_route_mul_plan"),
+                        a_arr.float().contiguous(),
+                        b_arr.float().contiguous(), plan.capacity)
     out = route_mul_padded(plan, pad_pane(a_arr, plan.a_rows),
                            pad_pane(b_arr, plan.b_rows))
     return out.view(-1)[: plan.capacity]

@@ -42,7 +42,8 @@ import torch.nn.functional as F
 
 from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.kernels.mul_fill import (SlotStream,
-                                               build_slot_stream, mul_fill)
+                                               build_slot_stream, mul_fill,
+                                               plan_stream)
 from spblas_tpu_torch.kernels.route2 import (LANES, ROW_WINDOW, SLOTS, SUBS,
                                              _build_route2_mul_arrays,
                                              mul_pane_g)
@@ -326,11 +327,8 @@ def route2_mul_paned(plan: Route2MulPanedPlan, a_arr: torch.Tensor,
     first ``slots`` slots concatenated and zero-padded to the
     capacity."""
     if _t.on_cuda(a_arr):
-        if plan.expansion is None:
-            raise ValueError("the plan carries no expansion stream (a plan "
-                             "carried from JAX): build it with "
-                             "build_route2_mul_paned_plan to fill on CUDA")
-        return mul_fill(plan.expansion, a_arr.float().contiguous(),
+        return mul_fill(plan_stream(plan, "build_route2_mul_paned_plan"),
+                        a_arr.float().contiguous(),
                         b_arr.float().contiguous(), plan.capacity)
     a2, b2 = pack_mul_panes(plan, a_arr, b_arr)
     parts = [route2_mul_paned_reference(plan, p, a2, b2).view(-1)[:p.slots]

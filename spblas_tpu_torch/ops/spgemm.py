@@ -24,7 +24,8 @@ phase then runs the hand-written kernel ``csrc/route2_mul.cu``, or for
 a paned plan the slot fill ``csrc/mul_fill.cu`` over the plan's
 expansion stream; ``SPBLAS_ROUTE_SPGEMM=1`` selects the ROUTE
 v1 engine for a resident product instead (``kernels/route_mul.py``,
-kernel ``csrc/route_mul.cu``); otherwise it is the torch numeric
+whose numeric is the same slot fill over that plan's stream); otherwise
+it is the torch numeric
 (gather-multiply-``index_add_``).  The engine gates are the JAX
 package's, kept for parity (ROADMAP Queue 1 item 18 re-derives them for
 the card).  BSR·BSR one-shot products go to the block SpGEMM

@@ -147,7 +147,9 @@ def route_mul_plan_from_numpy(arrays: dict, static: dict,
                               device=None) -> RouteMulPlan:
     """A RouteMulPlan over a JAX one's arrays (as numpy, keyed by field
     name: tile1, tile2, tile3, a_base, b_base, o_base) and its static
-    fields (g_a, g_b, a_rows, b_rows, out_rows, capacity, fill)."""
+    fields (g_a, g_b, a_rows, b_rows, out_rows, capacity, fill).  It has
+    no expansion stream (``expansion`` None), so the CUDA numeric, the
+    slot fill over that stream, refuses it; the CPU walks its tiles."""
     dev = _t.resolve_device(device)
     return RouteMulPlan(
         **{k: _t.as_tensor(np.asarray(v), dev) for k, v in arrays.items()},

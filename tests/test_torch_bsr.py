@@ -26,7 +26,7 @@ from spblas_tpu.kernels.bsr_spgemm import (bsr_spgemm_compute as
 import spblas_tpu_torch as tsp
 from spblas_tpu_torch.kernels import bsr_spgemm as tbs
 from spblas_tpu_torch.formats.convert import to_csr as port_to_csr
-from spblas_tpu_torch.kernels import banded
+from spblas_tpu_torch.kernels import banded, plans
 from spblas_tpu_torch.kernels import bsr_kernels as bk
 from spblas_tpu_torch.utils import interop
 
@@ -34,10 +34,11 @@ from tests.torch_util import (  # noqa: F401
     EPS32, assert_entries_close, assert_rows_close, one_torch_thread, to_np)
 
 # (m, n, block shape, stored blocks): the chooser's 8x128 blocks, and
-# the 8x8 and 128x128 blocks the base path receives
+# the 8x8, 128x128 and 3x3 (3-D elasticity) blocks the base path receives
 SHAPES = {"8x128": (64, 512, (8, 128), 20),
           "8x8": (64, 48, (8, 8), 12),
-          "128x128": (256, 384, (128, 128), 3)}
+          "128x128": (256, 384, (128, 128), 3),
+          "3x3": (48, 45, (3, 3), 40)}
 
 
 def _block_dense(m, n, bh, bw, nblocks, seed, empty_rows=()):
@@ -131,6 +132,67 @@ def test_bsr_spmv_matches_jax(name):
     a, b = _pair(dense, bs)
     x = np.random.default_rng(4).standard_normal(n).astype(np.float32)
     _check_spmv(a, b, dense, x)
+
+
+def test_bsr_spmv_3x3_f64_matches_plain():
+    """3x3 blocks (the small mapping on the card) in float64: within
+    64 * eps_f64 * (|A| . |x|) per row of the dense product, and equal to
+    the plain version, which the CPU wrapper runs."""
+    m, n, bs, nb = SHAPES["3x3"]
+    dense = _block_dense(m, n, *bs, nb, seed=16).astype(np.float64)
+    b = tsp.BSR.from_dense(dense, bs, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(17).standard_normal(n))
+    y = bk.bsr_spmv(b, x)
+    assert y.dtype == torch.float64 and y.shape == (m,)
+    err = np.abs(to_np(y) - dense @ to_np(x))
+    eps64 = np.finfo(np.float64).eps
+    assert (err <= 64 * eps64 * (np.abs(dense) @ np.abs(to_np(x)))).all()
+    assert torch.equal(y, bk.bsr_spmv_reference(b.values, b.block_rowptr,
+                                                b.block_colind, x))
+
+
+def test_bsr_plan_reads_x_in_place(monkeypatch):
+    """The chooser's BSR pads its columns to whole blocks; ``plan_spmv``
+    hands x to the kernel as it is, with no ``F.pad``, and the kernel
+    reads zeros past its end: the same values as x padded."""
+    rng = np.random.default_rng(18)
+    dense = _block_dense(64, 500, 8, 128, 12, seed=19)
+    dense[8:16, 384:500] = rng.standard_normal((8, 116))
+    bsr, (m, n) = plans._try_bsr(tsp.CSR.from_dense(dense, device="cpu"))
+    assert (m, n) == (64, 500) and bsr.shape == (64, 512)
+    x = torch.from_numpy(rng.standard_normal(500).astype(np.float32))
+    padded = torch.nn.functional.pad(x, (0, 12))
+    want = bk.bsr_spmv(bsr, padded)
+    args = (bsr.values, bsr.block_rowptr, bsr.block_colind)
+
+    def no_pad(*a, **k):
+        raise AssertionError("x was padded")
+
+    monkeypatch.setattr(plans.F, "pad", no_pad)
+    assert torch.equal(plans.plan_spmv(("bsr", (bsr, (m, n))), x), want)
+    assert torch.equal(bk.bsr_spmv_blocks(*args, x),
+                       bk.bsr_spmv_blocks(*args, padded))
+    with pytest.raises(ValueError, match="bsr_spmv"):
+        bk.bsr_spmv(bsr, x)
+
+
+@pytest.mark.parametrize("block,itemsize,aligned,want", [
+    ((8, 128), 4, True, (bk.SPMV_COLS, 4)),
+    ((128, 128), 4, True, (bk.SPMV_COLS, 4)),
+    ((12, 125), 4, True, (bk.SPMV_COLS, 1)),
+    ((8, 8), 4, True, (bk.SPMV_SPAN, 4)),
+    ((8, 8), 8, True, (bk.SPMV_SPAN, 2)),
+    ((4, 2), 4, True, (bk.SPMV_SPAN, 2)),
+    ((8, 8), 4, False, (bk.SPMV_COLS, 1)),
+    ((3, 3), 4, True, (bk.SPMV_SMALL, 1)),
+    ((3, 3), 8, True, (bk.SPMV_SMALL, 1)),
+    ((5, 6), 4, False, (bk.SPMV_SMALL, 1))])
+def test_spmv_mapping_by_block_shape(block, itemsize, aligned, want):
+    """The host's pick of the SpMV kernel's mapping: 16-byte loads where
+    bw and the pointers allow, a warp a block row for power-of-two blocks
+    of at most 32 loads and for other blocks of at most 32 elements (an
+    element a lane), a warp an output row else."""
+    assert bk.spmv_mapping(*block, itemsize, aligned) == want
 
 
 @pytest.mark.parametrize("name,k", [("8x128", 128), ("8x128", 33),

@@ -3,12 +3,14 @@ JAX package: bit-equal plans on the streams of ``tests/test_route_mul.py``
 and the empty stream, the kernel's plain version against the JAX
 package's exact numpy simulator (``route_mul_numpy``) and the scatter
 reference ``np.add.at(out, slots, A[sa] * B[sb])``, the prefix's no-wrap
-property, and the ``SPBLAS_ROUTE_SPGEMM=1`` product end to end.
+property, the plan's expansion stream and the slot fill's plain version
+(the CUDA numeric), and the ``SPBLAS_ROUTE_SPGEMM=1`` product end to
+end.
 
 JAX's Pallas ``route_mul`` runs in interpret mode once, on a small plan.
 Tolerance: per slot 64 * eps_f32 * sum |A[sa] * B[sb]| over the slot's
 entries (``tests/torch_util.py``'s dot-product form), since the plain
-version's ``index_add_`` (and the CUDA kernel's atomics) sum a slot in
+versions' ``index_add_`` (and the CUDA slot fill's lanes) sum a slot in
 another order than the sequential simulator."""
 
 import jax.numpy as jnp
@@ -22,6 +24,7 @@ from spblas_tpu.kernels.route_mul_kernel import route_mul as jax_route_mul
 from spblas_tpu.utils import generate as gen
 
 import spblas_tpu_torch as tsp
+from spblas_tpu_torch.kernels import mul_fill as tmf
 from spblas_tpu_torch.kernels import route_mul as trm
 from spblas_tpu_torch.kernels import route_mul_kernel as tk
 from spblas_tpu_torch.kernels.route_mul import RouteMulPlan
@@ -61,6 +64,19 @@ def _plans(name):
     return jp, tp, (slots, sa, sb, A, B, n_slots)
 
 
+# STREAMS and a dup-heavy stream at more slots: 2,048 runs of about 41
+# products (the slot fill's middle tier on the card)
+FILL_STREAMS = dict(STREAMS, dup40=(2048, 40, 50, 60))
+
+
+def _port_plan(name):
+    n_slots, dup, a_len, b_len = FILL_STREAMS[name]
+    slots, sa, sb, A, B = _stream(n_slots, dup, a_len, b_len)
+    tp = trm.build_route_mul_plan(slots, sa, sb, a_len, b_len, n_slots,
+                                  device="cpu")
+    return tp, (slots, sa, sb, A, B, n_slots)
+
+
 def _assert_slots_close(got, want, slots, sa, sb, A, B, cap, err_msg=""):
     """|got - want| per slot within 64 eps of the slot's sum of |A B|."""
     absdot = np.zeros(cap)
@@ -88,9 +104,9 @@ def test_plan_bit_equal_and_plain_matches_simulator(name):
     sim = jrm.route_mul_numpy(jp, A, B)
     # the port's own copy of the simulator agrees with JAX's exactly
     np.testing.assert_array_equal(trm.route_mul_numpy(tp, A, B), sim)
-    before = tk.route_mul_padded.launches
+    before = tmf.mul_fill.launches
     got = tk.route_mul(tp, torch.from_numpy(A), torch.from_numpy(B))
-    assert tk.route_mul_padded.launches == before    # plain: no launch
+    assert tmf.mul_fill.launches == before    # plain: no launch
     assert got.shape == (cap,) and got.dtype == torch.float32
     _assert_slots_close(got, sim, slots, sa, sb, A, B, cap, name)
     _assert_slots_close(got, _scatter(slots, sa, sb, A, B, cap), slots, sa,
@@ -187,3 +203,83 @@ def test_v1_engine_product_matches_jax(monkeypatch, beta):
         bound = abs_spgemm(ja, jb, jd, alpha=2.0, beta=beta)
     assert info.result_nnz == int(want.nnz)
     assert_spgemm_close(c, want, bound)
+
+
+@pytest.mark.parametrize("name", list(FILL_STREAMS))
+def test_plan_keeps_its_expansion_stream(name):
+    """The plan keeps the slot-sorted stream it was packed from, as
+    ``build_slot_stream`` makes it from the same stream."""
+    tp, (slots, sa, sb, A, B, cap) = _port_plan(name)
+    want = tmf.build_slot_stream(slots, sa, sb, len(A), len(B), "cpu")
+    ex = tp.expansion
+    for f in ("sa", "sb", "run_start"):
+        assert torch.equal(getattr(ex, f), getattr(want, f)), f
+    assert (ex.a_len, ex.b_len, ex.nslots) == (want.a_len, want.b_len,
+                                               want.nslots)
+    # the longest run picks the CUDA kernel with or without its middle tier
+    assert ex.longest == want.longest == int(np.bincount(slots).max())
+    assert ex.nslots <= tp.capacity
+
+
+@pytest.mark.parametrize("name", list(FILL_STREAMS))
+def test_slot_fill_matches_simulator_and_tile_walker(name):
+    """The slot fill's plain version over the plan's stream (the CUDA
+    numeric's computation) against the exact numpy simulator, the plain
+    tile walker and the scatter reference, per slot."""
+    tp, (slots, sa, sb, A, B, cap) = _port_plan(name)
+    a, b = torch.from_numpy(A), torch.from_numpy(B)
+    got = tmf.mul_fill_reference(tp.expansion, a, b, tp.capacity)
+    assert got.shape == (cap,) and got.dtype == torch.float32
+    walker = tk.route_mul_padded(tp, tk.pad_pane(a, tp.a_rows),
+                                 tk.pad_pane(b, tp.b_rows)).view(-1)[:cap]
+    for want, what in ((trm.route_mul_numpy(tp, A, B), "simulator"),
+                       (to_np(walker), "walker"),
+                       (_scatter(slots, sa, sb, A, B, cap), "scatter")):
+        _assert_slots_close(got, want, slots, sa, sb, A, B, cap,
+                            f"{name} vs {what}")
+    if name == "dup40":
+        assert np.bincount(slots).max() > 32    # runs past the owner cut
+
+
+def test_carried_plan_has_no_stream_and_cuda_refuses_it(monkeypatch):
+    """A JAX plan carried across has no expansion stream: on CUDA tensors
+    ``route_mul`` raises rather than fall back, and the tile walker runs
+    on the CPU only."""
+    jp, tp, (slots, sa, sb, A, B, cap) = _plans("multi_window")
+    cp = interop.route_mul_plan_from_numpy(
+        {f: np.asarray(getattr(jp, f)) for f in ARRAYS},
+        {f: getattr(jp, f) for f in STATIC}, device="cpu")
+    assert cp.expansion is None and tp.expansion is not None
+    a, b = torch.from_numpy(A), torch.from_numpy(B)
+    a2, b2 = tk.pad_pane(a, tp.a_rows), tk.pad_pane(b, tp.b_rows)
+    monkeypatch.setattr(tk._t, "on_cuda", lambda t: True)
+    with pytest.raises(ValueError, match="no expansion stream"):
+        tk.route_mul(cp, a, b)
+    with pytest.raises(ValueError, match="CPU only"):
+        tk.route_mul_padded(tp, a2, b2)
+
+
+def test_cuda_numeric_is_one_fill_over_the_stream(monkeypatch):
+    """On CUDA tensors ``route_mul`` is one call of the slot fill over
+    ``plan.expansion`` into the plan's capacity: no pane padding and no
+    zeroed out pane; its values are the CPU walker's within the bound."""
+    tp, (slots, sa, sb, A, B, cap) = _port_plan("dup40")
+    a, b = torch.from_numpy(A), torch.from_numpy(B)
+    want = tk.route_mul(tp, a, b)
+    calls = []
+
+    def fill(stream, a_arr, b_arr, capacity):
+        calls.append((stream, capacity))
+        return tmf.mul_fill_reference(stream, a_arr, b_arr, capacity)
+
+    def no_pad(*args):
+        raise AssertionError("a pane was padded")
+
+    monkeypatch.setattr(tk, "mul_fill", fill)
+    monkeypatch.setattr(tk, "pad_pane", no_pad)
+    monkeypatch.setattr(tk._t, "on_cuda", lambda t: True)
+    got = tk.route_mul(tp, a, b)
+    monkeypatch.undo()
+    assert len(calls) == 1 and calls[0][0] is tp.expansion
+    assert calls[0][1] == tp.capacity
+    _assert_slots_close(got, to_np(want), slots, sa, sb, A, B, cap)
