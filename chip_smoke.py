@@ -37,8 +37,12 @@ per aux level: each runs 50 times back to back on a plan with aux
 levels, every result checked (a wait that lets a chunk read too early
 gives a wrong row).  So does the SpTRSV solve, one persistent launch a
 solve ordered by device counters, on the 20k factor and on a factor with
-hub rows (aux levels).  The paned SpGEMM fill (one owner a slot, no
-atomics) must give the same bits twice, and the two tensor-core SpMM
+hub rows (aux levels).  The paned SpGEMM fill (one writer a slot, no
+atomics on values) must give the same bits twice, the resident one (the
+same slot fill over the resident plan's stream) ten times, and on both
+hub fixtures the fill's hub tier (a long run's segments summed by blocks
+of their own, the last to arrive adding the partials) runs 50 times back
+to back, each result in bound and bit-equal; the two tensor-core SpMM
 kernels (``band_spmm_stream`` on the headline band at k = 256, the f32
 ``bsr_spmm`` on the block cell) ten times; both also run on all-positive
 operands (|A| and |B|) there, where the tensor cores' truncated sums
@@ -66,7 +70,9 @@ connectivity of a 64^3 node grid, f32 and f64), each also with x one
 entry short (read in place) and x off 16-byte alignment, and gives the
 same bits ten times on each.  The ROUTE v1 SpGEMM numeric (the slot fill
 over the v1 plan's stream) gives the same bits ten times on the 2k plan
-and on the dup-40 stream.
+and on the dup-40 stream.  The DIA kernel that reads x in place (the
+main path's) gives the padded kernel's bits on every DIA shape, x in f32
+and in bf16.
 
 Tolerance everywhere: |y - y_ref| <= 64 * eps_f32 * scale * (|A|.|x|)
 per row (per entry of C against (|A|.|B|) for SpMM), the dot-product
@@ -331,7 +337,8 @@ BAND_CX_REPLACES = BAND_SPMM_REPLACES
 BAND_STREAM_REPLACES = "spblas_tpu/kernels/banded.py:403"
 BSR_SPMV_REPLACES = "spblas_tpu/kernels/bsr_pallas.py:128"
 BSR_SPMM_REPLACES = "spblas_tpu/kernels/bsr_pallas.py:33"
-MUL_SOURCE = "spblas_tpu_torch/csrc/route2_mul.cu"
+# the resident ROUTE2-mul numeric is the slot fill over its plan's stream
+MUL_SOURCE = "spblas_tpu_torch/csrc/mul_fill.cu"
 MUL_PANED_SOURCE = "spblas_tpu_torch/csrc/mul_fill.cu"
 BSR_SPGEMM_SOURCE = "spblas_tpu_torch/csrc/bsr_spgemm.cu"
 MUL_REPLACES = "spblas_tpu/kernels/route2_kernel.py:414"
@@ -356,16 +363,17 @@ WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "band_spmm_stream": banded.band_spmm_stream_padded,
             "bsr_spmv": bk.bsr_spmv_blocks,
             "bsr_spmm": bk.bsr_spmm_blocks,
-            "route2_mul": r2k.route2_mul_padded,
+            "route2_mul": mf.mul_fill,
             "route2_mul_paned": mf.mul_fill,
             "bsr_spgemm": bsg.bsr_spgemm_blocks,
             "route_mul": mf.mul_fill,
             "band_power": banded.band_power_padded,
             "route2_solve": r2k.route2_solve_padded}
 # kernels that share one wrapper's count (the slot fill runs the numeric
-# of both the paned ROUTE2-mul and the ROUTE v1 SpGEMM engines): the
-# engine whose main path credits it
-SHARED = {"route2_mul_paned": "paned", "route_mul": "v1"}
+# of the resident and paned ROUTE2-mul and the ROUTE v1 SpGEMM engines):
+# the engine whose main path credits it
+SHARED = {"route2_mul": "resident", "route2_mul_paned": "paned",
+          "route_mul": "v1"}
 # kind -> the kernels its main-path SpMV call must launch
 KIND_KERNELS = {"band": ("band_spmv",), "bsr": ("bsr_spmv",),
                 "band_perm": ("band_spmv",),
@@ -665,7 +673,12 @@ def band_wide_check():
 
 
 def dia_case(name, a, seed, rates, card):
+    """``dia_spmv`` on one matrix: the padded kernel (x in the TPU
+    kernel's padded pane) against its plain version, and the in-place
+    kernel (the main path's: x read in place, m rows) against the padded
+    kernel's bits, x in f32 and in bf16; both timed."""
     plan = dia.build_dia_plan(a)
+    m = a.shape[0]
     x = gen.generate_vector(a.shape[1], seed=seed)
     x2, pad_lo = dia.pad_x(plan, x)
     y_k = dia.dia_spmv_padded(plan, x2, pad_lo)
@@ -673,30 +686,50 @@ def dia_case(name, a, seed, rates, card):
     y_p = dia.dia_spmv_reference(plan.diags, plan.offsets, x2, pad_lo)
     err = row_check(y_k, y_p, dia.dia_spmv_reference(
         plan.diags.abs(), plan.offsets, x2.abs(), pad_lo))
-    log(f"[check] dia_spmv {name}: in bound, max |err| {err:.3e}")
+    for xx in (x, x.bfloat16()):
+        y_i = dia.dia_spmv_inplace(plan, xx)
+        y_pad = dia.dia_spmv_padded(plan, *dia.pad_x(plan, xx))
+        require(y_i.shape == (m,) and torch.equal(y_i, y_pad[:m]),
+                f"dia_spmv {name} {xx.dtype}: the in-place kernel differs "
+                "from the padded kernel's bits")
+        require(torch.equal(dia.dia_spmv_inplace_reference(plan, xx),
+                            dia.dia_spmv_reference(
+                                plan.diags, plan.offsets,
+                                *dia.pad_x(plan, xx))[:m]),
+                f"dia_spmv {name} {xx.dtype}: plain versions differ")
+    log(f"[check] dia_spmv {name}: in bound, max |err| {err:.3e}; in place "
+        "= padded bits (f32 and bf16 x)")
     total = plan.diags.numel()
     rows = plan.diags.shape[1] * 128
     # x: the span the shifted reads cover (a wide rectangle reads little
-    # of its padded x)
-    x_read = rows + max(plan.offsets) - min(plan.offsets)
-    nbytes = total * 4 + x_read * 4 + rows * 4
-    b_ms, b_by = bound(nbytes, 2 * total, rates)
+    # of its padded x); the in-place kernel needs the m rows' diagonal
+    # values and writes m rows, the padded one every padded row
+    span = max(plan.offsets) - min(plan.offsets)
+    nbytes = plan.ndiag * m * 4 + min(m + span, a.shape[1]) * 4 + m * 4
+    b_ms, b_by = bound(nbytes, 2 * plan.ndiag * m, rates)
+    pad_bytes = total * 4 + (rows + span) * 4 + rows * 4
+    pb_ms, _ = bound(pad_bytes, 2 * total, rates)
 
     def copy():
         p = dataclasses.replace(plan, diags=plan.diags.clone())
         p.offsets_tensor        # made now, not inside the timed chain
-        return p, x2.clone(), pad_lo
+        p.offsets_host
+        return p, x2.clone(), pad_lo, x.clone()
 
-    ins = replicas(copy, nbytes)
-    k_ms = device_ms(dia.dia_spmv_padded, ins)
-    p_ms = device_ms(lambda p, xx, lo: dia.dia_spmv_reference(
+    ins = replicas(copy, pad_bytes)
+    k_ms = device_ms(lambda p, xx, lo, xi: dia.dia_spmv_inplace(p, xi), ins)
+    pad_ms = device_ms(lambda p, xx, lo, xi: dia.dia_spmv_padded(p, xx, lo),
+                       ins)
+    padx_ms = device_ms(lambda p, xx, lo, xi: dia.pad_x(p, xi), ins)
+    p_ms = device_ms(lambda p, xx, lo, xi: dia.dia_spmv_reference(
         p.diags, p.offsets, xx, lo), ins)
     l_ms = library_ms(a, x)
-    rec = {"kernel": "dia_spmv", "case": name, "m": a.shape[0],
+    rec = {"kernel": "dia_spmv", "case": name, "m": m,
            "n": a.shape[1], "ndiag": plan.ndiag,
            "offsets": [min(plan.offsets), max(plan.offsets)],
            "nnz": a.nnz, "max_abs_err": err, "kernel_ms": k_ms,
-           "bound_ms": b_ms, "bound_by": b_by, "plain_ms": p_ms,
+           "bound_ms": b_ms, "bound_by": b_by, "padded_kernel_ms": pad_ms,
+           "padded_bound_ms": pb_ms, "pad_x_ms": padx_ms, "plain_ms": p_ms,
            "library_ms": l_ms, "nnz_s": a.nnz / (k_ms * 1e-3),
            "card": card}
     return rec
@@ -1881,47 +1914,88 @@ def library_spgemm_ms(a, b):
     return device_ms(torch.matmul, ins, reps=len(ins))
 
 
-def mul_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
-    """``route2_mul`` on a resident mul plan against its plain version."""
-    a2, b2 = r2k.pack_mul_panes(plan, a_arr, b_arr)
-    before = r2k.route2_mul_padded.launches
-    y_k = r2k.route2_mul_padded(plan, a2, b2)
+def hub_race(kname, name, run, ref, absdot, stream):
+    """The slot fill's hub tier raced: ``run()`` ``RACE_RUNS`` times back
+    to back on the card, every result held per slot against the plain
+    version and bit-equal to the first (a segment counted in before its
+    partial lands, or a counter left behind, gives a wrong or changing
+    hub slot), and every arrival counter back at 0."""
+    results = [run() for _ in range(RACE_RUNS)]
     torch.cuda.synchronize()
-    per_call = r2k.route2_mul_padded.launches - before
-    require(per_call == sum(hi > lo for lo, hi in plan.launch_ranges()),
-            f"route2_mul {name}: {per_call} launches")
-    y_p = r2k.route2_mul_reference(plan, a2, b2)
-    err = row_check(y_k, y_p, r2k.route2_mul_reference(plan, a2.abs(),
-                                                        b2.abs()))
-    log(f"[check] route2_mul {name}: in bound, max |err| {err:.3e}")
-    del y_k, y_p
-    # each input read once (both tiles, the per-chunk scalars ab, bb, yb,
-    # the A and B panes), the out pane written twice (zeroed, then
-    # accumulated)
+    err = max(row_check(y, ref, absdot) for y in results)
+    require(all(torch.equal(y, results[0]) for y in results),
+            f"{kname} {name}: hub tier runs differ")
+    require(stream.nseg > 0 and not bool(stream.hub_count.any()),
+            f"{kname} {name}: no hub segment, or a counter left behind")
+    log(f"[race] {kname} {name}: {RACE_RUNS} runs of the hub tier "
+        f"({stream.nseg} segments) in bound and bit-equal, max |err| "
+        f"{err:.3e}")
+
+
+def mul_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None,
+             race=False):
+    """``route2_mul`` on a resident mul plan (one launch of the slot fill
+    ``mul_fill`` over the plan's expansion stream) against the plain tile
+    walker and the plain segmented sum, per slot; one writer a slot, so
+    10 runs give the same bits; with ``race``, the hub tier raced.  Two
+    bounds: the bytes the slot fill must move, and the tile stream the
+    TPU design moves."""
+    ex = plan.expansion
+    cap = plan.capacity
+    before = mf.mul_fill.launches
+    c_k = r2k.route2_mul(plan, a_arr, b_arr)
+    torch.cuda.synchronize()
+    per_call = mf.mul_fill.launches - before
+    require(per_call == 1, f"route2_mul {name}: {per_call} launches, want 1")
+    same_bits(f"route2_mul {name}", r2k.route2_mul, (plan, a_arr, b_arr))
+    a2, b2 = r2k.pack_mul_panes(plan, a_arr, b_arr)
+    walker = r2k.route2_mul_reference(plan, a2, b2).view(-1)[:cap]
+    walker_abs = r2k.route2_mul_reference(plan, a2.abs(), b2.abs()
+                                          ).view(-1)[:cap]
+    err = row_check(c_k, walker, walker_abs)
+    row_check(c_k, mf.mul_fill_reference(ex, a_arr, b_arr, cap),
+              mf.mul_fill_reference(ex, a_arr.abs(), b_arr.abs(), cap))
+    log(f"[check] route2_mul {name}: in bound, 10 runs bit-equal, max "
+        f"|err| {err:.3e}")
+    if race:
+        hub_race("route2_mul", name, lambda: r2k.route2_mul(
+            plan, a_arr, b_arr), walker, walker_abs, ex)
+    del c_k, walker, walker_abs
+    # the slot fill reads the index stream (sa, sb, run_start), A and B
+    # once and writes c once; the tile stream: both tiles, the per-chunk
+    # scalars ab, bb, yb, the A and B panes, the out pane written twice
+    # (zeroed, then accumulated)
+    ent = int(ex.sa.numel())
+    nbytes = (2 * ent + ex.nslots + 1 + cap) * 4 + (ex.a_len + ex.b_len) * 4
+    b_ms, b_by = bound(nbytes, 2 * ent, rates)
     nch = plan.nchunks
-    nbytes = (nch * (8 * 1024 + 12) + (plan.a_rows + plan.b_rows) * 512
-              + 2 * r2k.mul_out_rows(plan) * 512)
-    b_ms, b_by = bound(nbytes, 2 * nch * 1024, rates)
+    tile_bytes = (nch * (8 * 1024 + 12) + (plan.a_rows + plan.b_rows) * 512
+                  + 2 * r2k.mul_out_rows(plan) * 512)
+    tile_ms, _ = bound(tile_bytes, 2 * nch * 1024, rates)
 
     def copy():
-        return dataclasses.replace(
-            plan, tile1=plan.tile1.clone(), tile2=plan.tile2.clone(),
-            a_base=plan.a_base.clone(), b_base=plan.b_base.clone(),
-            y_base=plan.y_base.clone()), a2.clone(), b2.clone()
+        return (dataclasses.replace(ex, sa=ex.sa.clone(), sb=ex.sb.clone(),
+                                    run_start=ex.run_start.clone()),
+                a_arr.clone(), b_arr.clone())
 
     ins = replicas(copy, nbytes)
-    k_ms = device_ms(r2k.route2_mul_padded, ins)
-    p_ms = device_ms(r2k.route2_mul_reference, ins)
+    k_ms = device_ms(lambda s_, a_, b_: mf.mul_fill(s_, a_, b_, cap), ins)
+    p_ms = device_ms(lambda s_, a_, b_: mf.mul_fill_reference(
+        s_, a_, b_, cap), ins)
     del ins
+    walk_ms = device_ms(r2k.route2_mul_reference, [(plan, a2, b2)], reps=4)
     torch.cuda.empty_cache()
     return {"kernel": "route2_mul", "case": name, "nchunks": nch,
             "n_aux_chunks": plan.n_aux_chunks,
             "aux_levels": len(plan.launch_starts) - 1, "fill": plan.fill,
-            "g_a": plan.g_a, "g_b": plan.g_b, "dist_max": plan.dist_max,
-            "capacity": plan.capacity, "launches_per_call": per_call,
+            "g_a": plan.g_a, "g_b": plan.g_b, "capacity": cap,
+            "entries": ent, "slots": ex.nslots, "longest_run": ex.longest,
+            "hub_segments": ex.nseg, "launches_per_call": per_call,
+            "same_bits_runs": 10, "raced": RACE_RUNS if race else 0,
             "max_abs_err": err, "kernel_ms": k_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "plain_ms": p_ms, "library_ms": lib_ms,
-            "card": card}
+            "bound_by": b_by, "tile_stream_bound_ms": tile_ms,
+            "plain_ms": p_ms, "tile_walker_plain_ms": walk_ms,
+            "library_ms": lib_ms, "card": card}
 
 
 def paned_walker(plan, a2, b2, fn=rmp.route2_mul_paned_reference):
@@ -1933,12 +2007,14 @@ def paned_walker(plan, a2, b2, fn=rmp.route2_mul_paned_reference):
     return torch.nn.functional.pad(out, (0, plan.capacity - out.shape[0]))
 
 
-def mul_paned_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
+def mul_paned_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None,
+                   race=False):
     """The paned fill (``route2_mul_paned``: one launch of the slot fill
     ``mul_fill`` over the plan's expansion stream) against the plain
-    tile walker, per entry; one owner a slot, so two runs give the same
-    bits.  Two bounds: the bytes the slot fill must move, and the tile
-    stream any design that reads the ROUTE tiles must move."""
+    tile walker, per entry; one writer a slot, so two runs give the same
+    bits; with ``race``, the hub tier raced.  Two bounds: the bytes the
+    slot fill must move, and the tile stream any design that reads the
+    ROUTE tiles must move."""
     ex = plan.expansion
     cap = plan.capacity
     before = mf.mul_fill.launches
@@ -1951,13 +2027,17 @@ def mul_paned_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
     require(torch.equal(c_k, again),
             f"route2_mul_paned {name}: two runs differ")
     a2, b2 = rmp.pack_mul_panes(plan, a_arr, b_arr)
-    err = row_check(c_k, paned_walker(plan, a2, b2),
-                    paned_walker(plan, a2.abs(), b2.abs()))
+    walker = paned_walker(plan, a2, b2)
+    walker_abs = paned_walker(plan, a2.abs(), b2.abs())
+    err = row_check(c_k, walker, walker_abs)
     row_check(c_k, mf.mul_fill_reference(ex, a_arr, b_arr, cap),
               mf.mul_fill_reference(ex, a_arr.abs(), b_arr.abs(), cap))
     log(f"[check] route2_mul_paned {name}: in bound, the same bits twice, "
         f"max |err| {err:.3e}")
-    del c_k, again
+    if race:
+        hub_race("route2_mul_paned", name, lambda: rmp.route2_mul_paned(
+            plan, a_arr, b_arr), walker, walker_abs, ex)
+    del c_k, again, walker, walker_abs
     # the slot fill reads the index stream (sa, sb, run_start), A and B
     # once and writes c once; the tile walker's bound reads both tiles,
     # the per-chunk scalars ab, bb, yb, fl, pane, A and B and writes each
@@ -1991,8 +2071,8 @@ def mul_paned_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
             "aux_levels": max(len(p.launch_starts) - 1 for p in plan.panels),
             "panels_with_aux": sum(p.has_aux for p in plan.panels),
             "entries": ent, "slots": ex.nslots, "capacity": cap,
-            "longest_run": int(ex.run_start.diff().max()) if ex.nslots
-            else 0,
+            "longest_run": ex.longest, "hub_segments": ex.nseg,
+            "raced": RACE_RUNS if race else 0,
             "launches_per_call": per_call, "max_abs_err": err,
             "kernel_ms": k_ms, "bound_ms": b_ms, "bound_by": b_by,
             "tile_stream_bound_ms": tile_ms, "plain_ms": p_ms,
@@ -2249,7 +2329,8 @@ def spgemm_phase(rates, card):
                                            seed)
     plan = route2.build_route2_mul_plan(slots, sa, sb, a_len, b_len, cap,
                                         device=DEVICE)
-    recs.append(mul_case("hub_slots_aux", plan, av, bv, rates, card))
+    recs.append(mul_case("hub_slots_aux", plan, av, bv, rates, card,
+                         race=True))
     require(recs[-1]["aux_levels"] > 1,
             "route2_mul hub fixture has fewer than two aux levels")
     n_ent, cap, hubs, a_len, b_len, seed, kw = MUL_PANED_HUB
@@ -2258,7 +2339,7 @@ def spgemm_phase(rates, card):
     plan = rmp.build_route2_mul_paned_plan(slots, sa, sb, a_len, b_len,
                                            cap, device=DEVICE, **kw)
     recs.append(mul_paned_case("hub_slots_paned", plan, av, bv, rates,
-                               card))
+                               card, race=True))
     require(recs[-1]["panels"] > 1 and recs[-1]["panes"] > 1
             and recs[-1]["panels_with_aux"] > 1,
             "route2_mul_paned hub fixture misses panels, panes or aux")

@@ -19,9 +19,12 @@ block cell (``BSR_MAIN``: 131,072^2, 65,536 blocks of 8x128, k 256),
 the four real applies it replaced) and ``bsr_spgemm`` on chip_smoke.py's
 32,768^2 block product (f32, f64) and its (8,128).(128,128) case,
 ``bsr_spmv`` on the block cell's BSR, the 8x8 kernel-only shape and the
-3x3 blocks of a 27-point 64^3 node grid (f32, f64), and the ROUTE v1
+3x3 blocks of a 27-point 64^3 node grid (f32, f64), the ROUTE v1
 SpGEMM numeric ``route_mul`` on the 2k A.A v1 plan and the dup-40
-stream, each as the CUDA chooser or ``chip_smoke.py`` builds it.
+stream, the resident SpGEMM numeric ``route2_mul`` on the 2k A.A plan
+and the resident hub fixture, and ``dia_spmv`` on the three DIA main
+paths and two kernel-only shapes, each as the CUDA chooser or
+``chip_smoke.py`` builds it.
 
     python3 scripts/route_profile.py [--tree DIR ...] [--kernels K,...]
                                      [--out FILE] [--no-variants]
@@ -32,8 +35,8 @@ one); the trees run one worker process each, in the order given, so
 ``--tree _checkout/parent --tree . --tree . --tree _checkout/parent``
 compares two versions in turns on one card.  ``--kernels`` picks from
 ``v1``, ``paned``, ``route2``, ``solve``, ``band``, ``mul_paned``,
-``band_mm``, ``bsr_mm``, ``cx``, ``block_spgemm``, ``bsr_mv`` and
-``v1_mul`` (``spmm`` names
+``band_mm``, ``bsr_mm``, ``cx``, ``block_spgemm``, ``bsr_mv``,
+``v1_mul``, ``mul`` and ``dia`` (``spmm`` names
 ``band_mm`` and ``bsr_mm``, ``route_cx`` ``cx``, ``bsr_spgemm``
 ``block_spgemm``; default: all); ``--only-variants`` names the variants
 to run (default: every one that applies).
@@ -120,12 +123,10 @@ _PUBLISH = [
      r"route_sink(\1 + row * kLanes + j, "),
     (_CHUNK, "route2_chunk.cuh",
      r"atomicAdd\((\w+ \+ row \* kLanes(?: \+ j)?), ", r"route_sink(\1, "),
-    # the paned fill: the tile walker's atomics (older trees), the slot
-    # fill's one store a slot
-    (("mul_paned",), "route2_mul_chunk.cuh",
-     r"atomicAdd\((\w+ \+ row \* kLanes \+ j), ", r"route_sink(\1, "),
-    (("mul_paned",), "mul_fill.cu", r"c\[s\] = acc;",
-     "route_sink(c + s, acc);")]
+    # the slot fill's one store a slot (the tiered kernel's and the short
+    # kernel's)
+    (("mul_paned", "mul"), "mul_fill.cu", r"c\[s\] = acc(\[k\])?;",
+     r"route_sink(c + s, acc\1);")]
 _GATHER = [
     (("v1",), "route_spmv.cu",
      r"\w+\[row \* kLanes \+ bits\(a\[i\], 3, 127\)\]", "1.0f"),
@@ -134,8 +135,12 @@ _GATHER = [
      r"src\[row \* kLanes \+ j\]", "1.0f"),
     # the slot fill's A and B gathers become a value made from the two
     # indices (their loads stay; only the gathers go)
-    (("mul_paned",), "mul_fill.cu", r"A\[sa\[e\]\] \* B\[sb\[e\]\]",
+    (("mul_paned", "mul"), "mul_fill.cu",
+     r"A\[sa\[e\]\] \* B\[sb\[e\]\]",
      "__int_as_float(((sa[e] ^ sb[e]) & 0x7fff) | 0x3f800000)"),
+    (("mul_paned", "mul"), "mul_fill.cu",
+     r"(p[ab])\[k\] = [AB]\[(i[ab])\[k\]\];",
+     r"\1[k] = __int_as_float((\2[k] & 0x7fff) | 0x3f800000);"),
     (("route2",), "route2_spmv.cu",
      r"slab\[min\(bits\(t\[a\], 0, 255\), rows - 1\) \* kLanes \+ j\]",
      "1.0f")]
@@ -211,6 +216,28 @@ VARIANTS = {"no_publish": [_PUBLISH], "const_gather": [_GATHER],
             "lever_fill_mid_32": [[(("mul_paned", "v1_mul"), "mul_fill.cu",
                                     r"(constexpr int kMid = )[^;]+;",
                                     r"\g<1>32;")]],
+            # the short kernel's slots a thread
+            "lever_fill_slots_1": [[(("mul_paned", "v1_mul", "mul"),
+                                     "mul_fill.cu",
+                                     r"(constexpr int kSlots = )[^;]+;",
+                                     r"\g<1>1;")]],
+            "lever_fill_slots_4": [[(("mul_paned", "v1_mul", "mul"),
+                                     "mul_fill.cu",
+                                     r"(constexpr int kSlots = )[^;]+;",
+                                     r"\g<1>4;")]],
+            # the short fill's products a slot a round
+            **{f"lever_fill_round_{n}": [[(("mul_paned", "v1_mul", "mul"),
+                                           "mul_fill.cu",
+                                           r"(constexpr int kRound = )[^;]+;",
+                                           rf"\g<1>{n};")]]
+               for n in (1, 2, 8)},
+            # the in-place DIA kernel's threads a block and outputs a
+            # thread
+            "lever_dia_threads_256": _lever("dia", "dia_spmv.cu",
+                                            "kInThreads", "256"),
+            "lever_dia_threads_64": _lever("dia", "dia_spmv.cu",
+                                           "kInThreads", "64"),
+            "lever_dia_vec_8": _lever("dia", "dia_spmv.cu", "kVec", "8"),
             # the small BSR SpMV's CTAs an SM (its register cap, f32 and
             # f64) and row stages a warp, and a diagnostic (x's gathers
             # replaced by a constant; out of bound)
@@ -381,7 +408,8 @@ SOURCES = {"v1": ("route_spmv",), "paned": ("route_paned_spmv",),
            "band_mm": ("band_spmm",), "band_res": ("band_spmm",),
            "bsr_mm": ("bsr_spmm",),
            "cx": ("route2_spmv",), "block_spgemm": ("bsr_spgemm",),
-           "bsr_mv": ("bsr_spmv",), "v1_mul": ("route_mul", "mul_fill")}
+           "bsr_mv": ("bsr_spmv",), "v1_mul": ("route_mul", "mul_fill"),
+           "mul": ("route2_mul", "mul_fill"), "dia": ("dia_spmv",)}
 # --kernels aliases
 ALIASES = {"spmm": ("band_mm", "bsr_mm"), "route_cx": ("cx",),
            "resident": ("band_res",),
@@ -400,7 +428,20 @@ OCCUPANCY = {
                     ("route2_slab_kernel", "kSlabThreads", "kSlabSmem"),
                     ("route2_cx_kernel<float2>", 128, 0)],
     "route_mul_paned": [("route_mul_paned_kernel", 128, 0)],
-    "mul_fill": [("mul_fill_kernel", 256, 0)],
+    # the one-kernel designs, then the short kernel and the tiered one
+    # with and without the hub tier
+    "mul_fill": [("mul_fill_kernel", 256, 0),
+                 ("mul_fill_kernel<true>", 256, 0),
+                 ("mul_fill_kernel<false>", 256, 0),
+                 ("mul_fill_kernel<false, false>", 256, 0),
+                 ("mul_fill_kernel<false, true>", 256, 0),
+                 ("mul_fill_kernel<true, false>", 256, 0),
+                 ("mul_fill_kernel<true, true>", 256, 0)],
+    "dia_spmv": [("dia_spmv_kernel", 256, 0),
+                 ("dia_inplace_kernel<float, 5>", 128, 0),
+                 ("dia_inplace_kernel<float, 7>", 128, 0),
+                 ("dia_inplace_kernel<float, 9>", 128, 0),
+                 ("dia_inplace_kernel<float, 32>", 128, 0)],
     "band_spmv": [("band::row_kernel<float>", 256, 0),
                   ("band::row_kernel<__nv_bfloat16>", 256, 0),
                   ("band::row_kernel<float, 4>", "band::kThreads", 928),
@@ -916,6 +957,10 @@ def mul_paned_bench(torch, sp, gen, rec):
 
             out[name] = (mf.mul_fill, reps_of(copy, nbytes),
                          (rmp.route2_mul_paned, (plan, aa, bb)), check)
+            if name == "hub_slots_paned":
+                _hub_variants(mf, out, rec, name, *hub[:3], 20_001, 400_000,
+                              aa, bb, plan.capacity, check,
+                              (rmp.route2_mul_paned, (plan, aa, bb)))
         else:
             def copy(plan=plan, a2=a2, b2=b2):
                 return dataclasses.replace(plan, panels=tuple(
@@ -949,6 +994,204 @@ def mul_paned_bench(torch, sp, gen, rec):
     rec["spgemm_100k"]["cusparse_spgemm_ms"] = device_ms(
         torch, torch.matmul, [(csr, csr)], 10)
     del a, info
+    return out
+
+
+def _stream_copy(stream):
+    """A copy of a slot stream's index arrays (its hub tables shared: the
+    chains run one fill after another)."""
+    return dataclasses.replace(stream, sa=stream.sa.clone(),
+                               sb=stream.sb.clone(),
+                               run_start=stream.run_start.clone())
+
+
+def _stream_bytes(stream, capacity):
+    """The bytes the slot fill must move: the index stream, A and B once,
+    c once."""
+    return ((2 * stream.sa.numel() + stream.run_start.numel() + capacity)
+            * 4 + (stream.a_len + stream.b_len) * 4)
+
+
+def _hub_variants(mf, out, rec, name, slots, sa, sb, a_len, b_len, aa, bb,
+                  capacity, check, apply):
+    """On a tree whose slot streams carry the hub tier: the fill over the
+    same stream cut into hub segments of other lengths, each a bench of
+    its own (``<name>_seg<S>``), the per-call zeroing of the arrival
+    counters that resetting them in the kernel saves, and two parts of
+    the stream alone (out of bound: other functions): its hub runs
+    (``<name>_hubs_only``) and the rest (``<name>_no_hubs``)."""
+    import numpy as np
+    if not hasattr(mf, "HUB_SEG_LEN"):
+        return
+    counts = np.bincount(slots)
+    hub = counts[slots] > mf.HUB_MIN
+    for part, sel in (("hubs_only", hub), ("no_hubs", ~hub)):
+        st = mf.build_slot_stream(slots[sel], sa[sel], sb[sel], a_len,
+                                  b_len, "cuda")
+        nbytes = _stream_bytes(st, capacity)
+        rec[f"{name}_{part}"] = {"entries": int(sel.sum()),
+                                 "hub_segments": st.nseg,
+                                 "bound_ms": nbytes / 3.35e12 * 1e3}
+        out[f"{name}_{part}"] = (
+            mf.mul_fill, reps_of(lambda st=st: (
+                _stream_copy(st), aa.clone(), bb.clone(), capacity), nbytes),
+            apply, None)
+    kept = mf.HUB_SEG_LEN
+    for seg in (512, 2048, 4096):
+        mf.HUB_SEG_LEN = seg
+        try:
+            st = mf.build_slot_stream(slots, sa, sb, a_len, b_len, "cuda")
+        finally:
+            mf.HUB_SEG_LEN = kept
+        nbytes = _stream_bytes(st, capacity)
+        rec[f"{name}_seg{seg}"] = {"hub_segments": st.nseg}
+        out[f"{name}_seg{seg}"] = (
+            mf.mul_fill, reps_of(lambda st=st: (
+                _stream_copy(st), aa.clone(), bb.clone(), capacity), nbytes),
+            apply, check)
+    st = mf.build_slot_stream(slots, sa, sb, a_len, b_len, "cuda")
+    rec[f"{name}_counter_zeroing"] = {"hubs": int(st.hub_count.numel())}
+    out[f"{name}_counter_zeroing"] = (
+        lambda t: t.zero_(), [(st.hub_count.clone(),) for _ in range(8)],
+        apply, None)
+
+
+def mul_bench(torch, sp, gen, rec):
+    """The resident SpGEMM numeric ``route2_mul`` on chip_smoke.py's 2k
+    A.A main path (``SPGEMM_MAIN``, bench.py:190) and its resident hub
+    fixture (``MUL_HUB``), as the tree runs it: the tile kernel's
+    launches (one a launch range, the out pane zeroed) over the packed
+    panes, or the slot fill's one launch over the plan's expansion
+    stream; each output held to the plain tile walker.  On a tree with
+    the hub tier, the hub fixture also with other segment lengths.
+    Beside them the whole ``multiply_fill`` on the 2k plan (host
+    included)."""
+    import numpy as np
+    from spblas_tpu_torch.kernels import mul_fill as mf
+    from spblas_tpu_torch.kernels import route2 as r2
+    from spblas_tpu_torch.kernels import route2_kernel as r2k
+    cs = _smoke()
+    name, make, _, _ = cs.SPGEMM_MAIN[0]
+    a = make()
+    info = sp.multiply_compute(a, a)
+    n_ent, cap, hubs, a_len, b_len, seed = cs.MUL_HUB
+    rng = np.random.default_rng(seed)
+    hub = np.concatenate([np.full(c, sl, np.int64) for sl, c in hubs])
+    slots = np.sort(np.concatenate([hub, rng.integers(
+        0, cap, n_ent - len(hub))]))
+    sa = rng.integers(0, a_len - 1, n_ent)
+    sb = rng.integers(0, b_len, n_ent)
+    av = torch.from_numpy(rng.standard_normal(a_len).astype(np.float32))
+    av[-1] = 1.0
+    bv = torch.from_numpy(rng.standard_normal(b_len).astype(np.float32))
+    hplan = r2.build_route2_mul_plan(slots, sa, sb, a_len, b_len, cap,
+                                     device="cuda")
+    out = {}
+    for nm, pl, aa, bb in ((name, info.plan.route, torch.cat([
+            2.0 * a.values, a.values.new_ones(1)]), a.values),
+            ("hub_slots_aux", hplan, av.cuda(), bv.cuda())):
+        a2, b2 = r2k.pack_mul_panes(pl, aa, bb)
+        cap_ = pl.capacity
+        check = within(
+            torch, lambda pl=pl, a2=a2, b2=b2: r2k.route2_mul_reference(
+                pl, a2, b2).view(-1)[:pl.capacity],
+            lambda pl=pl, a2=a2, b2=b2: r2k.route2_mul_reference(
+                pl, a2.abs(), b2.abs()).view(-1)[:pl.capacity])
+        apply = (r2k.route2_mul, (pl, aa, bb))
+        ex = getattr(pl, "expansion", None)
+        tiles = (pl.nchunks * (8 * 1024 + 12) + (pl.a_rows + pl.b_rows)
+                 * 512 + 2 * r2k.mul_out_rows(pl) * 512)
+        r = rec[nm] = {"nchunks": pl.nchunks, "capacity": cap_,
+                       "aux_levels": len(pl.launch_starts) - 1,
+                       "tile_bound_ms": tiles / 3.35e12 * 1e3,
+                       "stream": ex is not None}
+        if ex is not None:
+            nbytes = _stream_bytes(ex, cap_)
+            r.update(entries=int(ex.sa.numel()), slots=ex.nslots,
+                     longest=ex.longest,
+                     hub_segments=getattr(ex, "nseg", 0), bytes=nbytes,
+                     bound_ms=nbytes / 3.35e12 * 1e3)
+            out[nm] = (mf.mul_fill, reps_of(lambda ex=ex, aa=aa, bb=bb: (
+                _stream_copy(ex), aa.clone(), bb.clone(), cap_), nbytes),
+                apply, check)
+            if nm == "hub_slots_aux":
+                _hub_variants(mf, out, rec, nm, slots, sa, sb, a_len, b_len,
+                              aa, bb, cap_, check, apply)
+        else:
+            def copy(pl=pl, a2=a2, b2=b2):
+                return (dataclasses.replace(pl, **{
+                    f: getattr(pl, f).clone() for f in (
+                        "tile1", "tile2", "a_base", "b_base", "y_base")}),
+                        a2.clone(), b2.clone())
+
+            r["bytes"] = tiles
+            out[nm] = (r2k.route2_mul_padded, reps_of(copy, tiles), apply,
+                       lambda y, check=check, cap_=cap_: check(
+                           y.view(-1)[:cap_]))
+    ops = [sp.scaled(2.0, dataclasses.replace(a, values=a.values * (
+        1 + i / 64))) for i in range(8)]
+    sp.multiply_fill(info, ops[0], a)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(20):
+        sp.multiply_fill(info, ops[i % len(ops)], a)
+    e1.record()
+    torch.cuda.synchronize()
+    rec[name]["multiply_fill_ms"] = e0.elapsed_time(e1) / 20
+    return out
+
+
+def dia_bench(torch, sp, gen, rec):
+    """The DIA kernel on chip_smoke.py's three DIA main paths
+    (``DIA_MAIN``: the 1000^2 stencil, the 800^2 FEM mesh, the 64^3
+    stencil) and its kernel-only shapes (``DIA_KERNEL_ONLY``: a wide
+    rectangle, the 2000^2 stencil): ``pad_<m>`` the padded kernel over x
+    in the TPU kernel's padded pane, ``inplace_<m>`` (on a tree that has
+    it) the kernel that reads x in place, ``fused_<m>`` the gated path
+    as the tree runs it (with its pad of x, or without), each held to
+    the plain version; beside them cuSPARSE's ``torch.mv``."""
+    from spblas_tpu_torch.kernels import dia
+    cs = _smoke()
+    out = {}
+    for i, (nm, make) in enumerate(cs.DIA_MAIN + cs.DIA_KERNEL_ONLY):
+        a = make()
+        plan = dia.build_dia_plan(a)
+        plan.offsets_tensor
+        m = a.shape[0]
+        x = gen.generate_vector(a.shape[1], seed=21 + i)
+        x2, lo = dia.pad_x(plan, x)
+        span = max(plan.offsets) - min(plan.offsets)
+        nbytes = plan.ndiag * m * 4 + min(m + span, a.shape[1]) * 4 + m * 4
+        rec[nm] = {"m": m, "n": a.shape[1], "ndiag": plan.ndiag,
+                   "bytes": nbytes, "bound_ms": nbytes / 3.35e12 * 1e3,
+                   "cusparse_ms": csr_ms(torch, a, x)}
+        ref = within(torch, lambda plan=plan, x2=x2, lo=lo, m=m:
+                     dia.dia_spmv_reference(plan.diags, plan.offsets, x2,
+                                            lo)[:m],
+                     lambda plan=plan, x2=x2, lo=lo, m=m:
+                     dia.dia_spmv_reference(plan.diags.abs(), plan.offsets,
+                                            x2.abs(), lo)[:m])
+
+        def copy(plan=plan, x2=x2, x=x):
+            p = dataclasses.replace(plan, diags=plan.diags.clone())
+            p.offsets_tensor
+            if hasattr(p, "offsets_host"):
+                p.offsets_host
+            return p, x2.clone(), x.clone()
+
+        ins = reps_of(copy, plan.diags.numel() * 4)
+        apply = (dia.dia_spmv_fused, (plan, x))
+        out[f"pad_{nm}"] = (lambda p, xx, xi, lo=lo: dia.dia_spmv_padded(
+            p, xx, lo), ins, apply,
+            lambda y, ref=ref, m=m: ref(y[:m]))
+        if hasattr(dia, "dia_spmv_inplace"):
+            out[f"inplace_{nm}"] = (lambda p, xx, xi: dia.dia_spmv_inplace(
+                p, xi), ins, apply, ref)
+        out[f"fused_{nm}"] = (lambda p, xx, xi: dia.dia_spmv_fused(p, xi),
+                              ins, apply, ref)
+        del a
     return out
 
 
@@ -1520,7 +1763,7 @@ BENCHES = {"v1": v1_bench, "paned": paned_bench, "route2": route2_bench,
            "band_res": band_res_bench,
            "bsr_mm": bsr_mm_bench, "cx": cx_bench,
            "block_spgemm": spgemm_bench, "bsr_mv": bsr_mv_bench,
-           "v1_mul": v1_mul_bench}
+           "v1_mul": v1_mul_bench, "mul": mul_bench, "dia": dia_bench}
 # worker options the benches read (--graph)
 OPTS = {}
 

@@ -1,7 +1,6 @@
 // The ROUTE2 chunk body, shared by route2_spmv.cu (resident plans and
 // the solve) and route_paned_spmv.cu (paned plans), and its slab-row
-// route, which the SpGEMM chunk body (route2_mul_chunk.cuh) shares too:
-// one (8, 128) chunk of a ROUTE2 layout (spblas_tpu_torch/kernels/
+// route: one (8, 128) chunk of a ROUTE2 layout (spblas_tpu_torch/kernels/
 // route2.py), run by 128 threads, thread j owning lane column j.  It is
 // the Hopper form of spblas_tpu/kernels/route2_kernel.py::_chunk_body.
 //

@@ -6,8 +6,12 @@ gate, with the card in place of the TPU: on CUDA, f32 diagonals, f32 or
 bf16 x, at most 32 diagonals and the 2.5M extent run the fused kernel
 ``csrc/dia_spmv.cu``, which replaces the TPU kernel
 ``dia.py::_dia_kernel``.  Everything else runs the shift-multiply-
-accumulate chain as torch ops.  :func:`dia_spmv_padded`, the kernel's
-wrapper, takes its plain version :func:`dia_spmv_reference` for CPU
+accumulate chain as torch ops.  The gated path :func:`dia_spmv_fused`
+calls :func:`dia_spmv_inplace`, which reads x in place (zeros outside
+it) and writes m rows; :func:`dia_spmv_padded` runs the same sum over
+the TPU kernel's padded x pane (:func:`pad_x`) into every padded row,
+with the same bits.  Each wrapper takes its plain version
+(:func:`dia_spmv_inplace_reference`, :func:`dia_spmv_reference`) for CPU
 tensors.
 """
 
@@ -58,6 +62,12 @@ class DiaPlan:
         """The offsets as int32 on the diagonals' device (made once)."""
         return torch.tensor(self.offsets, dtype=torch.int32,
                             device=self.diags.device)
+
+    @functools.cached_property
+    def offsets_host(self):
+        """The offsets as a host int32 array for the in-place kernel,
+        which takes them by value (made once)."""
+        return (ctypes.c_int * self.ndiag)(*self.offsets)
 
 
 def dia_fill_fraction(a: CSR) -> float:
@@ -216,9 +226,77 @@ def dia_spmv_padded(plan: DiaPlan, x2: torch.Tensor,
 dia_spmv_padded.launches = 0
 
 
+def dia_spmv_inplace_reference(plan: DiaPlan,
+                               x: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the in-place kernel: y[i] = sum_k
+    diags[k, i] * x[i + offsets[k]] for every i < m, x read as f32 and as
+    0 outside [0, n), in f32, in the kernel's order over k; (m,) f32."""
+    m, n = plan.shape
+    d = plan.diags.reshape(plan.ndiag, -1)
+    xf = x.float()
+    rows = torch.arange(m, device=x.device)
+    y = torch.zeros(m, dtype=torch.float32, device=x.device)
+    for k, off in enumerate(plan.offsets):
+        j = rows + off
+        inside = (j >= 0) & (j < n)
+        y = y + d[k, :m] * torch.where(inside, xf[j.clamp(0, max(n - 1, 0))],
+                                       0.0)
+    return y
+
+
+def _check_inplace(plan: DiaPlan, x: torch.Tensor) -> None:
+    diags = plan.diags
+    m, n = plan.shape
+    if diags.device != x.device:
+        raise ValueError(f"diags on {diags.device}, x on {x.device}")
+    if diags.dtype != torch.float32 \
+            or x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"diags must be float32 and x float32 or bfloat16, "
+                        f"got {diags.dtype} and {x.dtype}")
+    if diags.dim() != 3 or diags.shape[2] != _LANES \
+            or diags.shape[1] * _LANES < m or x.shape != (n,) \
+            or not 0 < plan.ndiag <= _KERNEL_MAX_DIAGS \
+            or len(plan.offsets) != plan.ndiag:
+        raise ValueError(f"bad shapes: diags {tuple(diags.shape)} with "
+                         f"{len(plan.offsets)} offsets for {plan.shape}, "
+                         f"x {tuple(x.shape)}")
+    if not (diags.is_contiguous() and x.is_contiguous()):
+        raise ValueError("diags and x must be contiguous")
+
+
+# (diags, offsets, ndiag, x, y, m, n, total, stream) of
+# dia_spmv_inplace_f32 and _bf16x (offsets: a host int32 array)
+_INPLACE_ARGTYPES = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
+                     ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                     ctypes.c_longlong, ctypes.c_longlong,
+                     ctypes.c_longlong, ctypes.c_void_p)
+
+
+def dia_spmv_inplace(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
+    """The fused sweep with x read in place (f32 or bf16, zeros outside
+    it); returns the (m,) f32 result.  CUDA tensors launch
+    ``dia_spmv.cu``'s in-place kernel (counted on
+    ``dia_spmv_padded.launches``), with the bits of
+    :func:`dia_spmv_padded`; CPU tensors take
+    :func:`dia_spmv_inplace_reference`."""
+    _check_inplace(plan, x)
+    if not _t.on_cuda(x):
+        return dia_spmv_inplace_reference(plan, x)
+    m, n = plan.shape
+    y = torch.empty(m, dtype=torch.float32, device=x.device)
+    name = ("dia_spmv_inplace_f32" if x.dtype == torch.float32
+            else "dia_spmv_inplace_bf16x")
+    _build.check(_build.function("dia_spmv", name, _INPLACE_ARGTYPES)(
+        plan.diags.data_ptr(), plan.offsets_host, plan.ndiag, x.data_ptr(),
+        y.data_ptr(), m, n, plan.diags.shape[1] * _LANES,
+        torch.cuda.current_stream(x.device).cuda_stream), "dia_spmv")
+    if m:
+        dia_spmv_padded.launches += 1
+    return y
+
+
 def dia_spmv_fused(plan: DiaPlan, x: torch.Tensor) -> torch.Tensor:
     """The gated fused path of :func:`dia_spmv` (the JAX
-    ``_dia_spmv_pallas``): pad x, one sweep, trim to m rows in x's dtype."""
-    x2, pad_lo = pad_x(plan, x)
-    y = dia_spmv_padded(plan, x2, pad_lo)
-    return y[: plan.shape[0]].to(x.dtype)
+    ``_dia_spmv_pallas``): one sweep with x read in place, m rows in x's
+    dtype."""
+    return dia_spmv_inplace(plan, x.contiguous()).to(x.dtype)

@@ -35,12 +35,16 @@ run in no order and each aux level is its own launch.
 The mul half (``Route2MulPlan``, ``build_route2_mul_plan``) packs a
 slot-sorted SpGEMM expansion stream (slot, A entry, B entry) into chunks
 with two gather chains, one into the A value pane and one into the B
-pane (aux chunks: the out pane), and no value tile; its kernel is
-``csrc/route2_mul.cu`` (wrapper ``route2_kernel.route2_mul``).  Its
-builder is JAX's too, every array bit-equal, with the same three
-differences (no python packer: ``_GatherSide``, ``_MulChunk`` and
-``_pack_mul_cell`` are not carried), and it records the chunk index at
-which each aux level starts as ``Route2MulPlan.launch_starts``.
+pane (aux chunks: the out pane), and no value tile.  It is built as
+JAX builds it, every array bit-equal, with the same three differences (no
+python packer: ``_GatherSide``, ``_MulChunk`` and ``_pack_mul_cell`` are
+not carried), and it records the chunk index at which each aux level
+starts as ``Route2MulPlan.launch_starts``.  The plan also keeps the
+stream it was packed from (``Route2MulPlan.expansion``, a
+``mul_fill.SlotStream``): on the card the numeric is one launch of the
+slot fill ``csrc/mul_fill.cu`` over it (wrapper
+``route2_kernel.route2_mul``), and the tiles run in the plain version,
+which the CPU tests hold to JAX's kernel.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ import torch
 
 from spblas_tpu_torch import native
 from spblas_tpu_torch import types as _t
+from spblas_tpu_torch.kernels.mul_fill import SlotStream, build_slot_stream
 
 # the ROUTE geometry (spblas_tpu/kernels/route_plan.py)
 LANES = 128
@@ -1168,6 +1173,9 @@ class Route2MulPlan:
     # first chunk of each launch: (0,) then one start per aux level; no
     # chunk of a launch reads a pane row another chunk of it writes
     launch_starts: Tuple[int, ...] = (0,)
+    # the slot-sorted stream the tiles were packed from, which the CUDA
+    # numeric reads (kernels/mul_fill.py); None on a plan carried from JAX
+    expansion: Optional[SlotStream] = None
 
     @property
     def nchunks(self) -> int:
@@ -1235,6 +1243,7 @@ def build_route2_mul_plan(slots, src_a, src_b, a_len: int, b_len: int,
     dev = _t.resolve_device(device)
     A = _build_route2_mul_arrays(slots, src_a, src_b, a_len, b_len,
                                  capacity)
+    expansion = build_slot_stream(slots, src_a, src_b, a_len, b_len, dev)
 
     def put(arr):
         return torch.as_tensor(arr).to(dev)
@@ -1245,7 +1254,8 @@ def build_route2_mul_plan(slots, src_a, src_b, a_len: int, b_len: int,
         g_a=A["g_a"], g_b=A["g_b"], a_rows=A["a_rows"], b_rows=A["b_rows"],
         y_rows=A["y_rows"], aux_rows=A["aux_rows"],
         n_aux_chunks=A["n_aux_chunks"], capacity=capacity, fill=A["fill"],
-        dist_max=A["dist_max"], launch_starts=A["launch_starts"])
+        dist_max=A["dist_max"], launch_starts=A["launch_starts"],
+        expansion=expansion)
 
 
 def _build_route2_mul_arrays(slots, src_a, src_b, a_len: int, b_len: int,

@@ -36,11 +36,19 @@ the same chunk kernel through the solve entry point of
 level of a hub level), cut at ``_SOLVE_CHUNKS_PER_DISPATCH`` chunks, all
 issued from one C call; CPU tensors take :func:`route2_solve_reference`.
 
-The SpGEMM numeric (:func:`route2_mul`) runs a ``Route2MulPlan`` the same
-way: :func:`route2_mul_padded` launches ``csrc/route2_mul.cu`` (which
-replaces ``route2_kernel.py::_route2_mul_kernel``) once over the flag-0
-chunks, reading the B pane, then once per aux level, reading the out
-pane; CPU tensors take :func:`route2_mul_reference`.
+The SpGEMM numeric (:func:`route2_mul`) on a CUDA tensor is one launch
+of the slot fill ``csrc/mul_fill.cu`` (``kernels/mul_fill.py``) over the
+stream the ``Route2MulPlan``'s tiles were packed from
+(``Route2MulPlan.expansion``), which replaces the TPU kernel
+``route2_kernel.py::_route2_mul_kernel``: one writer a slot, the same
+bits on every run, no pane padding, no zeroed out pane and no launch a
+level (its hub tier spreads a long run over blocks).  A plan carried
+from JAX has no stream and is refused there.  On a CPU tensor
+:func:`route2_mul` walks the tiles: :func:`route2_mul_padded` over the
+packed panes runs :func:`route2_mul_reference`, the plain PyTorch
+version of the TPU kernel's computation (the flag-0 chunks reading the
+B pane, then each aux level reading the out pane), which the CPU tests
+hold to JAX's kernel.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ import torch.nn.functional as F
 
 from spblas_tpu_torch import _build
 from spblas_tpu_torch import types as _t
+from spblas_tpu_torch.kernels.mul_fill import mul_fill, plan_stream
 from spblas_tpu_torch.kernels.route2 import (B2_LF, B2_R2, B2_SD2, B_DIST,
                                              B_LF, B_LSRC, B_PEND, B_R2,
                                              B_SD2, B_SEL, B_SUBW, B_VA,
@@ -477,8 +486,8 @@ def mul_chunk_reference(tile1: torch.Tensor, tile2: torch.Tensor,
     """The ROUTE2-mul chunk body over k chunks at once (``tile1``,
     ``tile2`` (k, 8, 128); ``a_base``, ``b_base``, ``y_base`` (k,)):
     gather from the A pane ``a2`` and from ``src`` (rows, 128) as they
-    stand, then publish into ``out`` (rows, 128).  The plain version of
-    ``csrc/route2_mul_chunk.cuh``."""
+    stand, then publish into ``out`` (rows, 128): the TPU kernel's chunk
+    body, which the plain tile walkers run."""
     t1, t2 = tile1.long(), tile2.long()
     k = t1.shape[0]
     ii = torch.arange(SUBS, device=t1.device).view(1, SUBS, 1)
@@ -562,47 +571,31 @@ def _check_mul_operands(plan: Route2MulPlan, a2: torch.Tensor,
         raise ValueError("plan arrays and panes must be contiguous")
 
 
-# (tile1, tile2, a_base, b_base, y_base, lo, hi, A, a_rows, src,
-#  src_rows, out, out_rows, g_a, g_b, dist_max, stream) of route2_mul_f32
-_MUL_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_longlong,) * 2 + (
-    ctypes.c_void_p, ctypes.c_longlong) * 3 + (
-    ctypes.c_int,) * 3 + (ctypes.c_void_p,)
-
-
 def route2_mul_padded(plan: Route2MulPlan, a2: torch.Tensor,
                       b2: torch.Tensor) -> torch.Tensor:
-    """The plan over the packed panes ``a2`` and ``b2`` (from
-    :func:`pack_mul_panes`); returns the (rows, 128) f32 out pane.  CUDA
-    tensors launch ``route2_mul.cu`` once per launch range, on the
-    current stream; CPU tensors take :func:`route2_mul_reference`."""
+    """The plan's tile walk over the packed panes ``a2`` and ``b2`` (from
+    :func:`pack_mul_panes`): the (rows, 128) f32 out pane, by
+    :func:`route2_mul_reference`.  CPU tensors only: on the card the
+    numeric is :func:`route2_mul`'s slot fill, and CUDA tensors raise."""
     _check_mul_operands(plan, a2, b2)
-    if not _t.on_cuda(a2):
-        return route2_mul_reference(plan, a2, b2)
-    rows = mul_out_rows(plan)
-    out = torch.zeros(rows, LANES, dtype=torch.float32, device=a2.device)
-    stream = torch.cuda.current_stream(a2.device).cuda_stream
-    fn = _build.function("route2_mul", "route2_mul_f32", _MUL_ARGTYPES)
-    for i, (lo, hi) in enumerate(plan.launch_ranges()):
-        if hi <= lo:
-            continue
-        src, src_rows = (b2, plan.b_rows) if i == 0 else (out, rows)
-        _build.check(fn(
-            plan.tile1.data_ptr(), plan.tile2.data_ptr(),
-            plan.a_base.data_ptr(), plan.b_base.data_ptr(),
-            plan.y_base.data_ptr(), lo, hi, a2.data_ptr(), plan.a_rows,
-            src.data_ptr(), src_rows, out.data_ptr(), rows, plan.g_a,
-            plan.g_b, plan.dist_max, stream), "route2_mul")
-        route2_mul_padded.launches += 1
-    return out
-
-
-route2_mul_padded.launches = 0
+    if _t.on_cuda(a2):
+        raise ValueError("route2_mul_padded walks the tiles on the CPU "
+                         "only: on CUDA tensors route2_mul runs the slot "
+                         "fill over plan.expansion")
+    return route2_mul_reference(plan, a2, b2)
 
 
 def route2_mul(plan: Route2MulPlan, a_arr: torch.Tensor,
                b_arr: torch.Tensor) -> torch.Tensor:
     """c_values (capacity,) f32 = the slot sums of A_arr[sa] * B_arr[sb]
-    (values fresh from the panes, so a new-values run needs no update
-    step)."""
+    (values fresh from the caller, so a new-values run needs no update
+    step).  On CUDA tensors one launch of the slot fill
+    (:func:`mul_fill`) over the plan's expansion stream writes the whole
+    capacity; on CPU tensors the plain tile walker runs over the packed
+    panes."""
+    if _t.on_cuda(a_arr):
+        return mul_fill(plan_stream(plan, "build_route2_mul_plan"),
+                        a_arr.float().contiguous(),
+                        b_arr.float().contiguous(), plan.capacity)
     out = route2_mul_padded(plan, *pack_mul_panes(plan, a_arr, b_arr))
     return out.view(-1)[: plan.capacity]

@@ -20,12 +20,11 @@ C = alpha*A*B + beta*D.  On CUDA operands (or with
 ``SPBLAS_FORCE_ROUTE_SPGEMM`` set) ``spgemm_compute(..., reuse=True)``
 also builds a ROUTE2-mul engine plan (``kernels/route2.py``, paned past
 the resident envelope: ``kernels/route_mul_paned.py``), and the numeric
-phase then runs the hand-written kernel ``csrc/route2_mul.cu``, or for
-a paned plan the slot fill ``csrc/mul_fill.cu`` over the plan's
-expansion stream; ``SPBLAS_ROUTE_SPGEMM=1`` selects the ROUTE
-v1 engine for a resident product instead (``kernels/route_mul.py``,
-whose numeric is the same slot fill over that plan's stream); otherwise
-it is the torch numeric
+phase then runs the hand-written slot fill ``csrc/mul_fill.cu`` over the
+plan's expansion stream, resident or paned; ``SPBLAS_ROUTE_SPGEMM=1``
+selects the ROUTE v1 engine for a resident product instead
+(``kernels/route_mul.py``, whose numeric is the same slot fill over that
+plan's stream); otherwise it is the torch numeric
 (gather-multiply-``index_add_``).  The engine gates are the JAX
 package's, kept for parity (ROADMAP Queue 1 item 18 re-derives them for
 the card).  BSR·BSR one-shot products go to the block SpGEMM

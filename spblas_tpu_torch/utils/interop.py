@@ -240,7 +240,9 @@ def route2_mul_plan_from_numpy(arrays: dict, static: dict,
     fields (g_a, g_b, a_rows, b_rows, y_rows, aux_rows, n_aux_chunks,
     capacity, fill, dist_max).  The carried plan records no aux levels,
     so its launch starts come from :func:`route2_launch_starts` over the
-    B-side slabs (8 * g_b rows) and the 8-row out windows."""
+    B-side slabs (8 * g_b rows) and the 8-row out windows.  It has no
+    expansion stream (``expansion`` None), so the CUDA numeric, the slot
+    fill over that stream, refuses it; the CPU walks its tiles."""
     dev = _t.resolve_device(device)
     starts = route2_launch_starts(arrays["src_flag"], arrays["b_base"],
                                   arrays["y_base"], int(static["g_b"]), 1)

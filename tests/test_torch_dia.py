@@ -1,6 +1,8 @@
 """spblas_tpu_torch DIA plan and SpMV against the JAX package: bit-equal
 plans, the fused kernel's plain version against ``_dia_spmv_pallas`` in
-interpret mode, and the torch-op chain against the JAX chain."""
+interpret mode, and the torch-op chain against the JAX chain; the
+in-place kernel's plain version (x read in place, m rows) against the
+padded one's bits, and its operand checks."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -116,3 +118,48 @@ def test_dia_wrapper_rejects_bad_operands(bad):
                             plan.offsets, plan.shape)
     with pytest.raises((TypeError, ValueError)):
         tdia.dia_spmv_padded(plan, x2, pad_lo)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_inplace_reference_is_padded_reference(name, dtype):
+    """The in-place kernel's plain version gives the padded one's bits
+    over ``pad_x``, cut to m rows, x in f32 and in bf16; the gated path
+    returns it in x's dtype and launches nothing on the CPU."""
+    a = MATRICES[name]()
+    plan = tdia.build_dia_plan(port_csr(a))
+    x = torch.from_numpy(gen.generate_vector(a.shape[1], seed=11)).to(dtype)
+    m = a.shape[0]
+    want = tdia.dia_spmv_reference(plan.diags, plan.offsets,
+                                   *tdia.pad_x(plan, x))[:m]
+    got = tdia.dia_spmv_inplace_reference(plan, x)
+    assert got.dtype == torch.float32 and got.shape == (m,)
+    assert torch.equal(got, want)
+    before = tdia.dia_spmv_padded.launches
+    assert torch.equal(tdia.dia_spmv_inplace(plan, x), want)
+    fused = tdia.dia_spmv_fused(plan, x)
+    assert tdia.dia_spmv_padded.launches == before
+    assert fused.dtype == dtype and torch.equal(fused, want.to(dtype))
+
+
+@pytest.mark.parametrize("bad", ["x_dtype", "x_short", "diags_dtype",
+                                 "too_many", "strided", "offsets"])
+def test_dia_inplace_rejects_bad_operands(bad):
+    a = gen.generate_stencil_csr((20, 20), seed=10)
+    plan = tdia.build_dia_plan(port_csr(a))
+    x = torch.zeros(400)
+    if bad == "x_dtype":
+        x = x.double()
+    elif bad == "x_short":
+        x = x[:-1]
+    elif bad == "diags_dtype":
+        plan = tdia.DiaPlan(plan.diags.double(), plan.offsets, plan.shape)
+    elif bad == "too_many":
+        plan = tdia.DiaPlan(torch.zeros(33, 256, 128), tuple(range(33)),
+                            (400, 400))
+    elif bad == "strided":
+        x = torch.zeros(800)[::2]
+    else:
+        plan = tdia.DiaPlan(plan.diags, plan.offsets[:-1], plan.shape)
+    with pytest.raises((TypeError, ValueError)):
+        tdia.dia_spmv_inplace(plan, x)

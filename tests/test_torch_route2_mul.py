@@ -5,9 +5,11 @@ geometries of ``tests/test_route2_mul.py`` and
 the JAX package's exact numpy simulator (``route2_mul_numpy``) and the
 scatter reference ``np.add.at(out, slots, A[sa] * B[sb])``, the aux
 levels' launch starts, the prefix's no-wrap property, plans carried
-across from JAX, and the paned plan's expansion stream (the slot fill's
-input, ``kernels/mul_fill.py``) with its plain segmented sum against the
-tile walker, JAX's simulator and the scatter reference.
+across from JAX, and the resident and paned plans' expansion streams
+(the slot fill's input, ``kernels/mul_fill.py``, which is the CUDA
+numeric of both) with its plain segmented sum against the tile walker,
+JAX's simulator and the scatter reference; the fill's hub segment cut
+and its plain model.
 
 JAX's paned Pallas kernel is not run here (its interpret mode costs
 tens of seconds a case); the tiny resident plan goes through JAX's
@@ -56,13 +58,14 @@ PANED = {"panels_panes": (20_000, 4096, 1024, 256, False),
          "one_panel": (3_000, 1024, 1 << 20, 512, False)}
 
 
-def _stream(n_ent, cap, hub, b_len):
+def _stream(n_ent, cap, hub, b_len, hub_len=500):
     """The seeded slot-sorted expansion stream and A, B values of the
     JAX tests (A's last slot is the caller-owned constant 1)."""
     rng = np.random.default_rng(n_ent)
     if hub:
         slots = np.sort(np.concatenate(
-            [np.zeros(500, np.int64), rng.integers(0, cap, n_ent - 500)]))
+            [np.zeros(hub_len, np.int64),
+             rng.integers(0, cap, n_ent - hub_len)]))
     else:
         slots = np.sort(rng.integers(0, cap, n_ent))
     a_len = 1501
@@ -327,3 +330,175 @@ def test_slot_fill_checks_operands():
         tmf.mul_fill(dataclasses.replace(ex, sa=ex.sa.long()), a, b, cap)
     with pytest.raises(ValueError, match="nondecreasing"):
         tmf.build_slot_stream(slots[::-1], sa, sb, len(A), len(B), "cpu")
+
+
+# RESIDENT and a stream whose hub slot passes the slot fill's hub cut
+# (mul_fill.HUB_MIN): (entries, capacity, hub slot, hub entries)
+FILL_RESIDENT = dict({k: v + (500,) for k, v in RESIDENT.items()},
+                     long_hub=(9_000, 2048, True, 3_000))
+
+
+def _port_resident(name):
+    n_ent, cap, hub, hub_len = FILL_RESIDENT[name]
+    slots, sa, sb, a_len, A, B = _stream(n_ent, cap, hub, 1800, hub_len)
+    tp = tr2.build_route2_mul_plan(slots, sa, sb, a_len, 1800, cap,
+                                   device="cpu")
+    return tp, (slots, sa, sb, A, B, cap)
+
+
+@pytest.mark.parametrize("name", list(FILL_RESIDENT))
+def test_resident_expansion_is_the_built_stream(name):
+    """The resident plan keeps exactly the products it was built from, in
+    stream order, each slot's run starting where its products start, as
+    ``build_slot_stream`` makes the stream."""
+    tp, (slots, sa, sb, A, B, cap) = _port_resident(name)
+    ex = tp.expansion
+    np.testing.assert_array_equal(to_np(ex.sa), sa)
+    np.testing.assert_array_equal(to_np(ex.sb), sb)
+    np.testing.assert_array_equal(np.diff(to_np(ex.run_start)),
+                                  np.bincount(slots, minlength=ex.nslots))
+    assert ex.nslots == int(slots[-1]) + 1 <= tp.capacity
+    assert (ex.a_len, ex.b_len) == (len(A), len(B))
+    assert ex.longest == int(np.bincount(slots).max())
+    want = tmf.build_slot_stream(slots, sa, sb, len(A), len(B), "cpu")
+    for f in ("sa", "sb", "run_start"):
+        assert torch.equal(getattr(ex, f), getattr(want, f)), f
+    assert (ex.nseg > 0) == (name == "long_hub")
+
+
+@pytest.mark.parametrize("name", list(FILL_RESIDENT))
+def test_resident_slot_fill_matches_walker_simulator_scatter(name):
+    """The slot fill's plain version over the resident plan's stream (the
+    CUDA numeric's computation), and the plain model of its hub cut,
+    against the plain tile walker, the port's numpy simulator and the
+    scatter reference, per slot; the CPU wrapper launches nothing."""
+    tp, (slots, sa, sb, A, B, cap) = _port_resident(name)
+    a, b = torch.from_numpy(A), torch.from_numpy(B)
+    before = tmf.mul_fill.launches
+    got = tmf.mul_fill(tp.expansion, a, b, tp.capacity)
+    assert tmf.mul_fill.launches == before
+    assert got.shape == (cap,) and got.dtype == torch.float32
+    np.testing.assert_array_equal(
+        to_np(got), to_np(tmf.mul_fill_reference(tp.expansion, a, b, cap)))
+    model = tmf.hub_fill_reference(tp.expansion, a, b, cap)
+    walker = tk.route2_mul(tp, a, b)
+    for y in (got, model):
+        for want, what in ((to_np(walker), "walker"),
+                           (tr2.route2_mul_numpy(tp, A, B), "simulator"),
+                           (_scatter(slots, sa, sb, A, B, cap), "scatter")):
+            _assert_slots_close(y, want, slots, sa, sb, A, B, cap,
+                                f"{name} vs {what}")
+
+
+def test_carried_resident_plan_has_no_stream_and_cuda_refuses_it(
+        monkeypatch):
+    """A JAX plan carried across has no expansion stream: on CUDA tensors
+    ``route2_mul`` raises rather than fall back, and the tile walker runs
+    on the CPU only."""
+    jp, tp, (slots, sa, sb, A, B, cap) = _resident("hub")
+    cp = interop.route2_mul_plan_from_numpy(
+        {f: np.asarray(getattr(jp, f)) for f in MUL_ARRAYS},
+        {f: getattr(jp, f) for f in MUL_STATIC}, device="cpu")
+    assert cp.expansion is None and tp.expansion is not None
+    a, b = torch.from_numpy(A), torch.from_numpy(B)
+    a2, b2 = tk.pack_mul_panes(tp, a, b)
+    monkeypatch.setattr(tk._t, "on_cuda", lambda t: True)
+    with pytest.raises(ValueError, match="no expansion stream"):
+        tk.route2_mul(cp, a, b)
+    with pytest.raises(ValueError, match="CPU only"):
+        tk.route2_mul_padded(tp, a2, b2)
+
+
+@pytest.mark.parametrize("name", ["uniform", "long_hub"])
+def test_resident_cuda_numeric_is_one_fill_over_the_stream(monkeypatch,
+                                                           name):
+    """On CUDA tensors ``route2_mul`` is one call of the slot fill over
+    ``plan.expansion`` into the plan's capacity: no pane padding, no
+    zeroed out pane and no launch a level; its values are the CPU
+    walker's within the bound."""
+    tp, (slots, sa, sb, A, B, cap) = _port_resident(name)
+    a, b = torch.from_numpy(A), torch.from_numpy(B)
+    want = tk.route2_mul(tp, a, b)
+    calls = []
+
+    def fill(stream, a_arr, b_arr, capacity):
+        calls.append((stream, capacity))
+        return tmf.hub_fill_reference(stream, a_arr, b_arr, capacity)
+
+    def no_pad(*args):
+        raise AssertionError("a pane was padded")
+
+    monkeypatch.setattr(tk, "mul_fill", fill)
+    monkeypatch.setattr(tk, "pack_mul_panes", no_pad)
+    monkeypatch.setattr(tk, "pad_pane", no_pad)
+    monkeypatch.setattr(tk._t, "on_cuda", lambda t: True)
+    got = tk.route2_mul(tp, a, b)
+    monkeypatch.undo()
+    assert len(calls) == 1 and calls[0][0] is tp.expansion
+    assert calls[0][1] == tp.capacity
+    _assert_slots_close(got, to_np(want), slots, sa, sb, A, B, cap)
+
+
+# runs a slot: runs at and below the hub cut (mul_fill.HUB_MIN, 1,024),
+# past it by one, whole multiples of the segment and ragged ones;
+# (runs, seg_len)
+HUB_CUTS = {"none": ([3, 1024, 0, 17], 1024),
+            "just_past": ([5, 1025, 2], 1024),
+            "several": ([2048, 1, 4100, 0, 3000, 1024], 1024),
+            "short_segments": ([1500, 7, 2600], 512),
+            "ragged_segments": ([2048, 2049, 9], 700)}
+
+
+@pytest.mark.parametrize("name", list(HUB_CUTS))
+def test_hub_segments_cover_each_long_run_once(monkeypatch, name):
+    """The hub cut lists exactly the runs longer than ``HUB_MIN``, in
+    stream order, each cut into segments of ``seg_len`` (the last one
+    shorter) that cover it once, in order; a stream with no such run has
+    no hub tier; the plain model of the cut gives the segmented sum's
+    slot values within the bound."""
+    runs, seg_len = HUB_CUTS[name]
+    hub_min = tmf.HUB_MIN
+    slots = np.repeat(np.arange(len(runs)), runs)
+    rng = np.random.default_rng(len(slots))
+    sa = rng.integers(0, 300, len(slots))
+    sb = rng.integers(0, 400, len(slots))
+    monkeypatch.setattr(tmf, "HUB_SEG_LEN", seg_len)
+    ex = tmf.build_slot_stream(slots, sa, sb, 300, 400, "cpu")
+    run_start = np.concatenate([[0], np.cumsum(runs)])
+    hubs = [s for s, r in enumerate(runs) if r > hub_min]
+    # the slots' blocks keep the rest: their longest picks the tiers
+    assert ex.longest_kept == max(r for r in runs if r <= hub_min)
+    assert ex.longest == max(runs)
+    if not hubs:
+        assert ex.nseg == 0 and ex.hub_seg is None
+        assert ex.hub_count is None and ex.hub_part is None
+    else:
+        seg = to_np(ex.hub_seg)
+        assert seg.shape == (ex.nseg, 8) and not seg[:, 6:].any()
+        assert list(dict.fromkeys(seg[:, 3])) == hubs       # in order
+        for h, s in enumerate(hubs):
+            rows = seg[seg[:, 3] == s]
+            assert (rows[:, 2] == h).all()
+            # contiguous, in order, covering [run_start[s], run_start[s+1])
+            np.testing.assert_array_equal(rows[0, 0], run_start[s])
+            np.testing.assert_array_equal(rows[1:, 0], rows[:-1, 1])
+            assert rows[-1, 1] == run_start[s + 1]
+            assert (rows[:-1, 1] - rows[:-1, 0] == seg_len).all()
+            assert 0 < rows[-1, 1] - rows[-1, 0] <= seg_len
+            first = int(np.flatnonzero(seg[:, 3] == s)[0])
+            assert (rows[:, 4] == first).all()
+            assert (rows[:, 5] == len(rows)).all()
+        assert to_np(ex.hub_count).tolist() == [0] * len(hubs)
+        assert tuple(ex.hub_part.shape) == (ex.nseg,)
+    a = torch.from_numpy(rng.standard_normal(300).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(400).astype(np.float32))
+    cap = len(runs) + 3
+    A, B = to_np(a), to_np(b)
+    _assert_slots_close(tmf.hub_fill_reference(ex, a, b, cap),
+                        _scatter(slots, sa, sb, A, B, cap), slots, sa, sb,
+                        A, B, cap, name)
+    np.testing.assert_array_equal(
+        to_np(ex.hub_seg) if hubs else np.zeros((0, 8), np.int32),
+        tmf.hub_segments(run_start, seg_len))
+    with pytest.raises(ValueError, match="segment length"):
+        tmf.hub_segments(run_start, 0)
