@@ -29,7 +29,17 @@ cells: bench.py's 2k and 100k A.A products (the ROUTE2-mul engines), the
 headline band laid out on the card from random diagonals runs 10 power
 iterations.  SpTRSV cells: bench.py's 20k triangular factor and its
 1M-row 15,625-level chain, and a 1.2M-row chain that takes the blocked
-solve.
+solve.  The sparse algebra ops (torch ops) feed the kernels through
+``matrix_opt``: ``transpose`` of the uniform 1M matrix (the lazy flip's
+bits, a host lexsort's structure) on the ROUTE2 kernel; the headline band
+minus 0.5 I by ``add`` (A's structure, fl(a_ii - 0.5) on the diagonal) on
+the band kernel; a two-phase union add of two uniform 1M matrices (the
+host union's structure, each entry within 64*eps*(|alpha a| + |beta b|)
+of the float64 sum, 10 fills bit-equal, and so on an operand whose COO
+entries come three to a slot); a hypersparse DCSR (2^21 rows, 2^20
+entries) on its base path and on the kind the chooser gives it; an ELL
+plan of the uniform 300k matrix (SpMV, SpMM at k = 64, refreshed values
+bit-equal to a fresh plan).
 
 The ROUTE v1 kernel runs every level of a plan in one launch, ordered by
 device counters, and the paned and resident ROUTE2 kernels one launch
@@ -107,10 +117,10 @@ import torch
 
 import spblas_tpu_torch as sp
 from spblas_tpu_torch import _build, native
-from spblas_tpu_torch.formats.csr import CSR
+from spblas_tpu_torch.formats.csr import CSR, host_arrays
 from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.convert import bsr_to_csr
-from spblas_tpu_torch.kernels import banded, dia, plans, route2
+from spblas_tpu_torch.kernels import banded, dia, ell, plans, route2
 from spblas_tpu_torch.kernels import bsr_kernels as bk
 from spblas_tpu_torch.kernels import bsr_spgemm as bsg
 from spblas_tpu_torch.kernels import mul_fill as mf
@@ -313,6 +323,22 @@ TRSV_HUB = ("sptrsv_20k_hub_rows", 4, 3_000, 121)
 # random diagonals (bench.py:66-86, _device_band_plan): (name, rows, half
 # bandwidth, iterations)
 POWER_MAIN = ("band_power_409600_h50", 409_600, 50, 10)
+
+# the sparse algebra ops, DCSR and ELL, their results fed to the kernels
+# through matrix_opt: the uniform 1M matrix (ROUTE_MAIN[1], bench.py:795)
+# transposed; the headline band minus SHIFT * I (the shifted operator of
+# eigen and Chebyshev codes); a union add of that 1M matrix and one of
+# another seed, two-phase; a 1M-row COO operand with COPIES entries a
+# slot; the hypersparse DCSR of spblas_tpu/formats/dcsr.py:4-8 (2^21
+# rows, 2^20 entries drawn into 12.5 % of the rows: (name, m, n, nnz,
+# seed)); an ELL plan of the uniform 300k cell (ROUTE_MAIN[0]) at
+# k = ELL_K
+SHIFT = 0.5
+UNION_SEED = 7
+REPEAT_COO = ("coo_1m_3_copies", 3, 9)    # (name, copies, seed)
+DCSR_MAIN = ("dcsr_2m_hypersparse", 2_097_152, 2_097_152, 1_048_576, 11)
+ELL_K = 64
+SAME_BITS_RUNS = 10
 
 BAND_SOURCE = "spblas_tpu_torch/csrc/band_spmv.cu"
 DIA_SOURCE = "spblas_tpu_torch/csrc/dia_spmv.cu"
@@ -1766,7 +1792,11 @@ def permuted_csr(a, seed):
 # phase 3: the main path at full width
 # ------------------------------------------------------------------ #
 
-def main_path(name, a, kind, seed, card):
+def main_path(name, a, kind, seed, card, ref=None):
+    """``multiply(scaled(2.0, matrix_opt(A)), x)``: the chooser must pick
+    ``kind`` (None: any, recorded); the result is held against the
+    float64 base path of ``ref`` (default ``a``: another container of
+    the same matrix, e.g. a lazy flip of what ``a`` materializes)."""
     cx = a.dtype.is_complex
     x = gen.generate_vector(a.shape[1], seed=seed, complex_=cx)
     opt = sp.matrix_opt(a)
@@ -1779,13 +1809,15 @@ def main_path(name, a, kind, seed, card):
     launches = read_launches(kind)
     got, plan = opt._plans["matvec"]
     log(f"[main] {name}: kind {got}, launches {launches}")
-    require(got == kind, f"{name}: chooser picked {got!r}, want {kind!r}")
+    require(kind is None or got == kind,
+            f"{name}: chooser picked {got!r}, want {kind!r}")
     require(y.shape == (a.shape[0],) and y.dtype == a.dtype
             and bool(torch.isfinite(y).all()), f"{name}: bad result")
     # reference: the port's own base path in float64 on the card
-    a64 = dataclasses.replace(a, values=_wide(a.values))
+    r = a if ref is None else ref
+    a64 = dataclasses.replace(r, values=_wide(r.values))
     y_ref = sp.multiply(sp.scaled(2.0, a64), _wide(x))
-    absdot = sp.multiply(dataclasses.replace(a, values=a.values.abs()
+    absdot = sp.multiply(dataclasses.replace(r, values=r.values.abs()
                                              .double()), x.abs().double())
     err = row_check(y, y_ref, absdot, scale=2.0)
     xs = [gen.generate_vector(a.shape[1], seed=seed + 1 + i, complex_=cx)
@@ -2844,6 +2876,356 @@ def power_phase(rates, card):
     return main, [spmv_rec, rec]
 
 
+# ------------------------------------------------------------------ #
+# the sparse algebra ops (transpose, add), DCSR and ELL: torch ops whose
+# results feed the card's kernels through matrix_opt
+# ------------------------------------------------------------------ #
+
+def wall_ms(fn, reps):
+    """Mean end-to-end ms of ``reps`` calls of ``fn()`` between CUDA
+    events, host included (for ops that read nothing to the host)."""
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def sync_ms(fn, reps):
+    """Mean host ms of ``reps`` calls of ``fn()`` each ended by a
+    synchronize (for ops that read a count to the host)."""
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def library_or_none(what, fn, reps):
+    """A PyTorch call's ms as a yardstick (never called by the port), or
+    None with the reason when the installed torch refuses it."""
+    try:
+        return wall_ms(fn, reps), None
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"[library] {what}: {type(e).__name__}: {str(e)[:200]}")
+        return None, f"{type(e).__name__}: {str(e)[:200]}"
+
+
+def live_keys(a):
+    """Packed (row * n + col) keys of a CSR's live entries, on its
+    device, in entry order."""
+    return (a.row_ids()[:a.nnz].long() * a.shape[1]
+            + a.colind[:a.nnz].long())
+
+
+def transpose_phase(name, a, rates, card):
+    """E1: ``transpose(A)`` on the uniform 1M matrix, timed; the same bits
+    as ``to_csr(transposed(A))`` (the lazy flip's materialization); the
+    structure of a host lexsort by (col, row); then ``multiply(scaled(2.0,
+    matrix_opt(transpose(A))), x)`` on the ROUTE2 kernel, held against
+    the float64 base path of ``transposed(A)``, and the kernel on that
+    plan against its plain version."""
+    t0 = time.perf_counter()
+    at = sp.transpose(a)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    ms = wall_ms(lambda: sp.transpose(a), 20)
+    flip = sp.to_csr(sp.transposed(a))
+    nnz = a.nnz
+    require(at.shape == flip.shape and at.nnz == flip.nnz == nnz
+            and torch.equal(at.rowptr, flip.rowptr)
+            and torch.equal(at.colind, flip.colind)
+            and torch.equal(at.values, flip.values),
+            f"{name}: transpose differs from to_csr(transposed(A))")
+    rows, cols, vals = host_arrays(a)
+    order = np.lexsort((rows, cols))
+    want_ptr = np.concatenate([[0], np.cumsum(np.bincount(
+        cols, minlength=a.shape[1]))])
+    require(np.array_equal(at.rowptr.cpu().numpy(), want_ptr)
+            and np.array_equal(at.colind[:nnz].cpu().numpy(), rows[order])
+            and np.array_equal(at.values[:nnz].cpu().numpy(), vals[order]),
+            f"{name}: transpose differs from the host lexsort")
+    del flip, rows, cols, vals, order
+    sa = cusparse(a)
+    l_ms, l_why = library_or_none(
+        "transpose", lambda: sa.t().to_sparse_csr(), 20)
+    rec = {"op": "transpose", "case": name, "m": a.shape[0],
+           "n": a.shape[1], "nnz": nnz, "first_call_s": first_s, "ms": ms,
+           "library_ms": l_ms, "library_note": l_why,
+           "same_bits_as_lazy_flip": True, "host_lexsort_structure": True,
+           "card": card}
+    emit(rec)
+    del sa
+    main_rec, plan = main_path(f"{name}_transposed", at, "route", 57, card,
+                               ref=sp.transposed(a))
+    kernel_rec = route2_case(f"{name}_transposed", at, {}, 58, rates, card,
+                             plan=plan)
+    del at, plan
+    torch.cuda.empty_cache()
+    return rec, main_rec, kernel_rec
+
+
+def identity_csr(m):
+    """I (m x m) as a CSR on the card."""
+    return CSR.from_arrays(torch.ones(m, device=DEVICE),
+                           torch.arange(m + 1, device=DEVICE),
+                           torch.arange(m, device=DEVICE), (m, m),
+                           device=DEVICE)
+
+
+def shift_phase(name, a, bandwidth, rates, card):
+    """E2: the shifted operator C = A - SHIFT * I of the headline band as
+    ``add(A, scaled(-SHIFT, I))``: A's structure (the diagonal lies in the
+    band), A's values off the diagonal and fl(a_ii - SHIFT) on it, bit
+    for bit; then ``multiply(scaled(2.0, matrix_opt(C)), x)`` on the band
+    kernel against the float64 base path, and the kernel on that plan
+    against its plain version."""
+    m = a.shape[0]
+    eye = identity_csr(m)
+    t0 = time.perf_counter()
+    c = sp.add(a, sp.scaled(-SHIFT, eye))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    require(c.nnz == a.nnz and torch.equal(c.rowptr, a.rowptr)
+            and torch.equal(c.colind[:a.nnz], a.colind[:a.nnz]),
+            f"{name}: the shifted band's structure is not A's")
+    diag = (a.colind[:a.nnz] == a.row_ids()[:a.nnz]).nonzero().squeeze(1)
+    want = a.values[:a.nnz].clone()
+    want[diag] = want[diag] + torch.tensor(-SHIFT, device=DEVICE)
+    require(int(diag.numel()) == m and torch.equal(c.values[:a.nnz], want),
+            f"{name}: the shifted band's values are not A's minus SHIFT "
+            f"on the diagonal")
+    info = sp.add_inspect(a, eye)
+    ms = sync_ms(lambda: sp.add(a, sp.scaled(-SHIFT, eye)), 5)
+    c_ms = wall_ms(lambda: sp.add_compute(info, a, sp.scaled(-SHIFT, eye)),
+                   20)
+    # the band's rows and I's are column-sorted, as csrgeam2 wants
+    sa, si = cusparse(a), cusparse(sp.scale(-SHIFT, eye))
+    l_ms, l_why = library_or_none("add", lambda: torch.add(sa, si), 20)
+    rec = {"op": "add_shift", "case": name, "m": m, "nnz": c.nnz,
+           "shift": SHIFT, "first_call_s": first_s, "ms": ms,
+           "compute_ms": c_ms, "library_ms": l_ms, "library_note": l_why,
+           "card": card}
+    emit(rec)
+    del info, eye, want, diag, sa, si
+    main_rec, plan = main_path(f"{name}_shifted", c, "band", 59, card)
+    kernel_rec = band_case(f"{name}_shifted", m, m, bandwidth, None, 60,
+                           rates, card, csr=c, plan=plan)
+    del c, plan
+    torch.cuda.empty_cache()
+    return rec, main_rec, kernel_rec
+
+
+def union_check(name, c, terms):
+    """C against the float64 sum of ``terms`` ((CSR or COO, alpha)) slot
+    by slot: every term's (row, col) is in C, and every slot within
+    64 * eps * sum |alpha * v| of the float64 sum; returns (max err,
+    largest err / limit)."""
+    nnz = c.nnz
+    keys = live_keys(c)
+    require(bool((keys[1:] > keys[:-1]).all()),
+            f"{name}: C's structure is not strictly row-major")
+    ref = torch.zeros(nnz, dtype=torch.float64, device=DEVICE)
+    absd = torch.zeros_like(ref)
+    for t, alpha in terms:
+        rows = (t.row_ids()[:t.nnz] if isinstance(t, CSR)
+                else t.rowind[:t.nnz])
+        k = rows.long() * t.shape[1] + t.colind[:t.nnz].long()
+        slot = torch.searchsorted(keys, k).clamp(max=max(nnz - 1, 0))
+        require(bool((keys[slot] == k).all()),
+                f"{name}: an operand entry is missing from C")
+        v = alpha * t.values[:t.nnz].double()
+        ref.index_add_(0, slot, v)
+        absd.index_add_(0, slot, v.abs())
+    return limit_check(c.values[:nnz], ref, absd)
+
+
+def union_phase(name, a, b, card):
+    """E3: a union add of two uniform 1M matrices, two-phase: one
+    ``add_inspect``, then ``add_compute`` on two sets of values (numeric
+    reuse), each timed; the structure that of the host union of the
+    packed (row, col) keys; each entry within 64 * eps * (|alpha a| +
+    |beta b|) of the float64 sum; 10 fills bit-equal.  Then a 1M-row COO
+    operand whose entries come three to a slot: 10 fills bit-equal, in
+    bound."""
+    alpha, beta = 1.5, -0.75
+    t0 = time.perf_counter()
+    info = sp.add_inspect(a, b)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    inspect_ms = sync_ms(lambda: sp.add_inspect(a, b), 3)
+    union = np.union1d(live_keys(a).cpu().numpy(),
+                       live_keys(b).cpu().numpy())
+    require(info.result_nnz == len(union),
+            f"{name}: result_nnz {info.result_nnz}, host union "
+            f"{len(union)}")
+    recs, errs = [], []
+    for i in range(2):
+        if i:   # new values on the same structures (numeric reuse)
+            g = torch.Generator(device=DEVICE)
+            g.manual_seed(70)
+            a = a.update(torch.rand(a.capacity, generator=g, device=DEVICE)
+                         * a.entry_mask())
+            b = b.update(torch.rand(b.capacity, generator=g, device=DEVICE)
+                         * b.entry_mask())
+        fill = functools.partial(sp.add_compute, info, sp.scaled(alpha, a),
+                                 sp.scaled(beta, b))
+        c = fill()
+        if not i:
+            require(np.array_equal(live_keys(c).cpu().numpy(), union),
+                    f"{name}: C's structure differs from the host union")
+        errs.append(union_check(name, c, [(a, alpha), (b, beta)]))
+        same_bits(f"add_compute {name} fill {i}", lambda: fill().values, (),
+                  runs=SAME_BITS_RUNS)
+        recs.append(wall_ms(fill, 20))
+        del c
+    # cuSPARSE's csrgeam2 (behind torch.add) takes sorted columns only
+    # (unsorted ones fail its launch and leave the context unusable):
+    # the same matrices, their rows sorted by a double transpose
+    sa, sb = (cusparse(sp.transpose(sp.transpose(t))) for t in (a, b))
+    l_ms, l_why = library_or_none("add", lambda: torch.add(sa, sb), 20)
+    del sa, sb
+    rec = {"op": "add_union", "case": name, "m": a.shape[0],
+           "a_nnz": a.nnz, "b_nnz": b.nnz, "c_nnz": info.result_nnz,
+           "max_run": info.plan.max_run, "inspect_first_s": first_s,
+           "inspect_ms": inspect_ms, "compute_ms": recs,
+           "max_abs_err": max(e for e, _ in errs),
+           "err_over_limit": max(r for _, r in errs), "library_ms": l_ms,
+           "library_note": l_why, "same_bits_runs": SAME_BITS_RUNS,
+           "card": card}
+    emit(rec)
+    del info, union
+    torch.cuda.empty_cache()
+    # repeated COO entries: three terms a slot, summed in stream order;
+    # m distinct slots in B's shape
+    cname, copies, seed = REPEAT_COO
+    m, n = b.shape
+    rng = np.random.default_rng(seed)
+    flat = np.sort(rng.choice(m * n, size=m, replace=False))
+    coo = sp.COO.from_arrays(
+        rng.uniform(-100, 100, m * copies).astype(np.float32),
+        np.repeat(flat // n, copies), np.repeat(flat % n, copies), (m, n),
+        device=DEVICE)
+    info = sp.add_inspect(coo, b)
+    require(info.plan.max_run >= copies,
+            f"{cname}: longest run {info.plan.max_run}")
+    fill = functools.partial(sp.add_compute, info, sp.scaled(alpha, coo),
+                             sp.scaled(beta, b))
+    err = union_check(cname, fill(), [(coo, alpha), (b, beta)])
+    same_bits(f"add_compute {cname}", lambda: fill().values, (),
+              runs=SAME_BITS_RUNS)
+    crec = {"op": "add_repeated_coo", "case": cname, "m": m,
+            "coo_nnz": coo.nnz, "copies": copies, "c_nnz": info.result_nnz,
+            "max_run": info.plan.max_run, "compute_ms": wall_ms(fill, 20),
+            "max_abs_err": err[0], "err_over_limit": err[1],
+            "same_bits_runs": SAME_BITS_RUNS, "card": card}
+    emit(crec)
+    del coo, info, fill
+    torch.cuda.empty_cache()
+    return [rec, crec]
+
+
+def dcsr_phase(rates, card):
+    """E4: the hypersparse DCSR: ``multiply(D, x)`` (the base path) and
+    ``multiply(scaled(2.0, matrix_opt(D)), x)`` each held against the
+    float64 base path; the kind chosen recorded, and where it is a ROUTE
+    kind its kernel held on the main path's plan."""
+    name, m, n, nnz, seed = DCSR_MAIN
+    t0 = time.perf_counter()
+    d = gen.generate_dcsr(m, n, nnz, seed=seed)
+    gen_s = time.perf_counter() - t0
+    # the generator draws nnz // 4 + 1 rows (12.5 %); those that drew no
+    # entry stay empty
+    require(0 < d.nrows <= nnz // 4 + 1, f"{name}: {d.nrows} stored rows")
+    x = gen.generate_vector(n, seed=seed + 1)
+    d64 = dataclasses.replace(d, values=d.values.double())
+    absdot = sp.multiply(dataclasses.replace(d64, values=d64.values.abs()),
+                         x.abs().double())
+    y = sp.multiply(d, x)
+    err = row_check(y, sp.multiply(d64, x.double()), absdot)
+    base_ms = wall_ms(lambda: sp.multiply(d, x), 20)
+    rec = {"op": "dcsr_base", "case": name, "m": m, "n": n, "nnz": d.nnz,
+           "stored_rows": d.nrows, "drawn_rows": nnz // 4 + 1,
+           "generate_s": gen_s,
+           "max_abs_err_vs_f64": err, "ms": base_ms, "card": card}
+    emit(rec)
+    main_rec, plan = main_path(name, d, None, 61, card)
+    kernel_rec = None
+    if main_rec["kind"] == "route":
+        kernel_rec = route2_case(name, d.to_csr(), {}, 62, rates, card,
+                                 plan=plan)
+    elif main_rec["kind"] == "route_paned":
+        kernel_rec = paned_case(name, d.to_csr(), plan, 62, rates, card)
+    del d, d64, plan
+    torch.cuda.empty_cache()
+    return rec, main_rec, kernel_rec
+
+
+def ell_phase(name, a, card):
+    """E5: an ELL plan of the uniform 300k cell: ``ell_spmv`` and
+    ``ell_spmm`` (k = ELL_K) held against the float64 base path;
+    ``refresh_values`` with new values gives a fresh plan's values and
+    products bit for bit."""
+    t0 = time.perf_counter()
+    plan = ell.build_ell_plan(a)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    x = gen.generate_vector(a.shape[1], seed=63)
+    b = gen.generate_dense(a.shape[1], ELL_K, seed=64)
+    a64 = dataclasses.replace(a, values=a.values.double())
+    a_abs = dataclasses.replace(a64, values=a64.values.abs())
+    y = ell.ell_spmv(plan, x)
+    err_v = row_check(y, sp.multiply(a64, x.double()),
+                      sp.multiply(a_abs, x.abs().double()))
+    c = ell.ell_spmm(plan, b)
+    err_m, ratio_m = limit_check(c, sp.multiply(a64, b.double()),
+                                 sp.multiply(a_abs, b.abs().double()))
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(65)
+    new = torch.rand(a.capacity, generator=g, device=DEVICE) \
+        * a.entry_mask()
+    fresh = ell.build_ell_plan(a.update(new))
+    refreshed = plan.refresh_values(new)
+    require(torch.equal(refreshed.values, fresh.values)
+            and torch.equal(ell.ell_spmv(refreshed, x),
+                            ell.ell_spmv(fresh, x))
+            and torch.equal(ell.ell_spmm(refreshed, b),
+                            ell.ell_spmm(fresh, b)),
+            f"{name}: refresh_values differs from a fresh plan")
+    rec = {"op": "ell", "case": name, "m": a.shape[0], "nnz": a.nnz,
+           "width": plan.width, "m_pad": plan.m_pad, "build_s": build_s,
+           "spmv_ms": wall_ms(lambda: ell.ell_spmv(plan, x), 20),
+           "spmm_k": ELL_K,
+           "spmm_ms": wall_ms(lambda: ell.ell_spmm(plan, b), 5),
+           "spmv_max_abs_err_vs_f64": err_v,
+           "spmm_max_abs_err_vs_f64": err_m, "spmm_err_over_limit": ratio_m,
+           "refresh_same_bits": True, "card": card}
+    emit(rec)
+    return rec
+
+
+def algebra_phase(head, u300, u1m, rates, card):
+    """E1-E5 in turn (each prints its own records); returns the main-path
+    records, the ROUTE2 and band kernel records to join their kernels'
+    entries, and the DCSR kernel record or None."""
+    t0 = time.perf_counter()
+    _, t_main, t_kernel = transpose_phase(ROUTE_MAIN[1][0], u1m, rates,
+                                              card)
+    _, s_main, s_kernel = shift_phase(HEADLINE[0], head, HEADLINE[3],
+                                          rates, card)
+    union_phase(f"{ROUTE_MAIN[1][0]}_union", u1m, gen.generate_csr(
+        *u1m.shape, u1m.nnz, seed=UNION_SEED), card)
+    _, d_main, d_kernel = dcsr_phase(rates, card)
+    ell_phase(f"{ROUTE_MAIN[0][0]}_ell", u300, card)
+    log(f"[algebra] E1-E5 in {time.perf_counter() - t0:.1f} s")
+    return [t_main, s_main, d_main], t_kernel, s_kernel, d_kernel
+
+
 def run():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3048,6 +3430,18 @@ def run():
     torch.cuda.empty_cache()
     main.append(main_path(SELL_MAIN, dataclasses.replace(
         u300, values=u300.values.double()), "sell", 53, card)[0])
+    # the sparse algebra ops, DCSR and ELL (E1-E5): their results run the
+    # ROUTE2 and band kernels through matrix_opt; the kernel records join
+    # those kernels' entries (the paned one ahead of its head record)
+    alg_main, t_kernel, s_kernel, d_kernel = algebra_phase(
+        head, u300, general[ROUTE_MAIN[1][0]], rates, card)
+    main += alg_main
+    route_recs.append(t_kernel)
+    band_recs.append(s_kernel)
+    if d_kernel is not None and d_kernel["kernel"] == "route2_spmv":
+        route_recs.append(d_kernel)
+    elif d_kernel is not None:
+        paned_recs.insert(0, d_kernel)
     del general, u300
 
     # the BSR and RCM-band rungs, SpMV then SpMM, and their kernels on

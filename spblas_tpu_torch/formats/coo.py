@@ -1,7 +1,8 @@
 """COO container — counterpart of ``spblas_tpu/formats/coo.py``.
 
 Invariant: live entries are sorted by row (columns within a row in any
-order); padded entries have values == 0 and rowind == colind == 0.
+order); padded entries have values == 0 and rowind == colind == 0 (never
+``CSR.row_ids``'s sentinel m).
 """
 
 from __future__ import annotations
@@ -56,6 +57,10 @@ class COO:
     def device(self) -> torch.device:
         return self.values.device
 
+    def entry_mask(self) -> torch.Tensor:
+        """(capacity,) bool — True for live entries."""
+        return torch.arange(self.capacity, device=self.device) < self.nnz
+
     def todense(self) -> torch.Tensor:
         m, n = self.shape
         out = torch.zeros((m, n), dtype=self.dtype, device=self.device)
@@ -93,3 +98,17 @@ class COO:
     def __repr__(self):
         return (f"COO(shape={self.shape}, capacity={self.capacity}, "
                 f"dtype={self.dtype}, device={self.device})")
+
+
+def csr_to_coo(a: CSR) -> COO:
+    """CSR -> COO over the same values and columns; the padded rows are 0
+    (the class invariant), not ``row_ids``'s sentinel m."""
+    rows = torch.where(a.entry_mask(), a.row_ids(), 0)
+    return COO(values=a.values, rowind=rows.to(_t.index_dtype),
+               colind=a.colind, nnz=a.nnz, shape=a.shape)
+
+
+def csc_to_coo(a) -> COO:
+    """CSC -> COO re-sorted row-major, with canonical zero padding."""
+    from spblas_tpu_torch.formats.convert import to_coo
+    return to_coo(a)

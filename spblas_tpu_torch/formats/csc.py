@@ -46,6 +46,31 @@ class CSC:
                    rowind=_pad_to(rowind, capacity), nnz=nnz,
                    shape=(int(shape[0]), int(shape[1])))
 
+    @classmethod
+    def from_dense(cls, dense, capacity=None, tol=0.0,
+                   device=None) -> "CSC":
+        dense = _t.to_numpy(dense) if isinstance(dense, torch.Tensor) \
+            else np.asarray(dense)
+        m, n = dense.shape
+        cols, rows = np.nonzero(np.abs(dense.T) > tol)
+        vals = dense[rows, cols]
+        colptr = np.zeros(n + 1, dtype=np.int64)
+        np.add.at(colptr[1:], cols, 1)
+        return cls.from_arrays(vals, np.cumsum(colptr), rows, (m, n),
+                               nnz=len(vals), capacity=capacity,
+                               device=device)
+
+    def update(self, values, colptr=None, rowind=None, nnz=None) -> "CSC":
+        """Functional re-bind over new buffers, on this matrix's device."""
+        dev = self.device
+        return CSC(values=_t.as_tensor(values, dev),
+                   colptr=self.colptr if colptr is None else _t.as_tensor(
+                       colptr, dev, _t.offset_dtype),
+                   rowind=self.rowind if rowind is None else _t.as_tensor(
+                       rowind, dev, _t.index_dtype),
+                   nnz=self.nnz if nnz is None else int(nnz),
+                   shape=self.shape)
+
     @property
     def capacity(self) -> int:
         return int(self.values.shape[0])
@@ -64,6 +89,13 @@ class CSC:
                          device=self.device)
         return torch.searchsorted(self.colptr[1:], e, right=True,
                                   out_int32=True)
+
+    def col_lengths(self) -> torch.Tensor:
+        return (self.colptr[1:] - self.colptr[:-1]).to(_t.index_dtype)
+
+    def entry_mask(self) -> torch.Tensor:
+        """(capacity,) bool — True for live entries."""
+        return torch.arange(self.capacity, device=self.device) < self.nnz
 
     def todense(self) -> torch.Tensor:
         m, n = self.shape

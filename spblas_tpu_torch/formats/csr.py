@@ -73,6 +73,28 @@ class CSR:
                                nnz=len(vals), capacity=capacity,
                                device=device)
 
+    def update(self, values, rowptr=None, colind=None, nnz=None) -> "CSR":
+        """Functional re-bind over new buffers, on this matrix's device."""
+        dev = self.device
+        return CSR(values=_t.as_tensor(values, dev),
+                   rowptr=self.rowptr if rowptr is None else _t.as_tensor(
+                       rowptr, dev, _t.offset_dtype),
+                   colind=self.colind if colind is None else _t.as_tensor(
+                       colind, dev, _t.index_dtype),
+                   nnz=self.nnz if nnz is None else int(nnz),
+                   shape=self.shape)
+
+    def with_capacity(self, capacity: int) -> "CSR":
+        """Grow or shrink the padded capacity (the caller ensures nnz
+        fits; shrinking only drops canonical zero padding)."""
+        capacity = int(capacity)
+        if capacity < self.capacity:
+            return dataclasses.replace(self, values=self.values[:capacity],
+                                       colind=self.colind[:capacity])
+        return dataclasses.replace(self,
+                                   values=_pad_to(self.values, capacity),
+                                   colind=_pad_to(self.colind, capacity))
+
     @property
     def capacity(self) -> int:
         return int(self.values.shape[0])
@@ -85,12 +107,23 @@ class CSR:
     def device(self) -> torch.device:
         return self.values.device
 
+    @property
+    def index_dtype(self):
+        return self.colind.dtype
+
     def row_ids(self) -> torch.Tensor:
         """Per-entry row index, (capacity,).  Padded entries map to m."""
         e = torch.arange(self.capacity, dtype=self.rowptr.dtype,
                          device=self.device)
         return torch.searchsorted(self.rowptr[1:], e, right=True,
                                   out_int32=True)
+
+    def row_lengths(self) -> torch.Tensor:
+        return (self.rowptr[1:] - self.rowptr[:-1]).to(_t.index_dtype)
+
+    def entry_mask(self) -> torch.Tensor:
+        """(capacity,) bool — True for live entries."""
+        return torch.arange(self.capacity, device=self.device) < self.nnz
 
     def todense(self) -> torch.Tensor:
         m, n = self.shape

@@ -32,6 +32,8 @@ resident or streamed B by the JAX 6 MB switch, B read in place; the
 permuted band and the complex band on the resident kernel's index and
 complex entry points), the BSR SpMM kernel
 (``csrc/bsr_spmm.cu``) and the DIA and SELL products as torch ops.
+No rung builds an ELL plan (``kernels/ell.py``), as in the JAX ladder;
+both runners take one a caller builds (kind ``ell``, torch ops).
 
 Thresholds and envelopes are the JAX package's (``plans.py:46-64``,
 ``:250-426``), kept for parity; re-deriving them for the H100 is ROADMAP
@@ -64,6 +66,7 @@ from spblas_tpu_torch.kernels.bsr_kernels import _apply as bsr_apply
 from spblas_tpu_torch.kernels.bsr_kernels import bsr_spmm, bsr_spmv_blocks
 from spblas_tpu_torch.kernels.dia import (build_dia_plan, dia_fill_fraction,
                                           dia_spmm, dia_spmv)
+from spblas_tpu_torch.kernels.ell import ell_spmm, ell_spmv
 from spblas_tpu_torch.kernels.route2 import Route2Plan, build_route2_plan
 from spblas_tpu_torch.kernels.route2_kernel import (cx_imag_plane,
                                                     route2_cx_spmv,
@@ -103,7 +106,7 @@ _ROUTE_KINDS = ("route", "route1", "route1_sorted", "route_paned",
 
 # plan kinds that preserve the operand dtype (torch formulations); the
 # *_cx kinds are complex-aware but compute in two f32 planes
-_DTYPE_PRESERVING_KINDS = ("sell", "dia")
+_DTYPE_PRESERVING_KINDS = ("sell", "ell", "dia")
 _CX_KINDS = ("band_cx", "route_cx")
 
 # ROUTE keeps x and y resident in the TPU's VMEM: (x_rows + y_rows) rows
@@ -483,6 +486,8 @@ def plan_spmv(plan: Tuple[str, object], x: torch.Tensor) -> torch.Tensor:
         return route_paned_spmv(p, x)
     if kind == "route_cx":
         return route_cx_spmv(p, x)
+    if kind == "ell":
+        return ell_spmv(p, x)
     raise ValueError(f"unknown plan kind {kind!r}")
 
 
@@ -507,6 +512,8 @@ def plan_spmm(plan: Tuple[str, object], b: torch.Tensor) -> torch.Tensor:
         return sell_spmm(p, b)
     if kind == "dia":
         return dia_spmm(p, b)
+    if kind == "ell":
+        return ell_spmm(p, b)
     if kind in _ROUTE_KINDS:
         # a matvec ROUTE plan fed to SpMM replays the whole SpMV per
         # column of B; reachable only when a caller bypasses

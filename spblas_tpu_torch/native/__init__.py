@@ -93,6 +93,10 @@ def _declare(lib):
         np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
         np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"))
     f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
+    lib.spblas_ell_build.restype = i64
+    lib.spblas_ell_build.argtypes = [
+        i64, i64, i64, i64p, i32p, i64, i32p, i32p,
+        np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")]
     lib.spblas_route2_pack.restype = i64
     lib.spblas_route2_pack.argtypes = [
         i64, i64, i64p, i32p, i32p, i64, i64, ctypes.c_int32,
@@ -279,6 +283,25 @@ def route_mul_pack(ne, ncells, cell_start, lo, la, lb):
                 chunk_cell[:nch])
     raise RuntimeError(
         "spblas_route_mul_pack: chunk buffer kept overflowing")
+
+
+def ell_geometry(m, m_pad, nnz, rowptr, colind, width=0):
+    """(gather, cols, valid, w): the padded-row (ELL) plan arrays, each
+    (m_pad, w), for rowptr int64[m + 1] and colind int32[*].  Width 0
+    derives the longest row first (a geometry-only call), then fills."""
+    lib = get_lib()
+    rowptr = np.ascontiguousarray(rowptr, dtype=np.int64)
+    colind = np.ascontiguousarray(colind, dtype=np.int32)
+    w = width or int(lib.spblas_ell_build(
+        m, m_pad, nnz, rowptr, colind, 0, np.zeros(1, np.int32),
+        np.zeros(1, np.int32), np.zeros(1, np.uint8)))
+    gather = np.zeros((m_pad, w), np.int32)
+    cols = np.zeros((m_pad, w), np.int32)
+    valid = np.zeros((m_pad, w), np.uint8)
+    lib.spblas_ell_build(m, m_pad, nnz, rowptr, colind, w,
+                         gather.reshape(-1), cols.reshape(-1),
+                         valid.reshape(-1))
+    return gather, cols, valid.astype(bool), w
 
 
 def level_schedule(m, nnz, rowptr, colind, lower: bool, unit: bool):

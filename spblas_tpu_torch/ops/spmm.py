@@ -3,7 +3,7 @@
 
 An ``OptimizedMatrix`` runs its cached plan (band, BSR, RCM band, DIA,
 SELL; ``plans.plan_spmm``); everything else takes the base path: BSR
-through its block kernel, CSR/CSC/COO as a gather of whole B rows, a
+through its block kernel, CSR/CSC/COO/DCSR as a gather of whole B rows, a
 multiply and an ``index_add`` that autograd differentiates.
 """
 
@@ -19,6 +19,7 @@ from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.formats.csc import CSC
 from spblas_tpu_torch.formats.coo import COO
+from spblas_tpu_torch.formats.dcsr import DCSR
 from spblas_tpu_torch.kernels import plans as _plans
 from spblas_tpu_torch.kernels.bsr_kernels import bsr_spmm
 from spblas_tpu_torch.ops.spmv import _entries, _segment_sum
@@ -57,7 +58,7 @@ def _spmm_base(a, b, conj_a: bool):
         if conj_a:
             a = dataclasses.replace(a, values=a.values.conj())
         return bsr_spmm(a, b)
-    if isinstance(a, (CSR, CSC, COO)):
+    if isinstance(a, (CSR, CSC, COO, DCSR)):
         vals, cols, rows = _entries(a, conj_a)
         return _segment_sum(vals[:, None] * b.index_select(0, cols), rows,
                             a.shape[0])

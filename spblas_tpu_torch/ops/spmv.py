@@ -16,6 +16,7 @@ from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.formats.csc import CSC
 from spblas_tpu_torch.formats.coo import COO
+from spblas_tpu_torch.formats.dcsr import DCSR
 from spblas_tpu_torch import views as _v
 from spblas_tpu_torch.kernels import plans as _plans
 from spblas_tpu_torch.kernels.bsr_kernels import bsr_spmv
@@ -60,11 +61,11 @@ def _segment_sum(contrib: torch.Tensor, seg: torch.Tensor,
 
 
 def _entries(a, conj_a: bool):
-    """(values, column ids, row ids) of a CSR/CSC/COO's entries, the
+    """(values, column ids, row ids) of a CSR/CSC/COO/DCSR's entries, the
     values conjugated when ``conj_a``; padded entries hold value 0 (and
-    row m in a CSR)."""
+    row m in a CSR or DCSR)."""
     vals = a.values.conj() if conj_a else a.values
-    if isinstance(a, CSR):
+    if isinstance(a, (CSR, DCSR)):
         return vals, a.colind, a.row_ids()
     if isinstance(a, CSC):
         return vals, a.col_ids() % a.shape[1], a.rowind
@@ -76,7 +77,7 @@ def _spmv_base(a, x, conj_a: bool):
         if conj_a:
             a = dataclasses.replace(a, values=a.values.conj())
         return bsr_spmv(a, x)
-    if isinstance(a, (CSR, CSC, COO)):
+    if isinstance(a, (CSR, CSC, COO, DCSR)):
         vals, cols, rows = _entries(a, conj_a)
         return _segment_sum(vals * x.index_select(0, cols), rows, a.shape[0])
     # dense matrix fallback

@@ -15,6 +15,7 @@ import torch
 
 from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.formats.csr import CSR
+from spblas_tpu_torch.formats.dcsr import DCSR
 
 
 def _complex_dtype(dtype):
@@ -119,6 +120,22 @@ def _coo_to_csr(rows, cols, vals, shape, capacity=None,
     return CSR.from_arrays(vals, _rows_to_rowptr(rows, shape[0]), cols,
                            shape, nnz=len(rows), capacity=capacity,
                            device=device)
+
+
+def generate_dcsr(m, n, nnz, seed=0, dtype=np.float32,
+                  device=None) -> DCSR:
+    """Hypersparse fixture: entries drawn into about nnz / 4 + 1 random
+    rows (duplicates dropped), so most rows are empty."""
+    rng = np.random.default_rng(seed)
+    num_rows = max(1, min(m, nnz // 4 + 1))
+    active = np.sort(rng.choice(m, size=num_rows, replace=False))
+    rows = rng.choice(active, size=nnz)
+    cols = rng.integers(0, n, size=nnz)
+    _, idx = np.unique(rows.astype(np.int64) * n + cols, return_index=True)
+    rows, cols = rows[idx], cols[idx]
+    vals = rng.uniform(0, 100, len(rows)).astype(dtype)
+    return DCSR.from_csr(_coo_to_csr(rows, cols, vals, (m, n),
+                                     device=device))
 
 
 def generate_stencil_csr(dims, seed=0, dtype=np.float32, capacity=None,

@@ -12,10 +12,14 @@ import torch
 
 from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.formats.bsr import BSR
+from spblas_tpu_torch.formats.coo import COO
+from spblas_tpu_torch.formats.csc import CSC
 from spblas_tpu_torch.formats.csr import CSR
+from spblas_tpu_torch.formats.dcsr import DCSR
 from spblas_tpu_torch.kernels.banded import BandPlan, PermutedBandPlan
 from spblas_tpu_torch.kernels.bsr_spgemm import BsrSpgemmPlan
 from spblas_tpu_torch.kernels.dia import DiaPlan
+from spblas_tpu_torch.kernels.ell import EllPlan
 from spblas_tpu_torch.kernels.plans import SortedRoutePlan
 from spblas_tpu_torch.kernels.route2 import (SUBS, Route2MulPlan, Route2Plan,
                                              build_slab_work,
@@ -36,6 +40,50 @@ def csr_from_numpy(values, rowptr, colind, nnz, shape,
     return CSR.from_arrays(values, np.asarray(rowptr), np.asarray(colind),
                            shape, nnz=int(nnz), capacity=len(values),
                            device=device)
+
+
+def csc_from_numpy(values, colptr, rowind, nnz, shape, device=None) -> CSC:
+    """A CSC over a JAX ``CSC``'s arrays; their length is kept as the
+    capacity."""
+    values = np.asarray(values)
+    return CSC.from_arrays(values, np.asarray(colptr), np.asarray(rowind),
+                           shape, nnz=int(nnz), capacity=len(values),
+                           device=device)
+
+
+def coo_from_numpy(values, rowind, colind, nnz, shape, device=None) -> COO:
+    """A COO over a JAX ``COO``'s arrays; their length is kept as the
+    capacity."""
+    values = np.asarray(values)
+    return COO.from_arrays(values, np.asarray(rowind), np.asarray(colind),
+                           shape, nnz=int(nnz), capacity=len(values),
+                           device=device)
+
+
+def dcsr_from_numpy(values, colind, rowind, rowptr, nrows, nnz, shape,
+                    device=None) -> DCSR:
+    """A DCSR over a JAX ``DCSR``'s arrays (capacity and row capacity
+    kept) and its ``nrows`` and ``nnz``."""
+    dev = _t.resolve_device(device)
+    return DCSR(values=_t.as_tensor(np.asarray(values), dev),
+                colind=_t.as_tensor(np.asarray(colind), dev, _t.index_dtype),
+                rowind=_t.as_tensor(np.asarray(rowind), dev, _t.index_dtype),
+                rowptr=_t.as_tensor(np.asarray(rowptr), dev,
+                                    _t.offset_dtype),
+                nrows=int(nrows), nnz=int(nnz),
+                shape=(int(shape[0]), int(shape[1])))
+
+
+def ell_plan_from_numpy(values, cols, gather_idx, valid, shape,
+                        device=None) -> EllPlan:
+    """An EllPlan over a JAX one's (m_pad, W) arrays."""
+    dev = _t.resolve_device(device)
+    return EllPlan(values=_t.as_tensor(np.asarray(values), dev),
+                   cols=_t.as_tensor(np.asarray(cols), dev, torch.int32),
+                   gather_idx=_t.as_tensor(np.asarray(gather_idx), dev,
+                                           torch.int32),
+                   valid=_t.as_tensor(np.asarray(valid), dev, torch.bool),
+                   shape=(int(shape[0]), int(shape[1])))
 
 
 def bsr_from_numpy(values, block_rowptr, block_colind, nnz_blocks, shape,

@@ -16,6 +16,7 @@ from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.formats.csc import CSC
 from spblas_tpu_torch.formats.coo import COO
+from spblas_tpu_torch.formats.dcsr import DCSR
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,6 +192,14 @@ def fold(t):
     return get_ultimate_base(t), get_scaling_factor(t), is_conjugated(t)
 
 
+def fold_values(values, alpha, conj: bool):
+    """Apply a folded (alpha, conj) to an entry-value tensor: conjugate
+    first, then scale."""
+    if conj:
+        values = values.conj()
+    return values * alpha
+
+
 def is_csr(t) -> bool:
     return isinstance(get_ultimate_base(t), CSR)
 
@@ -204,7 +213,7 @@ def is_coo(t) -> bool:
 
 
 def is_sparse(t) -> bool:
-    return isinstance(get_ultimate_base(t), (CSR, CSC, COO, BSR))
+    return isinstance(get_ultimate_base(t), (CSR, CSC, COO, BSR, DCSR))
 
 
 def is_dense_matrix(t) -> bool:

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 import spblas_tpu as sp
+from spblas_tpu.formats.bsr import BSR
+from spblas_tpu.utils import generate as gen
 from spblas_tpu_torch.utils import interop
 
 EPS32 = float(np.finfo(np.float32).eps)
@@ -171,3 +173,85 @@ def assert_spgemm_close(c, c_ref, bound, factor=64, eps=EPS32,
     assert not bad.any(), (
         f"{err_msg} {bad.sum()} entries out of bound; worst {worst}: "
         f"err {err[worst]}, bound {lim[worst]}")
+
+
+# the arrays of each sparse container, in the order both packages name
+# them
+_FIELDS = {"CSR": ("values", "rowptr", "colind"),
+           "CSC": ("values", "colptr", "rowind"),
+           "COO": ("values", "rowind", "colind"),
+           "DCSR": ("values", "colind", "rowind", "rowptr"),
+           "BSR": ("values", "block_rowptr", "block_colind")}
+
+
+def port_of(t):
+    """Any JAX sparse container (CSR, CSC, COO, DCSR, BSR) as the port's
+    on the CPU, with its capacity and bits."""
+    kind = type(t).__name__
+    if kind == "CSR":
+        return port_csr(t)
+    arr = [np.asarray(getattr(t, f)) for f in _FIELDS[kind]]
+    if kind == "CSC":
+        return interop.csc_from_numpy(*arr, int(t.nnz), t.shape,
+                                      device="cpu")
+    if kind == "COO":
+        return interop.coo_from_numpy(*arr, int(t.nnz), t.shape,
+                                      device="cpu")
+    if kind == "DCSR":
+        return interop.dcsr_from_numpy(*arr, int(t.nrows), int(t.nnz),
+                                       t.shape, device="cpu")
+    return interop.bsr_from_numpy(*arr, int(t.nnz_blocks), t.shape,
+                                  t.block_shape, device="cpu")
+
+
+def assert_same_container(p, j, values=True):
+    """The port's container ``p`` holds the JAX container ``j``'s arrays
+    bit for bit (the values too unless ``values`` is False), with the
+    same nnz, shape and capacity."""
+    kind = type(j).__name__
+    assert type(p).__name__ == kind, f"{type(p).__name__} vs {kind}"
+    assert p.shape == j.shape and p.nnz == int(j.nnz)
+    assert p.capacity == j.capacity
+    for f in _FIELDS[kind][0 if values else 1:]:
+        np.testing.assert_array_equal(to_np(getattr(p, f)),
+                                      np.asarray(getattr(j, f)),
+                                      err_msg=f"{kind}.{f}")
+
+
+def assert_dense_close(got, want, bound, factor=64, eps=EPS32,
+                       err_msg=""):
+    """Per entry |got - want| <= factor*eps*bound for dense arrays (a
+    float64 ``bound`` such as |alpha||A| + |beta||B|)."""
+    got = to_np(got).astype(np.complex128)
+    want = to_np(want).astype(np.complex128)
+    assert got.shape == want.shape, f"shape {got.shape} vs {want.shape}"
+    lim = factor * eps * np.asarray(bound, np.float64)
+    err = np.abs(got - want)
+    bad = err > lim
+    worst = np.unravel_index(int(np.argmax(err - lim)), err.shape)
+    assert not bad.any(), (
+        f"{err_msg} {bad.sum()} entries out of bound; worst {worst}: "
+        f"err {err[worst]}, bound {lim[worst]}")
+
+
+FORMATS = ["csr", "csc", "coo", "dcsr", "bsr"]
+
+
+def format_operand(fmt, m, n, nnz, seed):
+    """A JAX operand of format ``fmt`` as tests/test_format_coverage.py
+    makes them (BSR: a few dense 8x8 blocks of standard normals)."""
+    if fmt == "csr":
+        return gen.generate_csr(m, n, nnz, seed=seed)
+    if fmt == "csc":
+        return gen.generate_csc(m, n, nnz, seed=seed)
+    if fmt == "coo":
+        return gen.generate_coo(m, n, nnz, seed=seed)
+    if fmt == "dcsr":
+        return gen.generate_dcsr(m, n, nnz, seed=seed)
+    dense = np.zeros((m, n), np.float32)
+    rng = np.random.default_rng(seed)
+    for _ in range(max(nnz // 64, 1)):
+        bi = rng.integers(0, m // 8) * 8
+        bj = rng.integers(0, n // 8) * 8
+        dense[bi:bi + 8, bj:bj + 8] = rng.standard_normal((8, 8))
+    return BSR.from_dense(dense, block_shape=(8, 8))
