@@ -39,7 +39,16 @@ of the float64 sum, 10 fills bit-equal, and so on an operand whose COO
 entries come three to a slot); a hypersparse DCSR (2^21 rows, 2^20
 entries) on its base path and on the kind the chooser gives it; an ELL
 plan of the uniform 300k matrix (SpMV, SpMM at k = 64, refreshed values
-bit-equal to a fresh plan).
+bit-equal to a fresh plan).  Phase F, after them: ``solvers.cg`` on the
+symmetrised headline band (S = (A + A^T) / 2 + sigma I, built by
+``transpose``, ``scale`` and ``add``, sigma from the power method's
+estimate of the spectrum, for a condition number near 10) and on the
+symmetrised 1000^2 stencil (so also strictly diagonally dominant), ``jacobi`` on the stencil's operator and ``power_method`` on
+the band's, each SpMV on the plan's kernel (launches counted), each held
+to float64; ``band_spmv_ad`` on the headline band (the forward on the
+band kernel, the gradients against a float64 backward); the five
+``data/*.mtx.gz`` files through ``load_matrix_market`` and the SpMV main
+path; one SpGEMM and one SpTRSV plan through ``save_plan``/``load_plan``.
 
 The ROUTE v1 kernel runs every level of a plan in one launch, ordered by
 device counters, and the paned and resident ROUTE2 kernels one launch
@@ -71,7 +80,12 @@ and to the four real applies it replaced, there and on the 300k
 complex64 plan.  The band kernel is also held to its plain version on
 panels and x views that are not 16-byte aligned.  The three 3xTF32
 kernels run at the edges of the f32 range (+-FLT_MAX, infinities, and
-2^-120 against 2^120 through the entry points' ``tf32_exact`` gate), and
+2^-120 against 2^120 through the entry points' ``tf32_exact`` gate; the
+dense B at 2^-120 and infinite, and finite products past FLT_MAX,
+through the kernels' own test of B, whose flag must rise and send the
+call to the exact kernel; and on the headline band at k = 256 and the
+block cell at k = 256, a B with one value at 2^-120, whose gated exact
+kernel must give its own bits over every tile, timed), and
 the f32 BSR SpMM past a lowered slot-scratch budget, whose cut calls
 must give the uncut call's bits.  The BSR SpMV kernel (a mapping by
 block shape) is held to its plain version on 8x128 (the main path's),
@@ -107,8 +121,10 @@ import functools
 import importlib
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -117,6 +133,8 @@ import torch
 
 import spblas_tpu_torch as sp
 from spblas_tpu_torch import _build, native
+from spblas_tpu_torch import solvers
+from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.formats.csr import CSR, host_arrays
 from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.convert import bsr_to_csr
@@ -134,6 +152,8 @@ from spblas_tpu_torch.kernels import route_spmv as rsp
 from spblas_tpu_torch.kernels.route2 import Route2MulPlan
 from spblas_tpu_torch.kernels.route_mul_paned import Route2MulPanedPlan
 from spblas_tpu_torch.utils import generate as gen
+from spblas_tpu_torch.utils import io as sio
+from spblas_tpu_torch.utils import serialize
 
 # the module (the package exports a function of the same name)
 spgemm_ops = importlib.import_module("spblas_tpu_torch.ops.spgemm")
@@ -395,6 +415,10 @@ WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "route_mul": mf.mul_fill,
             "band_power": banded.band_power_padded,
             "route2_solve": r2k.route2_solve_padded}
+# the exact kernels gated behind a tensor-core call by its flag (they
+# exit at once when it is down), counted on the wrapper's ``gated``
+GATED = {"band_spmm_gated": banded.band_spmm_stream_padded,
+         "bsr_spmm_gated": bk.bsr_spmm_blocks}
 # kernels that share one wrapper's count (the slot fill runs the numeric
 # of the resident and paned ROUTE2-mul and the ROUTE v1 SpGEMM engines):
 # the engine whose main path credits it
@@ -429,10 +453,20 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+def reset_launches():
+    """Every kernel's launch count set to 0, the gated ones' too."""
+    for w in WRAPPERS.values():
+        w.launches = 0
+    for w in GATED.values():
+        w.gated = 0
+
+
 def read_launches(kind):
     """Each kernel's launch count since the counts were set to 0, a
-    shared count credited only to the kernel of ``kind`` (``SHARED``)."""
+    shared count credited only to the kernel of ``kind`` (``SHARED``),
+    and the gated exact launches (``GATED``)."""
     out = {k: w.launches for k, w in WRAPPERS.items()}
+    out.update({k: w.gated for k, w in GATED.items()})
     for k, engine in SHARED.items():
         if kind != engine:
             out[k] = 0
@@ -1117,6 +1151,37 @@ def library_mm_ms(a, b):
     return device_ms(torch.matmul, reps_in)
 
 
+def flag_b(b, row):
+    """B with its value at (row, 0) set to 2^-120, below the 3xTF32
+    split's 2^-112: the tensor-core kernels' test of B raises the call's
+    flag on it (``csrc/tf32_mma.cuh``, Limits)."""
+    bf = b.clone()
+    bf[row, 0] = 2.0 ** -120
+    return bf
+
+
+def flagged_check(kname, name, wrapper, call, exact, ref, absd, fn, ins):
+    """A call at a main-path shape whose B fails the tensor-core kernel's
+    test (one value at 2^-120, :func:`flag_b`): the flag rises, one gated
+    exact launch follows, and C is the exact kernel's own bits (every
+    tile rewritten), held to the plain version within 64 eps (|A| |B|);
+    then ``fn`` timed over the distinct flagged operands ``ins``.
+    Returns (err / limit, ms)."""
+    gated = wrapper.gated
+    y = call()
+    torch.cuda.synchronize()
+    require(flag_path(wrapper) == "exact" and wrapper.gated == gated + 1,
+            f"{kname} {name} flagged B: the flag did not rise")
+    require(torch.equal(y, exact()),
+            f"{kname} {name} flagged B: C is not the exact kernel's bits")
+    _, ratio = limit_check(y, ref, absd)
+    del y
+    ms = device_ms(fn, ins)
+    log(f"[check] {kname} {name} flagged B (one value 2^-120): flag up, "
+        f"the exact kernel's bits, err / limit {ratio:.4f}; {ms:.4f} ms")
+    return ratio, ms
+
+
 def band_spmm_case(name, plan, k, seed, rates, card, csr=None,
                    full=False):
     """Both band SpMM kernels on one plan and one B against their plain
@@ -1125,7 +1190,8 @@ def band_spmm_case(name, plan, k, seed, rates, card, csr=None,
     for the padded form's bits, timed beside the padded form and the
     ``pad_b`` copy it dropped; returns one record per kernel.  ``full``:
     the streamed (tensor-core) kernel also on all-positive operands, |A|
-    and |B|."""
+    and |B|, and through the entry point on a flagged B, its gated exact
+    kernel walking every tile (:func:`flagged_check`), timed."""
     b = dense_operands(plan.shape[1], k, seed)[0]
     bp = banded.pad_b(plan, b)
     c_p = banded.band_spmm_reference(plan.panels, bp)
@@ -1137,10 +1203,13 @@ def band_spmm_case(name, plan, k, seed, rates, card, csr=None,
               + bp.numel() * 4 + rows * k * 4)
     b_ms, b_by = bound(nbytes, 2 * rows * w * k, rates)
     tc_ms, tc_by = tc_bound(nbytes, 2 * rows * w * k, rates)
+    # the tensor-core kernel tests B against the panels' largest
+    # magnitude, cached on the plan as the entry point has it
+    stream = functools.partial(banded.band_spmm_stream_padded,
+                               amax=plan.tf32_amax)
     if full:
         pos = (plan.panels.abs(), bp.abs())
-        _, pos_ratio = limit_check(banded.band_spmm_stream_padded(*pos),
-                                   absd, absd)
+        _, pos_ratio = limit_check(stream(*pos), absd, absd)
         log(f"[check] band_spmm_stream {name} all-positive: in bound, "
             f"err / limit {pos_ratio:.4f}")
         del pos
@@ -1153,8 +1222,9 @@ def band_spmm_case(name, plan, k, seed, rates, card, csr=None,
     for kname, fn, fused in (
             ("band_spmm", banded.band_spmm_padded,
              banded.band_spmm_inplace),
-            ("band_spmm_stream", banded.band_spmm_stream_padded,
-             banded.band_spmm_stream_inplace)):
+            ("band_spmm_stream", stream,
+             functools.partial(banded.band_spmm_stream_inplace,
+                               amax=plan.tf32_amax))):
         c_k = fn(plan.panels, bp)
         torch.cuda.synchronize()
         err, ratio = limit_check(c_k, c_p, absd)
@@ -1186,6 +1256,23 @@ def band_spmm_case(name, plan, k, seed, rates, card, csr=None,
                      "card": card})
         if full and kname == "band_spmm_stream":
             recs[-1]["all_positive_err_over_limit"] = pos_ratio
+            row = plan.shape[1] // 2
+            bf = flag_b(b, row)
+            bfp = banded.pad_b(plan, bf)
+            ratio_f, ms_f = flagged_check(
+                kname, name, banded.band_spmm_stream_padded,
+                lambda: banded.band_spmm_stream(plan, bf),
+                lambda: banded.band_spmm_inplace(plan.panels, bf,
+                                                 plan.pad_l, m),
+                banded.band_spmm_reference(plan.panels, bfp)[:m],
+                banded.band_spmm_reference(plan.panels.abs(),
+                                           bfp.abs())[:m],
+                inplace, replicas(lambda: (plan.panels.clone(),
+                                           flag_b(b, row)), nbytes))
+            recs[-1].update(flagged_err_over_limit=ratio_f,
+                            flagged_inplace_ms=ms_f,
+                            exact_inplace_ms=recs[0]["inplace_ms"])
+            del bf, bfp
     del ins, ins_b, c_p, absd, bp
     torch.cuda.empty_cache()
     return recs
@@ -1333,8 +1420,10 @@ def bsr_cases(name, a, csr, k, seed, rates, card, spmv=True, spmm=True,
     SpMV also runs 10 times on one input for the same bits, and on x cut
     one entry short (read in place, as a zero past its end) and on an x
     one element off 16-byte alignment (one-element loads).  ``full``:
-    ``bsr_spmm`` also on all-positive operands, |values| and |B|, and 10
-    times on one input for the same bits."""
+    ``bsr_spmm`` also on all-positive operands, |values| and |B|, 10
+    times on one input for the same bits, its FMA kernel timed alone, and
+    on a flagged B, its gated FMA kernel behind it
+    (:func:`flagged_check`), timed."""
     v, rp, ci = a.values, a.block_rowptr, a.block_colind
     nnzb = a.nnz_blocks
     bh, bw = a.block_shape
@@ -1401,7 +1490,7 @@ def bsr_cases(name, a, csr, k, seed, rates, card, spmv=True, spmm=True,
     b = dense_operands(a.shape[1], k, seed + 1)[0]
     # the f32 kernel's column list, as the main path keeps it on the BSR
     spmm = functools.partial(bk.bsr_spmm_blocks,
-                             column_order=a.column_order)
+                             column_order=a.column_order, amax=a.tf32_amax)
     c_k = spmm(v, rp, ci, b)
     torch.cuda.synchronize()
     absd = bk.bsr_spmm_reference(v.abs(), rp, ci, b.abs())
@@ -1428,7 +1517,24 @@ def bsr_cases(name, a, csr, k, seed, rates, card, spmv=True, spmm=True,
                    nbytes)
     k_ms = device_ms(spmm, ins)
     p_ms = device_ms(bk.bsr_spmm_reference, ins)
-    del ins
+    if full:
+        fma = functools.partial(bk.bsr_spmm_blocks, tc=False)
+        extra["fma_ms"] = device_ms(fma, ins)
+        row = int(ci[0]) * bw
+        bf = flag_b(b, row)
+        del ins
+        extra["flagged_err_over_limit"], extra["flagged_ms"] = \
+            flagged_check("bsr_spmm", f"{name} k={k}", bk.bsr_spmm_blocks,
+                          lambda: spmm(v, rp, ci, bf),
+                          lambda: fma(v, rp, ci, bf),
+                          bk.bsr_spmm_reference(v, rp, ci, bf),
+                          bk.bsr_spmm_reference(v.abs(), rp, ci, bf.abs()),
+                          spmm, replicas(lambda: (
+                              v.clone(), rp.clone(), ci.clone(),
+                              flag_b(b, row)), nbytes))
+        del bf
+    else:
+        del ins
     recs.append({"kernel": "bsr_spmm", "case": f"{name}_k{k}",
                  "m": a.shape[0], "n": a.shape[1], "k": k, "block": [bh, bw],
                  "nnz_blocks": nnzb,
@@ -1445,14 +1551,14 @@ def bsr_cases(name, a, csr, k, seed, rates, card, spmv=True, spmm=True,
 def budget_check(name, a, b):
     """The f32 ``bsr_spmm`` past a slot-scratch budget lowered for the run:
     column phases of 64 columns, then ranges of block rows as well, each
-    bit-equal to the unsplit call, two launches a cut.  Returns the cut
-    counts."""
+    bit-equal to the unsplit call, two launches a cut and one gated
+    exact launch for the call.  Returns the cut counts."""
     v, rp, ci = a.values, a.block_rowptr, a.block_colind
     cap, bh, _ = v.shape
     k = int(b.shape[1])
     ncb = -(-int(b.shape[0]) // a.block_shape[1])
     spmm = functools.partial(bk.bsr_spmm_blocks,
-                             column_order=a.column_order)
+                             column_order=a.column_order, amax=a.tf32_amax)
     whole = spmm(v, rp, ci, b)
     per_phase = cap * bh * 4 * 64          # every slot at 64 columns
     saved = bk.SPMM_SCRATCH_BYTES
@@ -1464,9 +1570,12 @@ def budget_check(name, a, b):
             cuts = bk.spmm_phases(rp, ci, *a.column_order, cap, bh, k, ncb)
             require(len(cuts) > 1, f"bsr_spmm {name}: {label} made one cut")
             before = bk.bsr_spmm_blocks.launches
+            gated = bk.bsr_spmm_blocks.gated
             got = spmm(v, rp, ci, b)
             torch.cuda.synchronize()
-            require(bk.bsr_spmm_blocks.launches - before == 2 * len(cuts),
+            # two a cut, and one gated exact launch for the call
+            require(bk.bsr_spmm_blocks.launches - before == 2 * len(cuts)
+                    and bk.bsr_spmm_blocks.gated == gated + 1,
                     f"bsr_spmm {name} {label}: launches")
             require(torch.equal(got, whole),
                     f"bsr_spmm {name} {label}: differs from the unsplit call")
@@ -1527,46 +1636,79 @@ def low_end_check(kname, gated, gate_args, tc, tc_args, ref, ref_args):
     return ratio, tc_ratio
 
 
+def flag_path(wrapper):
+    """The path the last tensor-core call of ``wrapper`` took: its flag
+    (``wrapper.flag``, read here, after the call) up means the gated
+    exact kernel rewrote C."""
+    return "exact" if int(wrapper.flag.item()) else "tensor cores"
+
+
+def overflow_check(kname, fn, args, ref, ref_args, absd):
+    """Finite operands whose products pass FLT_MAX (all-positive A, B's
+    columns of alternating sign, so no sum cancels), through the entry
+    point: the result's infinities, their signs and its NaNs are the
+    plain version's, and its finite entries within 64 eps (|A| |B|).
+    Returns the number of infinities."""
+    y = fn(*args)
+    torch.cuda.synchronize()
+    yp = ref(*ref_args)
+    inf = torch.isinf(yp)
+    require(bool(inf.any()), f"{kname} overflow: no product passed FLT_MAX")
+    require(torch.equal(torch.isnan(y), torch.isnan(yp))
+            and torch.equal(torch.isinf(y), inf)
+            and torch.equal(torch.sign(y[inf]), torch.sign(yp[inf])),
+            f"{kname} overflow: infinities or NaNs differ from the plain "
+            f"version")
+    fin = torch.isfinite(yp)
+    if bool(fin.any()):
+        limit_check(y[fin], yp[fin], absd[fin])
+    return int(inf.sum())
+
+
 def b_side_limits(kname, entry, ref, a_hi, a_big, b, wrapper, per):
     """The dense B at the edges of the f32 range, through the entry
-    point, which does not test B (``csrc/tf32_mma.cuh``, Limits) and runs
-    the tensor-core kernel (``wrapper`` adds ``per`` a call): A scaled by
-    2^120 (all positive) against B scaled by 2^-120 must stay finite, its
-    err / limit is measured; A scaled by 2^16 against pairs of B rows of
-    +inf and -inf must give the plain version's infinities and NaNs but
-    where a NaN stands for one of its infinities, which are counted.
-    Returns (err / limit, those NaNs)."""
-    before = wrapper.launches
+    point, held: the tensor-core kernel (``wrapper`` adds ``per`` a call
+    to its ``launches``, and one to its ``gated``) tests B as it splits it and raises the call's flag, and the gated
+    exact kernel behind it then rewrites C (``csrc/tf32_mma.cuh``,
+    Limits).  A scaled by 2^120 (all positive) against B scaled by
+    2^-120: finite, within 64 eps (|A| |B|); A scaled by 2^16 against
+    pairs of B rows of +inf and -inf: the plain version's infinities
+    (with its signs) and NaNs, no NaN where it has an infinity.  Each
+    call must raise the flag.  Returns (err / limit, NaNs at the plain
+    version's infinities)."""
+    before, gated = wrapper.launches, wrapper.gated
     b_lo = b * 2.0 ** -120
     yp = ref(a_hi, b_lo)
     y = entry(a_hi, b_lo)
     torch.cuda.synchronize()
+    require(flag_path(wrapper) == "exact",
+            f"{kname} B 2^-120: the flag did not rise")
     require(bool(torch.isfinite(y).all()), f"{kname} B 2^-120: not finite")
-    lim = 64 * EPS32 * yp.double()
-    ratio = float(((_wide(y) - _wide(yp)).abs()[lim > 0]
-                   / lim[lim > 0]).max())
+    _, ratio = limit_check(y, yp, yp)
     b_inf = b.clone()
     b_inf[500::1000] = float("inf")
     b_inf[501::1000] = -float("inf")
     yp = ref(a_big, b_inf)
     y = entry(a_big, b_inf)
     torch.cuda.synchronize()
-    require(wrapper.launches == before + 2 * per,
-            f"{kname} B edges: not run on the tensor-core kernel")
+    require(flag_path(wrapper) == "exact",
+            f"{kname} B inf: the flag did not rise")
+    require(wrapper.launches == before + 2 * per
+            and wrapper.gated == gated + 2,
+            f"{kname} B edges: not run on the tensor-core kernel with the "
+            f"gated exact kernel behind it")
     inf = torch.isinf(yp)
-    corner = torch.isnan(y) & inf
+    nans = int((torch.isnan(y) & inf).sum())
     require(bool(inf.any()) and bool(torch.isnan(yp).any())
-            and torch.equal(torch.isnan(y) & ~corner, torch.isnan(yp))
-            and torch.equal(torch.isinf(y), inf & ~corner)
-            and torch.equal(torch.sign(y[inf & ~corner]),
-                            torch.sign(yp[inf & ~corner])),
-            f"{kname} B inf: infinities or NaNs differ from the plain "
-            f"version other than NaN for an infinity")
-    nans = int(corner.sum())
-    log(f"[edge] {kname} B 2^-120 against A 2^120 (B not tested): err / "
-        f"limit {ratio:.4f}; B infinities against A 2^16: NaN at {nans} "
-        f"of the plain version's {int(inf.sum())} infinities, the rest "
-        f"as the plain version")
+            and torch.equal(torch.isnan(y), torch.isnan(yp))
+            and torch.equal(torch.isinf(y), inf)
+            and torch.equal(torch.sign(y[inf]), torch.sign(yp[inf])),
+            f"{kname} B inf: {nans} NaNs where the plain version has an "
+            f"infinity, or other infinities or NaNs")
+    log(f"[edge] {kname} B 2^-120 against A 2^120: flag up, exact kernel, "
+        f"err / limit {ratio:.4f}; B infinities against A 2^16: flag up, "
+        f"{int(inf.sum())} infinities and {int(torch.isnan(yp).sum())} "
+        f"NaNs as the plain version, {nans} NaNs for an infinity")
     return ratio, nans
 
 
@@ -1574,10 +1716,15 @@ def edges_phase():
     """The three 3xTF32 kernels (``band_spmm_stream``, the f32
     ``bsr_spmm``, the f32 ``bsr_spgemm``) at the edges of the f32 range:
     A with +-FLT_MAX entries (one a row of C, against factors below 1/2)
-    and infinite A entries against B rows with zeros, on the kernels; A
-    scaled by 2^-120 against B scaled by 2^120 through the entry points,
-    whose ``tf32_exact`` gate routes it to an exact kernel.  Returns
-    {kernel: {mode: err / limit}}."""
+    and infinite A entries against B rows with zeros, on the kernels, the
+    dense B within the test's limit for A's finite values (the flag stays
+    down); A scaled by 2^-120 against B scaled by 2^120 through the entry
+    points, whose ``tf32_exact`` gate routes it to an exact kernel; the
+    dense B at 2^-120 and infinite against large A (``b_side_limits``)
+    and finite operands whose products pass FLT_MAX (``overflow_check``)
+    through the entry points, where the kernels' test of B (the block
+    SpGEMM's host test of both maxima) sends them to the exact kernels.
+    Returns {kernel: {mode: err / limit, or a count}}."""
     fmax = torch.finfo(torch.float32).max
     out = {}
     # the band: panel column W // 2 (inside the band) of every row
@@ -1595,36 +1742,60 @@ def edges_phase():
     bz = b.clone()
     bz[::5] = 0.0
     bp, bzp = banded.pad_b(plan, b), banded.pad_b(plan, bz)
-    fn, ref = banded.band_spmm_stream_padded, banded.band_spmm_reference
+    stream, ref = banded.band_spmm_stream_padded, banded.band_spmm_reference
+    # A's infinities are the entry point's gate to route (tf32_exact); the
+    # kernel is held on them with B tested against A's finite values
+    fin = functools.partial(stream, amax=float(pan.max()))
     out["band_spmm_stream"] = {
-        "flt_max": edge_check("band_spmm_stream", "flt_max", fn, ref,
+        "flt_max": edge_check("band_spmm_stream", "flt_max",
+                              functools.partial(stream, amax=fmax), ref,
                               (big, bp), (big.abs(), bp)),
-        "inf": edge_check("band_spmm_stream", "inf", fn, ref, (inf, bzp),
+        "inf": edge_check("band_spmm_stream", "inf", fin, ref, (inf, bzp),
                           None)}
+    require(flag_path(stream) == "tensor cores",
+            "band edges: the flag rose on a B inside the limit")
     lo_plan = dataclasses.replace(plan, panels=pan * 2.0 ** -120)
     require(not lo_plan.tf32_exact, "band 2^-120: the gate did not fire")
     b_hi = b * 2.0 ** 120
     bp_hi = banded.pad_b(lo_plan, b_hi)
     m = plan.shape[0]
-    before = banded.band_spmm_padded.launches
+    before, gated = banded.band_spmm_padded.launches, stream.gated
     out["band_spmm_stream"]["2^-120x2^120"], \
         out["band_spmm_stream"]["2^-120x2^120_tc"] = low_end_check(
             "band_spmm_stream", banded.band_spmm_stream, (lo_plan, b_hi),
-            fn, (lo_plan.panels, bp_hi),
+            functools.partial(stream, amax=float(lo_plan.panels.max())),
+            (lo_plan.panels, bp_hi),
             lambda p, bb: ref(p, bb)[:m],
             (lo_plan.panels, bp_hi))
-    require(banded.band_spmm_padded.launches == before + 1,
+    # the gate's FMA launch, and the tensor-core call's gated one
+    require(banded.band_spmm_padded.launches == before + 1
+            and stream.gated == gated + 1,
             "band 2^-120: not routed to the FMA kernel")
     hi_plan = dataclasses.replace(plan, panels=pan * 2.0 ** 120)
     big_plan = dataclasses.replace(plan, panels=plan.panels * 2.0 ** 16)
     require(hi_plan.tf32_exact and big_plan.tf32_exact,
             "band B edges: the panels' gate fired")
+    full = lambda p, bb: ref(p.panels, banded.pad_b(p, bb))[:m]  # noqa: E731
     out["band_spmm_stream"].update(zip(
         ("B_2^-120", "B_inf_nans"), b_side_limits(
-            "band_spmm_stream", banded.band_spmm_stream,
-            lambda p, bb: ref(p.panels, banded.pad_b(p, bb))[:m],
-            hi_plan, big_plan, b, banded.band_spmm_stream_padded, 1)))
-    del a, plan, lo_plan, hi_plan, big_plan, pan, big, inf, bp, bzp, bp_hi
+            "band_spmm_stream", banded.band_spmm_stream, full, hi_plan,
+            big_plan, b, stream, 1)))
+    # finite products past FLT_MAX: |A| 2^64 against B 2^70, B's columns
+    # of alternating sign
+    sign = 1.0 - 2.0 * (torch.arange(b.shape[1], device=DEVICE) % 2)
+    ov_plan = dataclasses.replace(plan, panels=pan * 2.0 ** 64)
+    b_ov = (b + 0.25) * sign * 2.0 ** 70
+    out["band_spmm_stream"]["overflow_infs"] = overflow_check(
+        "band_spmm_stream", banded.band_spmm_stream, (ov_plan, b_ov), full,
+        (ov_plan, b_ov), full(dataclasses.replace(
+            ov_plan, panels=ov_plan.panels.abs()), b_ov.abs()))
+    require(flag_path(stream) == "exact",
+            "band overflow: the flag did not rise")
+    log(f"[edge] band_spmm_stream products past FLT_MAX: flag up, exact "
+        f"kernel, {out['band_spmm_stream']['overflow_infs']} infinities "
+        f"as the plain version")
+    del a, plan, lo_plan, hi_plan, big_plan, ov_plan, pan, big, inf, bp, \
+        bzp, bp_hi
     # BSR SpMM: column 64 of the first block of each block row
     a = random_bsr(512, 64, 4, (8, 128), 0, 143)
     v, rp, ci = a.values.abs(), a.block_rowptr, a.block_colind
@@ -1638,33 +1809,50 @@ def edges_phase():
     inf[first[1::3], :, 64] = -float("inf")
     bz = b.clone()
     bz[64::7] = 0.0
-    fn = functools.partial(bk.bsr_spmm_blocks, column_order=a.column_order)
+    blocks = bk.bsr_spmm_blocks
+    fn = functools.partial(blocks, column_order=a.column_order)
     ref = bk.bsr_spmm_reference
     out["bsr_spmm"] = {
-        "flt_max": edge_check("bsr_spmm", "flt_max", fn, ref,
+        "flt_max": edge_check("bsr_spmm", "flt_max",
+                              functools.partial(fn, amax=fmax), ref,
                               (big, rp, ci, b), (big.abs(), rp, ci, b)),
-        "inf": edge_check("bsr_spmm", "inf", fn, ref, (inf, rp, ci, bz),
-                          None)}
+        "inf": edge_check("bsr_spmm", "inf",
+                          functools.partial(fn, amax=float(v.max())), ref,
+                          (inf, rp, ci, bz), None)}
+    require(flag_path(blocks) == "tensor cores",
+            "bsr edges: the flag rose on a B inside the limit")
     a_lo = dataclasses.replace(a, values=v * 2.0 ** -120)
     require(not a_lo.tf32_exact, "bsr 2^-120: the gate did not fire")
     b_hi = b * 2.0 ** 120
-    before = bk.bsr_spmm_blocks.launches
+    before, gated = blocks.launches, blocks.gated
     out["bsr_spmm"]["2^-120x2^120"], out["bsr_spmm"]["2^-120x2^120_tc"] = \
-        low_end_check("bsr_spmm", bk.bsr_spmm, (a_lo, b_hi), fn,
+        low_end_check("bsr_spmm", bk.bsr_spmm, (a_lo, b_hi),
+                      functools.partial(fn, amax=a_lo.tf32_amax),
                       (a_lo.values, rp, ci, b_hi), ref,
                       (a_lo.values, rp, ci, b_hi))
-    require(bk.bsr_spmm_blocks.launches == before + 3,
+    # the gate's FMA launch; the tensor-core call's two and its gated one
+    require(blocks.launches == before + 3 and blocks.gated == gated + 1,
             "bsr 2^-120: not routed to the FMA kernel (1 launch)")
     a_hi = dataclasses.replace(a, values=v * 2.0 ** 120)
     a_big = dataclasses.replace(a, values=a.values * 2.0 ** 16)
     require(a_hi.tf32_exact and a_big.tf32_exact,
             "bsr B edges: the blocks' gate fired")
+    full = lambda o, bb: ref(o.values, rp, ci, bb)  # noqa: E731
     out["bsr_spmm"].update(zip(
         ("B_2^-120", "B_inf_nans"), b_side_limits(
-            "bsr_spmm", bk.bsr_spmm,
-            lambda o, bb: ref(o.values, rp, ci, bb), a_hi, a_big, b,
-            bk.bsr_spmm_blocks, 2)))
-    del a, a_hi, a_big, v, big, inf, b, bz
+            "bsr_spmm", bk.bsr_spmm, full, a_hi, a_big, b, blocks, 2)))
+    sign = 1.0 - 2.0 * (torch.arange(b.shape[1], device=DEVICE) % 2)
+    a_ov = dataclasses.replace(a, values=v * 2.0 ** 64)
+    b_ov = (b + 0.25) * sign * 2.0 ** 70
+    out["bsr_spmm"]["overflow_infs"] = overflow_check(
+        "bsr_spmm", bk.bsr_spmm, (a_ov, b_ov), full, (a_ov, b_ov),
+        ref(a_ov.values, rp, ci, b_ov.abs()))
+    require(flag_path(blocks) == "exact",
+            "bsr overflow: the flag did not rise")
+    log(f"[edge] bsr_spmm products past FLT_MAX: flag up, exact kernel, "
+        f"{out['bsr_spmm']['overflow_infs']} infinities as the plain "
+        f"version")
+    del a, a_hi, a_big, a_ov, v, big, inf, b, bz
     # block SpGEMM: column 64 of A's first block in each block row meets
     # each B block of that block column once
     a = random_bsr(16, 16, 4, (128, 128), 0, 145)
@@ -1697,6 +1885,21 @@ def edges_phase():
             "bsr_spgemm", lambda *p: bsg.bsr_spgemm_numeric(*p).values[:nc],
             (plan, a_lo, b_hi), fn, args + (a_lo.values, b_hi.values), ref,
             args + (a_lo.values, b_hi.values))
+    # finite products past FLT_MAX: both operands sparse, so the host's
+    # test of the two cached maxima sends them to the f64 kernel
+    a_ov = dataclasses.replace(a, values=av * 2.0 ** 64)
+    sgn = 1.0 - 2.0 * (torch.arange(128, device=DEVICE) % 2)
+    b_ov = dataclasses.replace(bb, values=(bv + 0.25) * sgn * 2.0 ** 70)
+    require(a_ov.tf32_exact and b_ov.tf32_exact and not
+            _t.tf32_products_safe(a_ov.tf32_amax, b_ov.tf32_amax),
+            "bsr_spgemm overflow: the host test did not fire")
+    out["bsr_spgemm"]["overflow_infs"] = overflow_check(
+        "bsr_spgemm", lambda *p: bsg.bsr_spgemm_numeric(*p).values[:nc],
+        (plan, a_ov, b_ov), ref, args + (a_ov.values, b_ov.values),
+        ref(*args, a_ov.values, b_ov.values.abs()))
+    log(f"[edge] bsr_spgemm products past FLT_MAX: the host test sends "
+        f"them to the f64 kernel, {out['bsr_spgemm']['overflow_infs']} "
+        f"infinities as the plain version")
     torch.cuda.empty_cache()
     emit({"edges": out})
     return out
@@ -1800,8 +2003,7 @@ def main_path(name, a, kind, seed, card, ref=None):
     cx = a.dtype.is_complex
     x = gen.generate_vector(a.shape[1], seed=seed, complex_=cx)
     opt = sp.matrix_opt(a)
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     y = sp.multiply(sp.scaled(2.0, opt), x)
     torch.cuda.synchronize()
@@ -1873,8 +2075,7 @@ def main_path_spmm(name, a, kind, k, seed, card, opt=None, expect=None):
                                                             else 4))))
     bs = dense_operands(n, k, seed, cx, count)
     opt = opt if opt is not None else sp.matrix_opt(a)
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     c = sp.multiply(sp.scaled(2.0, opt), bs[0])
     torch.cuda.synchronize()
@@ -2158,8 +2359,7 @@ def spgemm_main(name, a, kind, expect, rates, card, deferred):
         finally:
             build["s"] = time.perf_counter() - t
 
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_launches()
     a0 = dataclasses.replace(a, values=vals[0])
     spgemm_ops._try_build_route = timed_build
     try:
@@ -2294,8 +2494,7 @@ def bsr_spgemm_main(name, a, b, card):
     around the first call, C held per entry against the float64 plain
     sums, then 20 calls over distinct A values timed, host (the block
     symbolic phase) included."""
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     c = sp.multiply(sp.scaled(2.0, a), b)
     torch.cuda.synchronize()
@@ -2706,8 +2905,7 @@ def trsv_main(name, a, kind, levels, rates, card):
         require(plan.num_levels == levels,
                 f"{name}: {plan.num_levels} levels, want {levels}")
     bs = [gen.generate_vector(m, seed=200 + i) for i in range(4)]
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     x = sp.triangular_solve(sp.scaled(2.0, a), bs[0], info=info)
     torch.cuda.synchronize()
@@ -2826,8 +3024,7 @@ def power_phase(rates, card):
                          rates, card, csr=csr, plan=plan)
     x = gen.generate_vector(m, seed=123)
     xp = banded.pad_x(plan, x)
-    for w in WRAPPERS.values():
-        w.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     y = banded.band_power_iterations(plan, x, iters)
     torch.cuda.synchronize()
@@ -3226,6 +3423,435 @@ def algebra_phase(head, u300, u1m, rates, card):
     return [t_main, s_main, d_main], t_kernel, s_kernel, d_kernel
 
 
+# ------------------------------------------------------------------ #
+# phase F: the solvers, the band SpMV's gradient, the Matrix Market
+# files and plan files
+# ------------------------------------------------------------------ #
+
+SOLVER_TOL = 1e-6
+SOLVER_MAXITER = 200
+JACOBI_ITERS = 20
+POWER_ITERS = 100
+# S's condition number that sigma aims at (cg then takes tens of
+# iterations), and the power steps that estimate H's extreme eigenvalues
+SPD_KAPPA = 10
+SPECTRUM_ITERS = 200
+AD_REPS = 5
+# the checked-in benchmark matrices (data/*.mtx.gz, generator exports)
+DATA_FILES = ("fem2d_128", "stencil3d_32", "rmat_32k", "fem2d_512",
+              "powerlaw_64k")
+# kind -> the SpMV kernel its plan launches, for the solver records
+SOLVER_KERNELS = {"band": "band_spmv", "dia": "dia_spmv"}
+
+
+def diagonal(a):
+    """The diagonal of a square CSR on the card, f32."""
+    rows = a.row_ids()[:a.nnz].long()
+    on = a.colind[:a.nnz].long() == rows
+    return torch.zeros(a.shape[0], device=DEVICE).index_add_(
+        0, rows[on], a.values[:a.nnz][on].float())
+
+
+def spd_operator(a):
+    """S = H + sigma I, H = (A + A^T) / 2, by the sparse algebra ops
+    (transpose, scale, add), sigma set from H's spectrum so that S's
+    condition number is about SPD_KAPPA: cg then takes tens of
+    iterations.  H's extreme eigenvalues are estimated by
+    ``solvers.power_method`` (SPECTRUM_ITERS steps) on H shifted by its
+    Gershgorin bounds c_lo <= lambda <= c_hi: c_hi I - H and H - c_lo I
+    are positive semidefinite, with dominant eigenvalues c_hi - lambda_min
+    and lambda_max - c_lo (the Rayleigh quotient falls short of each, so
+    S's true condition number is somewhat above the aim).  Returns (S,
+    sigma, (lambda_min, lambda_max), whether S is strictly diagonally
+    dominant)."""
+    m = a.shape[0]
+    h = sp.add(sp.scale(0.5, a), sp.scale(0.5, sp.transpose(a)))
+    d = diagonal(h)
+    off = sp.multiply(dataclasses.replace(h, values=h.values.abs()),
+                      torch.ones(m, device=DEVICE)) - d.abs()
+    c_hi, c_lo = float((d + off).max()), float((d - off).min())
+    lam_min = c_hi - float(solvers.power_method(
+        lambda v: c_hi * v - sp.spmv(h, v), m,
+        iters=SPECTRUM_ITERS).eigenvalue)
+    lam_max = c_lo + float(solvers.power_method(
+        lambda v: sp.spmv(h, v) - c_lo * v, m,
+        iters=SPECTRUM_ITERS).eigenvalue)
+    sigma = (lam_max - SPD_KAPPA * lam_min) / (SPD_KAPPA - 1)
+    dominant = bool(((d + sigma).abs() > off).all())
+    return (sp.add(h, sp.scale(sigma, identity_csr(m))), sigma,
+            (lam_min, lam_max), dominant)
+
+
+def timed(fn):
+    """(result, ms) of one call between CUDA events, host included."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return out, e0.elapsed_time(e1)
+
+
+def plan_bytes(plan) -> int:
+    """Bytes of a band or DIA plan's values, read once an SpMV."""
+    t = plan.panels if hasattr(plan, "panels") else plan.diags
+    return t.numel() * t.element_size()
+
+
+def cg_case(name, op, kind, seed, rates, card):
+    """``solvers.cg`` on ``matrix_opt(S)``: every SpMV on the plan's
+    kernel (its launches are 1 + the iterations the loop ran, the frozen
+    ones past convergence included), the card's x held in float64 to
+    ||b - S x|| <= 10 tol ||b||, its iteration count within 10 % of a
+    float64 ``cg`` on the base path; ms an iteration beside the bound:
+    one SpMV's bytes (the plan's values, x, y) and the vector ops' (12 m
+    floats: p.Ap, the x and r updates, r.r, the p update) at the card's
+    memory rate, per counted iteration and per iteration run (the frozen
+    ones to the next host read of the flag included).  ``op`` is
+    :func:`spd_operator`'s result."""
+    s, sigma, (lam_min, lam_max), dominant = op
+    m = s.shape[0]
+    kname = SOLVER_KERNELS[kind]
+    opt = sp.matrix_opt(s)
+    b = gen.generate_vector(m, seed=seed)
+    t0 = time.perf_counter()
+    sp.multiply(opt, b)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    got, plan = opt._plans["matvec"]
+    require(got == kind, f"{name}: chooser picked {got!r}, want {kind!r}")
+    solvers.cg(opt, b, tol=SOLVER_TOL, maxiter=2)   # warm-up: first loads
+    torch.cuda.synchronize()
+    reset_launches()
+    res, ms = timed(lambda: solvers.cg(opt, b, tol=SOLVER_TOL,
+                                       maxiter=SOLVER_MAXITER))
+    launches = read_launches(kind)
+    k = int(res.iterations)
+    ran = min(SOLVER_MAXITER,
+              solvers.CHECK_EVERY * math.ceil(k / solvers.CHECK_EVERY))
+    require(0 < k < SOLVER_MAXITER, f"{name}: cg ran {k} iterations")
+    require(launches[kname] == 1 + ran,
+            f"{name}: {launches[kname]} {kname} launches for {1 + ran} "
+            f"SpMVs")
+    s64 = dataclasses.replace(s, values=s.values.double())
+    b64 = b.double()
+    rel = float(torch.linalg.norm(b64 - sp.spmv(s64, res.x.double()))
+                / torch.linalg.norm(b64))
+    require(rel <= 10 * SOLVER_TOL,
+            f"{name}: true residual {rel:.3e} past 10 tol")
+    ref = solvers.cg(s64, b64, tol=SOLVER_TOL, maxiter=SOLVER_MAXITER)
+    k64 = int(ref.iterations)
+    require(abs(k - k64) <= max(1, 0.1 * k64),
+            f"{name}: {k} iterations against float64's {k64}")
+    nbytes = plan_bytes(plan) + 2 * m * 4 + 12 * m * 4
+    b_ms = nbytes / rates[0] * 1e3
+    rec = {"main_path": f"{name}_cg", "op": "solver", "solver": "cg",
+           "kind": kind, "kernels": [kname], "m": m, "nnz": s.nnz,
+           "launches": launches, "iterations": k, "iterations_run": ran,
+           "iterations_f64": k64, "true_residual_f64": rel,
+           "sigma": sigma, "h_lambda_min_est": lam_min,
+           "h_lambda_max_est": lam_max, "kappa_aim": SPD_KAPPA,
+           "diag_dominant": dominant,
+           "tol": SOLVER_TOL, "first_call_s": first_s, "ms": ms,
+           "ms_per_iteration": ms / ran,
+           "ms_per_counted_iteration": ms / k, "bound_ms_per_iteration": b_ms,
+           "bound_by": "bytes", "card": card}
+    log(f"[solver] {name} cg (sigma {sigma:.4f}, H's spectrum about "
+        f"[{lam_min:.4f}, {lam_max:.4f}], diagonally dominant {dominant}): "
+        f"{k} iterations ({ran} run, float64 {k64}), true residual "
+        f"{rel:.3e}, {ms / k:.4f} ms a counted iteration, {ms / ran:.4f} "
+        f"ms an iteration run, against {b_ms:.4f}; {card}")
+    emit(rec)
+    return rec, opt, b
+
+
+def jacobi_case(name, s, opt, b, card):
+    """``solvers.jacobi`` on the same operator, JACOBI_ITERS steps: one
+    launch of the plan's kernel a step, the card's x held to the float64
+    run's per entry within 64 eps (|D^-1| (|S| |x| + |b|) + |x|) (the
+    rounding of a step, carried by an iteration matrix of norm below 1,
+    S being strictly diagonally dominant), and its residual falling as
+    the float64 run's does."""
+    m = s.shape[0]
+    kind = opt._plans["matvec"][0]
+    kname = SOLVER_KERNELS[kind]
+    d = diagonal(s)
+    solvers.jacobi(opt, b, d, iters=1)               # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    x, ms = timed(lambda: solvers.jacobi(opt, b, d, iters=JACOBI_ITERS))
+    launches = read_launches(kind)
+    require(launches[kname] == JACOBI_ITERS,
+            f"{name}: {launches[kname]} {kname} launches for "
+            f"{JACOBI_ITERS} steps")
+    s64 = dataclasses.replace(s, values=s.values.double())
+    b64 = b.double()
+    x64 = solvers.jacobi(s64, b64, d.double(), iters=JACOBI_ITERS)
+    sabs = dataclasses.replace(s, values=s.values.abs().double())
+    lim = 64 * EPS32 * ((sp.spmv(sabs, x64.abs()) + b64.abs())
+                        / d.double().abs() + x64.abs())
+    err = (x.double() - x64).abs()
+    require(bool((err <= lim).all()),
+            f"{name} jacobi: {int((err > lim).sum())} entries off the "
+            f"float64 run")
+    r32 = float(torch.linalg.norm(b64 - sp.spmv(s64, x.double())))
+    r64 = float(torch.linalg.norm(b64 - sp.spmv(s64, x64)))
+    r0 = float(torch.linalg.norm(b64))
+    slack = 64 * EPS32 * float(torch.linalg.norm(sp.spmv(sabs, x64.abs())
+                                                 + b64.abs()))
+    require(r32 <= r64 + slack,
+            f"{name} jacobi: residual {r32:.3e} against float64's {r64:.3e}")
+    rec = {"main_path": f"{name}_jacobi", "op": "solver",
+           "solver": "jacobi", "kind": kind, "kernels": [kname], "m": m,
+           "launches": launches, "iterations": JACOBI_ITERS,
+           "residual": r32 / r0, "residual_f64": r64 / r0,
+           "max_err_over_limit": float((err / lim).max()), "ms": ms,
+           "ms_per_iteration": ms / JACOBI_ITERS, "card": card}
+    log(f"[solver] {name} jacobi: residual {r32 / r0:.3e} (float64 "
+        f"{r64 / r0:.3e}), {ms / JACOBI_ITERS:.4f} ms a step; {card}")
+    emit(rec)
+    return rec
+
+
+def power_case(name, s, opt, card):
+    """``solvers.power_method`` on matrix_opt(S), POWER_ITERS steps: the
+    plan's kernel once a step and once for the Rayleigh quotient; the
+    eigenvalue within 1e-3 (relative) of float64 power iterations from
+    the same v0 (a generator seeded 0) on the base path."""
+    m = s.shape[0]
+    kind = opt._plans["matvec"][0]
+    kname = SOLVER_KERNELS[kind]
+    solvers.power_method(opt, m, iters=1)            # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    res, ms = timed(lambda: solvers.power_method(opt, m, iters=POWER_ITERS))
+    launches = read_launches(kind)
+    require(launches[kname] == POWER_ITERS + 1,
+            f"{name}: {launches[kname]} {kname} launches for power "
+            f"iterations")
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(0)
+    v = torch.randn(m, generator=g, device=DEVICE).double()
+    v = v / torch.linalg.norm(v)
+    s64 = dataclasses.replace(s, values=s.values.double())
+    for _ in range(POWER_ITERS):
+        w = sp.spmv(s64, v)
+        v = w / torch.clamp(torch.linalg.norm(w), min=1e-30)
+    lam64 = float(torch.dot(v, sp.spmv(s64, v)))
+    lam = float(res.eigenvalue)
+    rel = abs(lam - lam64) / abs(lam64)
+    require(rel <= 1e-3, f"{name}: eigenvalue {lam} against float64's "
+                         f"{lam64}")
+    rec = {"main_path": f"{name}_power", "op": "solver",
+           "solver": "power_method", "kind": kind, "kernels": [kname],
+           "m": m, "launches": launches, "iterations": POWER_ITERS,
+           "eigenvalue": lam, "eigenvalue_f64": lam64, "rel_err": rel,
+           "ms": ms, "ms_per_iteration": ms / (POWER_ITERS + 1),
+           "card": card}
+    log(f"[solver] {name} power_method: eigenvalue {lam:.6f} (float64 "
+        f"{lam64:.6f}, rel {rel:.2e}), {ms / (POWER_ITERS + 1):.4f} ms a "
+        f"step; {card}")
+    emit(rec)
+    return rec
+
+
+def band_ad_reference(panels, x, dy, pad_l, n):
+    """The band SpMV's backward in float64 (the JAX package's
+    ``_band_spmv_bwd``): dx the overlap-add of the panels' column sums
+    weighted by dy at stride 128, d(panels) the window outer products."""
+    rows, w = panels.shape
+    nblk = rows // 128
+    dyp = torch.nn.functional.pad(dy.double(), (0, rows - dy.shape[0]))
+    blocksum = (panels.double() * dyp[:, None]).view(nblk, 128, w).sum(1)
+    chunks = -(-w // 128)
+    bs = torch.nn.functional.pad(blocksum, (0, chunks * 128 - w))
+    acc = torch.zeros((nblk + chunks) * 128, dtype=torch.float64,
+                      device=panels.device)
+    for k in range(chunks):
+        acc[k * 128:(k + nblk) * 128] += bs[:, k * 128:(k + 1) * 128] \
+            .reshape(-1)
+    lx = rows - 128 + w
+    xp = torch.nn.functional.pad(x.double(), (pad_l, max(
+        0, lx - pad_l - n)))[:lx]
+    win = xp.unfold(0, w, 128)
+    return acc[pad_l:pad_l + n], (dyp.view(nblk, 128, 1)
+                                  * win[:, None, :]).reshape(rows, w)
+
+
+def band_ad_case(name, a, card):
+    """``band_spmv_ad`` on the headline band: the forward on the band
+    kernel (one launch), then dx and d(panels) of sum(w * y) held to the
+    float64 backward, per entry within 64 eps in the dot-product form
+    (|P|^T |w| for dx, |w| |x| for d(panels)); forward and backward
+    timed."""
+    plan = banded.build_band_plan(a)
+    m, n = plan.shape
+    x = gen.generate_vector(n, seed=171) / 50 - 1
+    wt = gen.generate_vector(m, seed=172) / 50 - 1
+    panels = plan.panels.clone().requires_grad_(True)
+    xg = x.clone().requires_grad_(True)
+    ad_plan = dataclasses.replace(plan, panels=panels)
+    reset_launches()
+    y = banded.band_spmv_ad(ad_plan, xg)
+    torch.cuda.synchronize()
+    require(banded.band_spmv_padded.launches == 1,
+            f"{name}: the forward made {banded.band_spmv_padded.launches} "
+            f"band_spmv launches")
+    (y * wt).sum().backward()
+    dx64, dp64 = band_ad_reference(plan.panels, x, wt, plan.pad_l, n)
+    ax, ap = band_ad_reference(plan.panels.abs(), x.abs(), wt.abs(),
+                               plan.pad_l, n)
+    dx_err, dx_ratio = limit_check(xg.grad, dx64, ax)
+    dp_err, dp_ratio = limit_check(panels.grad, dp64, ap)
+    del dx64, dp64, ax, ap
+    fwd, bwd = [], []
+    for _ in range(AD_REPS):
+        panels.grad = xg.grad = None
+        y, f_ms = timed(lambda: banded.band_spmv_ad(ad_plan, xg))
+        _, b_ms = timed(lambda: (y * wt).sum().backward())
+        fwd.append(f_ms)
+        bwd.append(b_ms)
+    rec = {"case": f"{name}_band_spmv_ad", "m": m, "width": plan.width,
+           "launches_forward": 1, "dx_max_abs_err": dx_err,
+           "dx_err_over_limit": dx_ratio, "dpanels_max_abs_err": dp_err,
+           "dpanels_err_over_limit": dp_ratio, "forward_ms": min(fwd),
+           "backward_ms": min(bwd), "card": card}
+    log(f"[ad] {name} band_spmv_ad: dx err / limit {dx_ratio:.4f}, "
+        f"d(panels) {dp_ratio:.4f}; forward {min(fwd):.4f} ms, backward "
+        f"{min(bwd):.4f} ms; {card}")
+    emit(rec)
+    del panels, xg, ad_plan, plan, y
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _same_plan(p, q, path="plan"):
+    """Every tensor of two plans bit-equal, every other field equal."""
+    require(type(p) is type(q), f"{path}: {type(p)} against {type(q)}")
+    if isinstance(p, torch.Tensor):
+        require(p.dtype == q.dtype and torch.equal(p, q),
+                f"{path}: differs")
+    elif dataclasses.is_dataclass(p):
+        for f in dataclasses.fields(p):
+            _same_plan(getattr(p, f.name), getattr(q, f.name),
+                       f"{path}.{f.name}")
+    elif isinstance(p, tuple):
+        require(len(p) == len(q), f"{path}: lengths")
+        for i, (u, v) in enumerate(zip(p, q)):
+            _same_plan(u, v, f"{path}[{i}]")
+    elif isinstance(p, np.ndarray):
+        require(np.array_equal(p, q), f"{path}: differs")
+    else:
+        require(p == q, f"{path}: {p!r} against {q!r}")
+
+
+def data_phase(card):
+    """F5: the five data files through ``load_matrix_market`` (their
+    load times), each through ``matrix_opt`` and SpMV on the card held
+    to the float64 base path (``main_path``: the kind the chooser picks
+    and its kernel's launches recorded); then one SpGEMM plan and one
+    SpTRSV plan saved and loaded on the card: the loaded plans equal the
+    first ones array for array, the SpGEMM fill (one writer a slot)
+    gives the first plan's bits, and the solve over the loaded plan is
+    held to the backward error bound, as every solve is.  Returns the
+    main-path records."""
+    recs = []
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    mats = {}
+    for i, fname in enumerate(DATA_FILES):
+        t0 = time.perf_counter()
+        a = sio.load_matrix_market(os.path.join(root, fname + ".mtx.gz"))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        rec, _ = main_path(f"data_{fname}", a, None, 180 + i, card)
+        rec["load_s"] = load_s
+        kern = KIND_KERNELS.get(rec["kind"]) or (
+            (SOLVER_KERNELS[rec["kind"]],) if rec["kind"] in SOLVER_KERNELS
+            else ())
+        require(all(rec["launches"][k] > 0 for k in kern),
+                f"{fname}: kind {rec['kind']} launched none of {kern}")
+        rec["kernels"] = list(kern)
+        log(f"[data] {fname}: {a.shape[0]} rows, {a.nnz} entries, loaded "
+            f"in {load_s:.2f} s, kind {rec['kind']}, launches "
+            f"{ {k: rec['launches'][k] for k in kern} }; {card}")
+        emit({"data_file": fname, "load_s": load_s, "kind": rec["kind"],
+              "m": a.shape[0], "nnz": a.nnz, "card": card})
+        recs.append(rec)
+        mats[fname] = a
+    a = mats["fem2d_128"]
+    del mats
+    with tempfile.TemporaryDirectory() as tmp:
+        info = sp.multiply_compute(a, a)
+        require(info.plan.route is not None
+                and info.plan.route.expansion is not None,
+                "plan files: the SpGEMM plan has no engine")
+        c1 = sp.multiply_fill(info, a, a)
+        path = os.path.join(tmp, "spgemm.npz")
+        t0 = time.perf_counter()
+        serialize.save_plan(path, info.plan)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loaded = serialize.load_plan(path)
+        load_s = time.perf_counter() - t0
+        _same_plan(info.plan, loaded)
+        c2 = sp.multiply_fill(info.update(plan=loaded), a, a)
+        require(torch.equal(c1.values, c2.values)
+                and torch.equal(c1.colind, c2.colind),
+                "plan files: the loaded SpGEMM plan's fill differs")
+        log(f"[plan-file] SpGEMM plan of fem2d_128 A.A: saved in "
+            f"{save_s:.3f} s, loaded in {load_s:.3f} s, the same arrays and "
+            f"the same fill bits")
+        name, make, kind, _ = TRSV_MAIN[0]
+        lo = make()
+        tinfo = sp.triangular_solve_inspect(lo)
+        require(tinfo.plan.route is not None, "plan files: no route solve")
+        path = os.path.join(tmp, "trsv.npz")
+        serialize.save_plan(path, tinfo.plan)
+        loaded = serialize.load_plan(path)
+        _same_plan(tinfo.plan, loaded, "trsv")
+        b = gen.generate_vector(lo.shape[0], seed=190)
+        info2 = dataclasses.replace(tinfo, plan=loaded)
+        x = sp.triangular_solve(sp.scaled(2.0, lo), b, info=info2)
+        ratio, _ = trsv_checks(lo, info2, x, b, 2.0)
+        log(f"[plan-file] SpTRSV plan of {name}: the same arrays; its "
+            f"solve within the backward error bound (err / limit "
+            f"{ratio:.4f})")
+    emit({"plan_files": {"spgemm": "same arrays, same fill bits",
+                         "trsv": "same arrays, solve in bound"},
+          "card": card})
+    return recs
+
+
+def solver_phase(head, stencil, rates, card):
+    """F1-F5: ``cg`` on the symmetrised headline band (band kernel) and
+    on the symmetrised 1000^2 stencil (DIA kernel), ``jacobi`` on the
+    stencil's operator, ``power_method`` on the band's, ``band_spmv_ad``
+    on the headline band, then the data files and plan files.  Returns
+    the main-path records."""
+    t0 = time.perf_counter()
+    main = []
+    op = spd_operator(head)
+    rec, opt, _ = cg_case(f"{HEADLINE[0]}_spd", op, "band", 161, rates,
+                          card)
+    main.append(rec)
+    main.append(power_case(f"{HEADLINE[0]}_spd", op[0], opt, card))
+    del op, opt
+    op = spd_operator(stencil)
+    # Jacobi converges on a strictly diagonally dominant S
+    require(op[3], f"{DIA_MAIN[0][0]}_spd: S is not diagonally dominant")
+    rec, opt, b = cg_case(f"{DIA_MAIN[0][0]}_spd", op, "dia", 162, rates,
+                          card)
+    main.append(rec)
+    main.append(jacobi_case(f"{DIA_MAIN[0][0]}_spd", op[0], opt, b, card))
+    del op, opt
+    torch.cuda.empty_cache()
+    band_ad_case(HEADLINE[0], head, card)
+    main += data_phase(card)
+    log(f"[solver] F1-F5 in {time.perf_counter() - t0:.1f} s")
+    return main
+
+
 def run():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3436,6 +4062,8 @@ def run():
     alg_main, t_kernel, s_kernel, d_kernel = algebra_phase(
         head, u300, general[ROUTE_MAIN[1][0]], rates, card)
     main += alg_main
+    # the solvers, the band SpMV's gradient, the data and plan files (F)
+    main += solver_phase(head, mats[DIA_MAIN[0][0]], rates, card)
     route_recs.append(t_kernel)
     band_recs.append(s_kernel)
     if d_kernel is not None and d_kernel["kernel"] == "route2_spmv":
@@ -3452,8 +4080,13 @@ def run():
     main.append(rec)
     bsr_recs = bsr_cases(bname, plan[0], ba, bsr_k, 88, rates, card,
                          full=True) + bsr_recs
-    main.append(main_path_spmm(f"{bname}_k{bsr_k}", ba, "bsr", bsr_k, 89,
-                               card)[0])
+    rec = main_path_spmm(f"{bname}_k{bsr_k}", ba, "bsr", bsr_k, 89, card)[0]
+    # the two tensor-core launches, and the FMA kernel gated behind them
+    require(rec["launches"]["bsr_spmm"] == 2
+            and rec["launches"]["bsr_spmm_gated"] == 1,
+            f"{bname}_k{bsr_k}: not the tensor-core passes and one gated "
+            f"launch")
+    main.append(rec)
     del ba, plan
     pname, pseed, pk = PERM_MAIN
     pa = permuted_csr(head, pseed)
@@ -3470,8 +4103,14 @@ def run():
     del pa, plan
     torch.cuda.empty_cache()
     # SpMM over the band (B streamed), SELL, DIA and the complex band
-    main.append(main_path_spmm(spmm_name, head, "band", SPMM_BANDED_K, 86,
-                               card)[0])
+    rec = main_path_spmm(spmm_name, head, "band", SPMM_BANDED_K, 86,
+                         card)[0]
+    # one tensor-core launch, and the resident kernel gated behind it
+    require(rec["launches"]["band_spmm_stream"] == 1
+            and rec["launches"]["band_spmm_gated"] == 1
+            and rec["launches"]["band_spmm"] == 0,
+            f"{spmm_name}: not one tensor-core launch and one gated launch")
+    main.append(rec)
     del head
     gname, gmake, gks = GENERAL_SPMM
     ga = gmake()

@@ -12,8 +12,8 @@ kernels of the same kind.  The kernels build on their first launch;
 importing the package builds nothing.  It imports torch and numpy,
 never JAX or ``spblas_tpu``.
 
-Public surface: ``__all__`` of ``spblas_tpu/__init__.py``; its
-``solvers`` module is not ported yet.
+Public surface: ``__all__`` of ``spblas_tpu/__init__.py``, and its
+``solvers`` module (``cg``, ``power_method``, ``jacobi``).
 """
 
 from spblas_tpu_torch.types import (Config, DEFAULT_CONFIG, index_dtype,
@@ -50,6 +50,7 @@ from spblas_tpu_torch.ops.scale import scale
 from spblas_tpu_torch.ops.triangular_solve import (
     triangular_solve, triangular_solve_inspect,
 )
+from spblas_tpu_torch import solvers  # noqa: F401
 
 __version__ = "0.1.0"
 

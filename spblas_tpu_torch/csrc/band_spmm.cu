@@ -22,7 +22,8 @@
 // goes to C row idx[j]; C rows at or past m are not written.
 //
 // resident (band_spmm_*, f32 FMAs, no tensor cores: it is also the exact
-//   kernel that the tensor-core one falls back to, BandPlan.tf32_exact).
+//   kernel that the tensor-core one falls back to, BandPlan.tf32_exact,
+//   and the one gated behind each tensor-core launch).
 //   What bounds it on the H100 (67 TFLOP/s f32, 3.35 TB/s): on the
 //   permuted headline band (409,600 rows, W 232) at k 64, 12.2 GFLOP
 //   (0.182 ms) against 0.59 GB of panels, B and C (0.176 ms): both; at
@@ -73,7 +74,11 @@
 //   thread reads its two panel values with one 8-byte load; the padded
 //   shared-memory strides make the panel, B and C accesses free of bank
 //   conflicts.  C leaves through shared memory in 16-byte stores along
-//   its rows.  Accuracy and limits: tf32_mma.cuh.
+//   its rows.  Accuracy and limits: tf32_mma.cuh.  B is tested as it is
+//   split; a warp that finds a value the split cannot carry raises the
+//   call's flag, and the resident kernel launched behind it
+//   (band_spmm_res_gated, one CTA an SM walking the tiles) then rewrites
+//   C; on a clear flag it exits at once.
 // Every C element has exactly one writer and a fixed order of sums: no
 // atomics, the same bits every run.
 
@@ -122,6 +127,12 @@ namespace res {
 
 constexpr int kThreads = 128;              // 4 warps
 constexpr int kResBlocks = 3;              // CTAs an SM (170 registers)
+// the gated exact kernel's CTAs an SM (its grid: one wave of them): one,
+// so that a clear flag costs next to nothing (three cost 0.017 ms a
+// call at the headline band's k 256, NVIDIA H100 80GB HBM3, PERF.md),
+// at the price of a flagged call's exact product running at a third of
+// the resident kernel's occupancy
+constexpr int kGatedBlocks = 1;
 constexpr int kRowGroups = 16;             // a thread's rows: ty + 16 i
 constexpr int kRowsT = kBlockRows / kRowGroups;   // 8
 constexpr int kResChunk = 16;              // columns of W a stage
@@ -357,16 +368,16 @@ struct Frag {
   }
 };
 
+// One (row block, k-tile) tile of C, tile = row block * ktiles + k-tile.
 template <typename T, int KTF, int MODE>
-__global__ void __launch_bounds__(kThreads, kResBlocks)
-band_spmm_res(const Args a) {
+__device__ __forceinline__ void res_tile(const Args& a, unsigned tile,
+                                         unsigned char* smem) {
   using L = Layout<T, KTF, MODE>;
   using Tl = Tile<KTF, MODE>;
   constexpr int kG = Tl::kGroups;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const long long r0 = static_cast<long long>(blockIdx.x / a.ktiles)
+  const long long r0 = static_cast<long long>(tile / a.ktiles)
                        * kBlockRows;
-  const int col0 = (blockIdx.x % a.ktiles) * KTF;
+  const int col0 = (tile % a.ktiles) * KTF;
   const int lane = threadIdx.x & 31;
   const int tx = lane & 7;
   const int ty = (threadIdx.x >> 5) * 4 + (lane >> 3);
@@ -438,15 +449,63 @@ band_spmm_res(const Args a) {
 }
 
 template <typename T, int KTF, int MODE>
-cudaError_t launch(const Args& a, unsigned grid, cudaStream_t st) {
+__global__ void __launch_bounds__(kThreads, kResBlocks)
+band_spmm_res(const Args a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  res_tile<T, KTF, MODE>(a, blockIdx.x, smem);
+}
+
+// The exact kernel behind the tensor-core one (tf32_mma.cuh, "What the
+// kernels do about it"): the whole product when the call's flag is up,
+// else nothing.  Its grid is kGatedBlocks CTAs an SM that walk the
+// tiles in turn, so a clear flag costs one CTA an SM that reads it and
+// exits.
+template <typename T, int KTF>
+__global__ void __launch_bounds__(kThreads, kResBlocks)
+band_spmm_res_gated(const Args a, const int* __restrict__ flag,
+                    unsigned tiles) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (*flag == 0) return;
+  for (unsigned t = blockIdx.x; t < tiles; t += gridDim.x) {
+    res_tile<T, KTF, kReal>(a, t, smem);
+    __syncthreads();   // the next tile's prologue refills the ring
+  }
+}
+
+template <typename T, int KTF, int MODE>
+cudaError_t launch(const Args& a, unsigned grid, cudaStream_t st,
+                   const int* gate) {
   constexpr int kSmem = Layout<T, KTF, MODE>::kSmemBytes;
-  static bool raised = false;   // the shared-memory limit, once
+  static bool raised = false;   // the shared-memory limits, once
+  static int wave = 0;          // the gated kernel's CTAs
   if (!raised) {
-    const cudaError_t e = cudaFuncSetAttribute(
+    cudaError_t e = cudaFuncSetAttribute(
         band_spmm_res<T, KTF, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (e != cudaSuccess) return e;
+    if constexpr (MODE == kReal) {
+      e = cudaFuncSetAttribute(band_spmm_res_gated<T, KTF>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmem);
+      if (e != cudaSuccess) return e;
+      int dev = 0, sms = 0, per = 0;
+      if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
+      if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                      dev)) != cudaSuccess) return e;
+      if ((e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per, band_spmm_res_gated<T, KTF>, kThreads, kSmem))
+          != cudaSuccess) return e;
+      wave = sms * (per < kGatedBlocks ? (per > 0 ? per : 1)
+                                       : kGatedBlocks);
+    }
     raised = true;
+  }
+  if constexpr (MODE == kReal) {
+    if (gate != nullptr) {
+      const unsigned g = grid < static_cast<unsigned>(wave) ? grid : wave;
+      band_spmm_res_gated<T, KTF><<<g, kThreads, kSmem, st>>>(a, gate, grid);
+      return cudaSuccess;
+    }
   }
   band_spmm_res<T, KTF, MODE><<<grid, kThreads, kSmem, st>>>(a);
   return cudaSuccess;
@@ -459,10 +518,12 @@ bool aligned16(const void* p) {
 // B and C as rows of floats: kf and cf floats a row.  The k-tile is 32 B
 // floats where a B row holds no more (and always with a real B in the
 // complex mode), else 64.
+// gate: nullptr, or the flag of a tensor-core call (kReal only): the
+// product runs only when it is up
 template <typename T, int MODE>
 int run(const void* p0, const void* p1, const void* b, const void* idx,
         void* c, int rows, int w, int kf, int cf, int n, int pad_l, int m,
-        void* stream) {
+        void* stream, const int* gate = nullptr) {
   const int nblk = rows / kBlockRows;
   if (nblk <= 0 || kf <= 0 || m <= 0) {
     return static_cast<int>(cudaGetLastError());
@@ -493,12 +554,12 @@ int run(const void* p0, const void* p1, const void* b, const void* idx,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if constexpr (MODE == kReal) {
-    e = ktf == 32 ? launch<T, 32, kReal>(a, g, st)
-                  : launch<T, 64, kReal>(a, g, st);
+    e = ktf == 32 ? launch<T, 32, kReal>(a, g, st, gate)
+                  : launch<T, 64, kReal>(a, g, st, gate);
   } else if constexpr (MODE == kCx) {
-    e = launch<T, 64, kCx>(a, g, st);
+    e = launch<T, 64, kCx>(a, g, st, nullptr);
   } else {
-    e = launch<T, 32, kCxRealB>(a, g, st);
+    e = launch<T, 32, kCxRealB>(a, g, st, nullptr);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
@@ -594,7 +655,8 @@ __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* s) {
 template <typename T, bool VA, bool VB>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 band_spmm_tc(const T* __restrict__ panels, const float* __restrict__ bp,
-             float* __restrict__ c, int w, int k, int ktiles, Rows geo) {
+             float* __restrict__ c, int w, int k, int ktiles, Rows geo,
+             int* __restrict__ flag, float lim) {
   constexpr bool kSplitA = std::is_same<T, float>::value;   // bf16: exact
   extern __shared__ __align__(16) unsigned char smem[];
   T* const sA0 = reinterpret_cast<T*>(smem);
@@ -608,6 +670,7 @@ band_spmm_tc(const T* __restrict__ panels, const float* __restrict__ bp,
   const int wm = warp & 1, wn = warp >> 1;   // 64-row, 64-column quarter
   const int g = lane >> 2, t = lane & 3;     // fragment group, slot
   const int nchunks = (w + kChunk - 1) / kChunk;
+  bool bad = false;   // a B value this thread split failed the test
   float acc[4][8][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -663,8 +726,15 @@ band_spmm_tc(const T* __restrict__ panels, const float* __restrict__ bp,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         uint32_t bhi[2], blo[2];
-        tf32::split(sb[8 * s * kStrideB + 8 * j], bhi[0], blo[0]);
-        tf32::split(sb[(8 * s + 1) * kStrideB + 8 * j], bhi[1], blo[1]);
+        // B is tested as it is split (tf32_mma.cuh, Limits): the two
+        // warps that split the same values share the work, the first
+        // testing the step's even rows and the second its odd ones, so
+        // each value is tested once a CTA
+        const float b0 = sb[8 * s * kStrideB + 8 * j];
+        const float b1 = sb[(8 * s + 1) * kStrideB + 8 * j];
+        bad |= tf32::b_fails(wm ? b1 : b0, lim);
+        tf32::split(b0, bhi[0], blo[0]);
+        tf32::split(b1, bhi[1], blo[1]);
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           tf32::step<kSplitA>(acc[i][j], ahi[i], alo[i], bhi, blo);
@@ -672,6 +742,7 @@ band_spmm_tc(const T* __restrict__ panels, const float* __restrict__ bp,
       }
     }
   }
+  if (__any_sync(0xffffffffu, bad) && lane == 0) *flag = 1;
   wait_group<0>();
   __syncthreads();   // every warp is done with the ring: C reuses it
   float* const sC = reinterpret_cast<float*>(smem);
@@ -708,7 +779,8 @@ band_spmm_tc(const T* __restrict__ panels, const float* __restrict__ bp,
 
 template <typename T, bool VA, bool VB>
 cudaError_t launch_tc(unsigned grid, const T* p, const float* b, float* out,
-                      int w, int k, int ktiles, Rows geo, cudaStream_t st) {
+                      int w, int k, int ktiles, Rows geo, int* flag,
+                      float lim, cudaStream_t st) {
   static bool raised = false;   // the shared-memory limit, once
   if (!raised) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -717,14 +789,18 @@ cudaError_t launch_tc(unsigned grid, const T* p, const float* b, float* out,
     if (e != cudaSuccess) return e;
     raised = true;
   }
-  band_spmm_tc<T, VA, VB><<<grid, kThreads, kSmemBytes, st>>>(p, b, out, w,
-                                                              k, ktiles, geo);
+  band_spmm_tc<T, VA, VB><<<grid, kThreads, kSmemBytes, st>>>(
+      p, b, out, w, k, ktiles, geo, flag, lim);
   return cudaSuccess;
 }
 
+// The tensor-core product, then the exact kernel gated by the call's
+// flag (zeroed by the caller): the flag is raised where B fails the test
+// against lim (tf32_mma.cuh, Limits), and the exact kernel then rewrites
+// every C element.
 template <typename T>
 int run(const void* panels, const void* bp, void* c, int rows, int w, int k,
-        int n, int pad_l, int m, void* stream) {
+        int n, int pad_l, int m, int* flag, float lim, void* stream) {
   const int nblk = rows / kBlockRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const T* p = static_cast<const T*>(panels);
@@ -744,16 +820,22 @@ int run(const void* panels, const void* bp, void* c, int rows, int w, int k,
   const bool vec = k % 4 == 0 && res::aligned16(bp) && res::aligned16(c);
   cudaError_t e;
   if (va && vec) {
-    e = launch_tc<T, true, true>(g, p, b, out, w, k, ktiles, geo, st);
+    e = launch_tc<T, true, true>(g, p, b, out, w, k, ktiles, geo, flag, lim,
+                                 st);
   } else if (va) {
-    e = launch_tc<T, true, false>(g, p, b, out, w, k, ktiles, geo, st);
+    e = launch_tc<T, true, false>(g, p, b, out, w, k, ktiles, geo, flag, lim,
+                                  st);
   } else if (vec) {
-    e = launch_tc<T, false, true>(g, p, b, out, w, k, ktiles, geo, st);
+    e = launch_tc<T, false, true>(g, p, b, out, w, k, ktiles, geo, flag, lim,
+                                  st);
   } else {
-    e = launch_tc<T, false, false>(g, p, b, out, w, k, ktiles, geo, st);
+    e = launch_tc<T, false, false>(g, p, b, out, w, k, ktiles, geo, flag,
+                                   lim, st);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  return res::run<T, res::kReal>(panels, nullptr, bp, nullptr, c, rows, w, k,
+                                 k, n, pad_l, m, stream, flag);
 }
 
 }  // namespace tc
@@ -797,16 +879,22 @@ extern "C" int band_spmm_cx(const void* panels_re, const void* panels_im,
 }
 
 // the tensor-core kernel: b (n, k) f32 read in place as above (no
-// index); c (m, k) f32
+// index); c (m, k) f32; flag: one int32 the caller zeroed, raised where
+// a B value fails the test against lim (types.tf32_b_limit of the
+// panels' largest magnitude), and then the resident kernel, launched
+// behind it, rewrites C
 extern "C" int band_spmm_stream_f32(const void* panels, const void* b,
                                     void* c, int rows, int w, int k, int n,
-                                    int pad_l, int m, void* stream) {
-  return tc::run<float>(panels, b, c, rows, w, k, n, pad_l, m, stream);
+                                    int pad_l, int m, void* flag, float lim,
+                                    void* stream) {
+  return tc::run<float>(panels, b, c, rows, w, k, n, pad_l, m,
+                        static_cast<int*>(flag), lim, stream);
 }
 
 extern "C" int band_spmm_stream_bf16(const void* panels, const void* b,
                                      void* c, int rows, int w, int k, int n,
-                                     int pad_l, int m, void* stream) {
+                                     int pad_l, int m, void* flag, float lim,
+                                     void* stream) {
   return tc::run<__nv_bfloat16>(panels, b, c, rows, w, k, n, pad_l, m,
-                                stream);
+                                static_cast<int*>(flag), lim, stream);
 }

@@ -78,8 +78,9 @@ __global__ void __launch_bounds__(kColThreads * kMaxRowGroups)
 bsr_spmm_kernel(const T* __restrict__ values, const int* __restrict__ rowptr,
                 const int* __restrict__ colind, const T* __restrict__ b,
                 T* __restrict__ c, int bh, int bw, int k, int rchunks,
-                int ktiles) {
+                int ktiles, const int* __restrict__ gate) {
   __shared__ __align__(16) T sA[kChunk * kStrideA];
+  if (gate != nullptr && *gate == 0) return;   // the f32 kernels' flag
   const int rg = blockDim.y;
   const int tile_rows = kRows * rg;
   const int nthreads = kColThreads * rg;
@@ -129,7 +130,7 @@ bsr_spmm_kernel(const T* __restrict__ values, const int* __restrict__ rowptr,
 template <typename T>
 int launch_fma(const void* values, const void* rowptr, const void* colind,
                const void* b, void* c, int mb, int bh, int bw, int k,
-               void* stream) {
+               const int* gate, void* stream) {
   const int rg = min(kMaxRowGroups, (bh + kRows - 1) / kRows);
   const int rchunks = (bh + kRows * rg - 1) / (kRows * rg);
   const int ktiles = (k + kTileCols - 1) / kTileCols;
@@ -140,7 +141,7 @@ int launch_fma(const void* values, const void* rowptr, const void* colind,
                          0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(values), static_cast<const int*>(rowptr),
         static_cast<const int*>(colind), static_cast<const T*>(b),
-        static_cast<T*>(c), bh, bw, k, rchunks, ktiles);
+        static_cast<T*>(c), bh, bw, k, rchunks, ktiles, gate);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -176,12 +177,14 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
 // of bsl[q0 + c, col0 + jj] for c < depth, 0 past k and on the rows from
 // depth up to the next multiple of 8.  VEC: 16-byte copies (k a multiple
 // of 4, B 16-byte aligned), each thread splitting the values it copied.
-// Ends with a barrier.
+// Each split value is tested against lim (tf32_mma.cuh, Limits; bad
+// set where one fails).  Ends with a barrier.
 template <bool VEC>
 __device__ __forceinline__ void stage_b(const float* __restrict__ bsl,
                                         int q0, int depth, int k,
                                         long long ldb, long long col0,
-                                        uint32_t* sHi, uint32_t* sLo) {
+                                        uint32_t* sHi, uint32_t* sLo,
+                                        float lim, bool& bad) {
   const int rows = (depth + 7) & ~7;
   if constexpr (VEC) {
     constexpr int kPieces = kTileCols / 4;
@@ -197,7 +200,9 @@ __device__ __forceinline__ void stage_b(const float* __restrict__ bsl,
       const int o = (idx / kPieces) * kStrideB + (idx % kPieces) * 4;
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        tf32::split(__uint_as_float(sHi[o + u]), sHi[o + u], sLo[o + u]);
+        const float x = __uint_as_float(sHi[o + u]);
+        bad |= tf32::b_fails(x, lim);
+        tf32::split(x, sHi[o + u], sLo[o + u]);
       }
     }
   } else {
@@ -205,6 +210,7 @@ __device__ __forceinline__ void stage_b(const float* __restrict__ bsl,
       const int c = idx / kTileCols, jj = idx % kTileCols;
       const bool in = c < depth && col0 + jj < k;
       const float x = in ? __ldg(bsl + (q0 + c) * ldb + col0 + jj) : 0.f;
+      bad |= tf32::b_fails(x, lim);
       tf32::split(x, sHi[c * kStrideB + jj], sLo[c * kStrideB + jj]);
     }
   }
@@ -244,7 +250,8 @@ bsr_spmm_columns(const float* __restrict__ values,
                  const int* __restrict__ col_ptr,
                  const int* __restrict__ col_order,
                  const float* __restrict__ b, float* __restrict__ partial,
-                 int bh, int bw, int k, long long ldb, int ktiles) {
+                 int bh, int bw, int k, long long ldb, int ktiles,
+                 int* __restrict__ flag, float lim) {
   extern __shared__ __align__(16) uint32_t sHi[];
   uint32_t* const sLo = sHi + kDepth * kStrideB;
   const int j = static_cast<int>(blockIdx.x / ktiles);
@@ -258,10 +265,11 @@ bsr_spmm_columns(const float* __restrict__ values,
   const long long stacked = static_cast<long long>(nj) * bh;
   const long long ccol = col0 + wn * kWarpCols + 2 * t;   // + 8jn
   const float* bsl = b + static_cast<long long>(j) * bw * ldb;
+  bool bad = false;   // a B value this thread split failed the test
   for (int q0 = 0; q0 < bw; q0 += kDepth) {   // once for bw <= kDepth
     const int depth = min(kDepth, bw - q0);
     if (q0 > 0) __syncthreads();   // every warp is done with the slice
-    stage_b<VEC>(bsl, q0, depth, k, ldb, col0, sHi, sLo);
+    stage_b<VEC>(bsl, q0, depth, k, ldb, col0, sHi, sLo, lim, bad);
     const int sb = 2 * t * kStrideB + wn * kWarpCols + g;   // + c0 rows
     for (long long m0 = wm * kWarpRows; m0 < stacked;
          m0 += kWarpsM * kWarpRows) {
@@ -349,6 +357,7 @@ bsr_spmm_columns(const float* __restrict__ values,
       }
     }
   }
+  if (__any_sync(0xffffffffu, bad) && lane == 0) *flag = 1;
 }
 
 // Pass 2: C[i*bh + r, col .. col + 3] = the sum of partial[e, r, ..] over
@@ -394,7 +403,8 @@ template <bool VEC>
 cudaError_t launch_vec(const float* v, const int* rp, const int* cp,
                        const int* co, const float* bb, float* part,
                        float* out, int mb, int ncb, int bh, int bw, int k,
-                       long long ldb, long long ldc, cudaStream_t st) {
+                       long long ldb, long long ldc, int* flag, float lim,
+                       cudaStream_t st) {
   const int ktiles = (k + kTileCols - 1) / kTileCols;
   const long long grid = static_cast<long long>(ncb) * ktiles;
   const long long rows = static_cast<long long>(mb) * bh;
@@ -418,7 +428,7 @@ cudaError_t launch_vec(const float* v, const int* rp, const int* cp,
     }
     bsr_spmm_columns<VEC><<<static_cast<unsigned>(grid), kThreads,
                             kSmemBytes, st>>>(v, cp, co, bb, part, bh, bw, k,
-                                              ldb, ktiles);
+                                              ldb, ktiles, flag, lim);
   }
   if (sums > 0) {
     bsr_row_sums<VEC><<<static_cast<unsigned>(sums), kSumThreads, 0, st>>>(
@@ -440,12 +450,17 @@ cudaError_t launch_vec(const float* v, const int* rp, const int* cp,
 // pass 1 and read by pass 2; its k columns are a column phase of B and C,
 // whose rows are ldb and ldc floats apart (kernels/bsr_kernels.py walks
 // the phases).  vec != 0 when k, ldb and ldc are multiples of 4 and b, c
-// and partial are 16-byte aligned (f64 ignores it).
+// and partial are 16-byte aligned (f64 ignores it).  flag: one int32 of
+// the call (zeroed by the caller before its first cut), raised where a B
+// value fails the test against lim (types.tf32_b_limit of the blocks'
+// largest magnitude); the caller then launches bsr_spmm_f32_fma gated by
+// it, which rewrites C.
 extern "C" int bsr_spmm_f32(const void* values, const void* rowptr,
                             const void* col_ptr, const void* col_order,
                             const void* b, void* partial, void* c, int mb,
                             int ncb, int bh, int bw, int k, long long ldb,
-                            long long ldc, int vec, void* stream) {
+                            long long ldc, int vec, void* flag, float lim,
+                            void* stream) {
   const float* v = static_cast<const float*>(values);
   const int* rp = static_cast<const int*>(rowptr);
   const int* cp = static_cast<const int*>(col_ptr);
@@ -456,26 +471,30 @@ extern "C" int bsr_spmm_f32(const void* values, const void* rowptr,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
       vec ? tc::launch_vec<true>(v, rp, cp, co, bb, part, out, mb, ncb, bh,
-                                 bw, k, ldb, ldc, st)
+                                 bw, k, ldb, ldc, static_cast<int*>(flag),
+                                 lim, st)
           : tc::launch_vec<false>(v, rp, cp, co, bb, part, out, mb, ncb, bh,
-                                  bw, k, ldb, ldc, st));
+                                  bw, k, ldb, ldc, static_cast<int*>(flag),
+                                  lim, st));
 }
 
 // f32 on the FMA kernel (as f64): the route for blocks with nonzero
 // values below 2^-112, where the 3xTF32 split keeps fewer bits than f32
-// (kernels/bsr_kernels.py, BSR.tf32_exact; tf32_mma.cuh, Limits)
+// (kernels/bsr_kernels.py, BSR.tf32_exact; tf32_mma.cuh, Limits), and,
+// gated by a tensor-core call's flag (gate not null), the product that
+// rewrites C when that call's B failed the test
 extern "C" int bsr_spmm_f32_fma(const void* values, const void* rowptr,
                                 const void* colind, const void* b, void* c,
                                 int mb, int bh, int bw, int k, int vec,
-                                void* stream) {
+                                const void* gate, void* stream) {
   return launch_fma<float>(values, rowptr, colind, b, c, mb, bh, bw, k,
-                           stream);
+                           static_cast<const int*>(gate), stream);
 }
 
 extern "C" int bsr_spmm_f64(const void* values, const void* rowptr,
                             const void* colind, const void* b, void* c,
                             int mb, int bh, int bw, int k, int vec,
-                            void* stream) {
+                            const void* gate, void* stream) {
   return launch_fma<double>(values, rowptr, colind, b, c, mb, bh, bw, k,
-                            stream);
+                            static_cast<const int*>(gate), stream);
 }

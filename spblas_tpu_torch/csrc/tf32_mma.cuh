@@ -40,32 +40,47 @@
 // product through a_lo*b_hi; a NaN x reaches it through lo.  But against
 // a finite operand whose own lo passes 1 in magnitude (|b| > 2^11) the
 // other correction product overflows too and may carry the opposite
-// sign: the sum reads NaN where the f32 product is infinite (finite
-// operands whose product passes FLT_MAX can read NaN in the same way).
-// A bf16 A
-// (A_LO = false) is not split, so an infinite panel value meets b_lo = 0
-// as a NaN.  At the low end a lo part below 2^-126 (operands below about
-// 2^-115) is a TF32 subnormal.  The tensor cores keep TF32 subnormals
-// (2^-130 x 2^120 is exact on the card; NVIDIA H100 80GB HBM3, 700 W),
-// but on TF32's grid of 2^-136, so an operand below 2^-112 keeps fewer
-// bits than f32: A at 2^-120 against B at 2^120 read 2.06 of the 64 eps
-// (|A| |B|) limit on one row of 16,384 in the streamed band kernel
-// (chip_smoke.py).  So the entry points keep a sparse operand with a
-// nonzero below 2^-112, an infinity or a NaN off these kernels
-// (types.tf32_exact, tested once and kept as BandPlan.tf32_exact and
-// BSR.tf32_exact): it takes an exact kernel (the resident band FMA
-// kernel, the f32 BSR FMA kernel, the f64 block SpGEMM).  The dense B of
-// an SpMM is not tested (that test every call cost 1.62 ms of the band
-// cell's 3.33 ms SpMM call, the kernel 0.98): B at 2^-120 against A at
-// 2^120 reads 3.74 (band) and 1.11 (BSR) of the limit, and B's
-// infinities against A at 2^16 read NaN at 11,840 and 22,016 of the
-// plain version's infinities (chip_smoke.py edges_phase).
+// sign: the sum reads NaN where the f32 product is infinite.  Finite
+// operands whose product passes FLT_MAX can read NaN in the same way, or
+// an infinity where the f32 product is finite (hi*hi rounds up).  A bf16
+// A (A_LO = false) is not split, so an infinite panel value meets b_lo =
+// 0 as a NaN.  At the low end a lo part below 2^-126 (operands below
+// about 2^-115) is a TF32 subnormal.  The tensor cores keep TF32
+// subnormals (2^-130 x 2^120 is exact on the card; NVIDIA H100 80GB
+// HBM3, 700 W), but on TF32's grid of 2^-136, so an operand below 2^-112
+// keeps fewer bits than f32: A at 2^-120 against B at 2^120 read 2.06 of
+// the 64 eps (|A| |B|) limit on one row of 16,384 in the streamed band
+// kernel (chip_smoke.py).
+//
+// What the kernels do about it.  The sparse operand is tested once and
+// the answer kept with it (types.tf32_gate, cached as
+// BandPlan.tf32_exact and BSR.tf32_exact, beside its largest magnitude
+// amax): one with a nonzero below 2^-112, an infinity or a NaN takes an
+// exact kernel (the resident band FMA kernel, the f32 BSR FMA kernel,
+// the f64 block SpGEMM).  The dense B of an SpMM is tested as the kernel
+// splits it (b_fails): a B value is flagged when it is nonzero below
+// 2^-112, or when its magnitude is not at most lim = FLT_MAX / (amax (1
+// + 2^-9)) (types.tf32_b_limit), which every infinity and NaN fails.
+// |x_hi| <= |x| (1 + 2^-11) and |x_lo| <= 2^-11 |x|, so within that
+// limit no product of the split (a_lo b_hi, a_hi b_lo, a_hi b_hi)
+// passes FLT_MAX.  A warp
+// that flagged a value raises the call's flag (one __any_sync, one
+// store), and the exact kernel, launched after the tensor-core one on
+// the same stream, runs the whole product when the flag is up and exits
+// at once when it is not: no host read.  Where no product passes
+// FLT_MAX, a sum can still pass it in its partial sums, as any f32 sum
+// can (the FMA kernels too).  The block SpGEMM's B is sparse, so its
+// test is the host's, from both cached maxima (types.tf32_products_safe).
 
 #pragma once
 
 #include <cstdint>
 
 namespace tf32 {
+
+// 2 |x|'s bits, less 2, below this: x nonzero and below 2^-112 (bits
+// 0x07800000); a zero's wraps to 0xfffffffe
+constexpr uint32_t kTiny2 = 2u * 0x07800000u - 2u;
 
 // x rounded to TF32, to nearest with ties away from zero; the low 13 bits
 // are zero
@@ -83,6 +98,13 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   const float h = fminf(fmaxf(__uint_as_float(rna(x)), -m), m);
   hi = __float_as_uint(h);
   lo = __float_as_uint(x - h);
+}
+
+// the dense B's test of x (Limits): x nonzero below 2^-112, or |x| not
+// at most lim (every infinity and NaN)
+__device__ __forceinline__ bool b_fails(float x, float lim) {
+  const uint32_t u = __float_as_uint(x) << 1;
+  return !(fabsf(x) <= lim) | (u - 2u < kTiny2);
 }
 
 // d += a*b for one m16n8k8 step: a the row-major 16x8 fragment, b the

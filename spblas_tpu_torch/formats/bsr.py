@@ -143,12 +143,23 @@ class BSR:
                                   self.shape[1] // self.block_shape[1])
 
     @functools.cached_property
+    def tf32_gate(self):
+        """:func:`types.tf32_gate` of the stored blocks, (exact, amax),
+        made on first use and kept."""
+        return _t.tf32_gate(self.values[: self.nnz_blocks])
+
+    @property
     def tf32_exact(self) -> bool:
-        """:func:`types.tf32_exact` of the stored blocks, made on first use
-        and kept: False sends the f32 SpMM and block SpGEMM off the
-        3xTF32 tensor-core kernels (values below 2^-112 keep fewer bits
-        there)."""
-        return _t.tf32_exact(self.values[: self.nnz_blocks])
+        """False sends the f32 SpMM and block SpGEMM off the 3xTF32
+        tensor-core kernels (values below 2^-112 keep fewer bits there;
+        infinities and NaNs can read NaN)."""
+        return self.tf32_gate[0]
+
+    @property
+    def tf32_amax(self) -> float:
+        """The stored blocks' largest magnitude: the SpMM kernel's test of
+        B and the block SpGEMM's product test are set from it."""
+        return self.tf32_gate[1]
 
     def block_row_ids(self) -> torch.Tensor:
         """Per-block block-row index, (capacity,); padded blocks map to

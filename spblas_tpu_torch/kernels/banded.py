@@ -73,10 +73,21 @@ class BandPlan:
         return int(self.panels.shape[0]) // _R
 
     @functools.cached_property
+    def tf32_gate(self):
+        """:func:`types.tf32_gate` of the panels, (exact, amax), made on
+        first use and kept."""
+        return _t.tf32_gate(self.panels)
+
+    @property
     def tf32_exact(self) -> bool:
-        """:func:`types.tf32_exact` of the panels, made on first use and
-        kept: False sends :func:`band_spmm_stream` to the FMA kernel."""
-        return _t.tf32_exact(self.panels)
+        """False sends :func:`band_spmm_stream` to the FMA kernel."""
+        return self.tf32_gate[0]
+
+    @property
+    def tf32_amax(self) -> float:
+        """The panels' largest magnitude: the tensor-core kernel's test
+        of B is set from it (``types.tf32_b_limit``)."""
+        return self.tf32_gate[1]
 
 
 def band_halfwidth(a: CSR) -> int:
@@ -191,6 +202,60 @@ def band_spmv(plan: BandPlan, x: torch.Tensor) -> torch.Tensor:
     y = band_spmv_padded(plan.panels, pad_x(plan, x))
     return y[: plan.shape[0]].to(
         torch.promote_types(plan.panels.dtype, x.dtype))
+
+
+class _BandSpmvAD(torch.autograd.Function):
+    """:func:`band_spmv` with JAX's custom VJP (``banded.py``,
+    ``_band_spmv_bwd``): the forward is the band kernel (its plain
+    version on the CPU); the backward is tensor ops, as XLA code is in
+    the JAX package."""
+
+    @staticmethod
+    def forward(ctx, panels, x, pad_l, shape):
+        ctx.save_for_backward(panels, x)
+        ctx.geo = (pad_l, shape)
+        return band_spmv(BandPlan(panels=panels, pad_l=pad_l, shape=shape),
+                         x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        panels, x = ctx.saved_tensors
+        h, (m, n) = ctx.geo
+        w = panels.shape[1]
+        nblk = panels.shape[0] // _R
+        dyp = F.pad(dy.float(), (0, nblk * _R - dy.shape[0]))
+        dpanels = dx = None
+        if ctx.needs_input_grad[1]:
+            # dx: panel entry (g, c) consumed xp[(g // 128) * 128 + c], so
+            # its cotangent goes back there: the overlap-add of per-block
+            # column sums at stride 128
+            t = panels.float() * dyp[:, None]
+            blocksum = t.view(nblk, _R, w).sum(dim=1)
+            chunks = -(-w // _R)
+            bs = F.pad(blocksum, (0, chunks * _R - w))
+            acc = torch.zeros((nblk + chunks) * _R, dtype=torch.float32,
+                              device=dy.device)
+            for k in range(chunks):
+                acc[k * _R:(k + nblk) * _R] += \
+                    bs[:, k * _R:(k + 1) * _R].reshape(-1)
+            dx = acc[h:h + n].to(x.dtype)
+        if ctx.needs_input_grad[0]:
+            # dpanels[g, c] = dy[g] * xp[(g // 128) * 128 + c]
+            lx = nblk * _R - _R + w
+            xp = F.pad(x.float(), (h, max(0, lx - h - n)))[:lx]
+            win = xp.unfold(0, w, _R)                       # (nblk, w)
+            dpanels = (dyp.view(nblk, _R, 1) * win[:, None, :]).reshape(
+                nblk * _R, w).to(panels.dtype)
+        return dpanels, dx, None, None
+
+
+def band_spmv_ad(plan: BandPlan, x: torch.Tensor) -> torch.Tensor:
+    """Differentiable band SpMV (square matrices): the forward is the
+    panel kernel; the backward gives dx = A^T dy by the overlap-add of
+    the panels' column sums and d(panels) as the window outer products,
+    cast to the panels' dtype.  Gradients reach ``plan.panels`` where it
+    requires grad, and ``x``."""
+    return _BandSpmvAD.apply(plan.panels, x, plan.pad_l, plan.shape)
 
 
 def band_plan_from_diags(diags: torch.Tensor, offsets, shape,
@@ -328,9 +393,10 @@ def _check_inplace(panels: torch.Tensor, b: torch.Tensor, pad_l: int,
 # band_spmm_{f32,bf16}
 _RES_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (
     ctypes.c_void_p,)
-# (panels, b, c, rows, w, k, n, pad_l, m, stream) of band_spmm_stream_*
+# (panels, b, c, rows, w, k, n, pad_l, m, flag, lim, stream) of
+# band_spmm_stream_*
 _STREAM_ARGTYPES = (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6 + (
-    ctypes.c_void_p,)
+    ctypes.c_void_p, ctypes.c_float, ctypes.c_void_p)
 # (panels_re, panels_im, b, c, rows, w, k, n, pad_l, m, b_complex,
 # stream) of band_spmm_cx
 _CX_ARGTYPES = (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 7 + (
@@ -359,18 +425,34 @@ def _launch_resident(panels: torch.Tensor, b: torch.Tensor, pad_l: int,
 
 
 def _launch_stream(panels: torch.Tensor, b: torch.Tensor, pad_l: int,
-                   m: int) -> torch.Tensor:
-    """One launch of the tensor-core kernel; counted on
-    :func:`band_spmm_stream_padded`."""
+                   m: int, amax) -> torch.Tensor:
+    """One launch of the tensor-core kernel, counted on
+    :func:`band_spmm_stream_padded`'s ``launches``, then the resident
+    kernel gated by the call's flag, counted on its ``gated``: the
+    tensor-core kernel raises the flag where a B value fails the test
+    against ``types.tf32_b_limit(amax)`` (``csrc/tf32_mma.cuh``, Limits),
+    and the resident kernel then rewrites C; with the flag down it exits
+    at once.  ``amax`` is the panels' largest magnitude
+    (``BandPlan.tf32_amax``); the call reads nothing back to find it.  The
+    flag stays readable as ``band_spmm_stream_padded.flag``, the path the
+    call took."""
     rows, w = panels.shape
     n, k = b.shape
+    if amax is None:
+        raise ValueError("band_spmm_stream: amax, the panels' largest "
+                         "magnitude (BandPlan.tf32_amax), is required on "
+                         "CUDA")
     c = torch.empty(m, k, dtype=torch.float32, device=panels.device)
+    flag = torch.zeros(1, dtype=torch.int32, device=panels.device)
     stream = torch.cuda.current_stream(panels.device).cuda_stream
     _build.check(_build.function(
         "band_spmm", _symbol("band_spmm_stream", panels), _STREAM_ARGTYPES)(
         panels.data_ptr(), b.data_ptr(), c.data_ptr(), rows, w, k, n, pad_l,
-        m, stream), "band_spmm_stream")
+        m, flag.data_ptr(), _t.tf32_b_limit(amax), stream),
+        "band_spmm_stream")
     band_spmm_stream_padded.launches += 1
+    band_spmm_stream_padded.gated += 1
+    band_spmm_stream_padded.flag = flag
     return c
 
 
@@ -380,7 +462,8 @@ def band_spmm_padded(panels: torch.Tensor,
     with B read from device memory; returns (nblk * 128, k) f32.  CUDA
     tensors launch ``band_spmm.cu``'s resident entry point (pad_l 0, no
     index); CPU tensors take :func:`band_spmm_reference`.  ``launches``
-    counts every resident launch, the in-place forms' too."""
+    counts every resident launch, the in-place forms' too, but not the
+    gated one behind a tensor-core call (``band_spmm_stream_padded.gated``)."""
     _check_operands(panels, bp, ndim=2)
     if not _t.on_cuda(panels):
         return band_spmm_reference(panels, bp)
@@ -390,19 +473,24 @@ def band_spmm_padded(panels: torch.Tensor,
 band_spmm_padded.launches = 0
 
 
-def band_spmm_stream_padded(panels: torch.Tensor,
-                            bp: torch.Tensor) -> torch.Tensor:
+def band_spmm_stream_padded(panels: torch.Tensor, bp: torch.Tensor,
+                            amax=None) -> torch.Tensor:
     """The same product with each row block's B window streamed through
-    shared memory; CUDA tensors launch ``band_spmm.cu``'s stream entry
-    point, CPU tensors take :func:`band_spmm_reference`.  ``launches``
-    counts its in-place form's launches too."""
+    shared memory, on the tensor cores, B tested against the panels'
+    largest magnitude ``amax`` (:func:`_launch_stream`; required on
+    CUDA); CUDA tensors launch ``band_spmm.cu``'s stream entry point, CPU
+    tensors take :func:`band_spmm_reference`.  ``launches`` counts its
+    in-place form's launches too, ``gated`` the resident launches gated
+    behind them."""
     _check_operands(panels, bp, ndim=2)
     if not _t.on_cuda(panels):
         return band_spmm_reference(panels, bp)
-    return _launch_stream(panels, bp, 0, panels.shape[0])
+    return _launch_stream(panels, bp, 0, panels.shape[0], amax)
 
 
 band_spmm_stream_padded.launches = 0
+band_spmm_stream_padded.gated = 0
+band_spmm_stream_padded.flag = None
 
 
 def band_spmm_inplace(panels: torch.Tensor, b: torch.Tensor, pad_l: int,
@@ -423,12 +511,13 @@ def band_spmm_inplace(panels: torch.Tensor, b: torch.Tensor, pad_l: int,
 
 
 def band_spmm_stream_inplace(panels: torch.Tensor, b: torch.Tensor,
-                             pad_l: int, m: int) -> torch.Tensor:
-    """:func:`band_spmm_inplace` (no index) on the tensor-core kernel."""
+                             pad_l: int, m: int, amax=None) -> torch.Tensor:
+    """:func:`band_spmm_inplace` (no index) on the tensor-core kernel, B
+    tested against ``amax`` as :func:`band_spmm_stream_padded` tests it."""
     _check_inplace(panels, b, pad_l, m)
     if not _t.on_cuda(panels):
         return band_spmm_inplace_reference(panels, b, pad_l, m)
-    return _launch_stream(panels, b, pad_l, m)
+    return _launch_stream(panels, b, pad_l, m, amax)
 
 
 def band_spmm_cx(panels_re: torch.Tensor, panels_im: torch.Tensor,
@@ -495,13 +584,16 @@ def band_spmm(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
 def band_spmm_stream(plan: BandPlan, b: torch.Tensor) -> torch.Tensor:
     """C = A @ B with each row block's B window streamed through shared
     memory, on the tensor cores, B read in place.  Panels with nonzero
-    f32 entries below 2^-112 (``plan.tf32_exact`` False), where the
-    3xTF32 split keeps fewer bits, take :func:`band_spmm`'s f32 FMAs
-    instead.  B is not tested (``csrc/tf32_mma.cuh``, Limits)."""
+    f32 entries below 2^-112, an infinity or a NaN (``plan.tf32_exact``
+    False), where the 3xTF32 split keeps fewer bits, take
+    :func:`band_spmm`'s f32 FMAs instead; a B that fails the kernel's
+    test against ``plan.tf32_amax`` gets them through the gated resident
+    launch (``csrc/tf32_mma.cuh``, Limits).  Nothing is read back to the
+    host."""
     if not plan.tf32_exact:
         return band_spmm(plan, b)
     c = band_spmm_stream_inplace(plan.panels, _b_operand(b), plan.pad_l,
-                                 plan.shape[0])
+                                 plan.shape[0], amax=plan.tf32_amax)
     return c.to(torch.promote_types(plan.panels.dtype, b.dtype))
 
 

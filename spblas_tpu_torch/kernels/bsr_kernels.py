@@ -177,14 +177,15 @@ _SPMV_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 3 + (
     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 # the SpMV kernel's mappings (csrc/bsr_spmv.cu)
 SPMV_COLS, SPMV_SPAN, SPMV_SMALL = 0, 1, 2
-# (values, rowptr, colind, b, c, mb, bh, bw, k, vec, stream) of
+# (values, rowptr, colind, b, c, mb, bh, bw, k, vec, gate, stream) of
 # bsr_spmm_f64 and bsr_spmm_f32_fma
 _SPMM_ARGTYPES = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 5 + (
-    ctypes.c_void_p,)
+    ctypes.c_void_p, ctypes.c_void_p)
 # (values, rowptr, col_ptr, col_order, b, partial, c, mb, ncb, bh, bw, k,
-# ldb, ldc, vec, stream) of bsr_spmm_f32
+# ldb, ldc, vec, flag, lim, stream) of bsr_spmm_f32
 _SPMM_F32_ARGTYPES = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 5 + (
-    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p)
+    ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_float, ctypes.c_void_p)
 
 
 def _suffix(dtype) -> str:
@@ -241,16 +242,24 @@ bsr_spmv_blocks.launches = 0
 
 
 def bsr_spmm_blocks(values, block_rowptr, block_colind, b,
-                    column_order=None, tc=True) -> torch.Tensor:
+                    column_order=None, tc=True, amax=None) -> torch.Tensor:
     """C = A @ B over raw BSR arrays of one real dtype and a row-major B;
     returns (mb * bh, k).  CUDA tensors launch ``bsr_spmm.cu`` (f32: its
     two tensor-core passes over the column list ``column_order``, from
-    ``BSR.column_order`` or built here, cut past the scratch budget; with
-    ``tc`` False, or f64: one FMA launch); CPU tensors take
-    :func:`bsr_spmm_reference`."""
+    ``BSR.column_order`` or built here, cut past the scratch budget, then
+    the FMA kernel gated by the call's flag, which the passes raise where
+    a B value fails the test against ``types.tf32_b_limit(amax)``;
+    ``amax`` is the blocks' largest magnitude, ``BSR.tf32_amax``, required
+    there; with ``tc`` False, or f64: one FMA launch); CPU tensors take
+    :func:`bsr_spmm_reference`.  ``launches`` counts the kernel launches
+    but the gated one, which ``gated`` counts; the flag of the last call
+    stays readable as ``bsr_spmm_blocks.flag``, the path it took."""
     _check_operands(values, block_rowptr, block_colind, b, 2)
     if not _t.on_cuda(values):
         return bsr_spmm_reference(values, block_rowptr, block_colind, b)
+    if tc and values.dtype == torch.float32 and amax is None:
+        raise ValueError("bsr_spmm: amax, the blocks' largest magnitude "
+                         "(BSR.tf32_amax), is required on the tensor cores")
     cap, bh, bw = values.shape
     mb = int(block_rowptr.shape[0]) - 1
     k = int(b.shape[1])
@@ -263,9 +272,11 @@ def bsr_spmm_blocks(values, block_rowptr, block_colind, b,
                                      _SPMM_ARGTYPES)(
             values.data_ptr(), block_rowptr.data_ptr(),
             block_colind.data_ptr(), b.data_ptr(), c.data_ptr(), mb, bh, bw,
-            k, 0, stream), "bsr_spmm")
+            k, 0, None, stream), "bsr_spmm")
         bsr_spmm_blocks.launches += 1
         return c
+    lim = _t.tf32_b_limit(amax)
+    flag = torch.zeros(1, dtype=torch.int32, device=values.device)
     ncb = -(-int(b.shape[0]) // max(bw, 1))
     col_ptr, col_order = (column_order if column_order is not None
                           else block_column_order(block_rowptr, block_colind,
@@ -284,8 +295,16 @@ def bsr_spmm_blocks(values, block_rowptr, block_colind, b,
             cp.data_ptr(), co.data_ptr(), b.data_ptr() + 4 * p0,
             partial.data_ptr(), c.data_ptr() + 4 * (r0 * bh * k + p0),
             r1 - r0, int(cp.shape[0]) - 1, bh, bw, p1 - p0, k, k, vec,
-            stream), "bsr_spmm")
+            flag.data_ptr(), lim, stream), "bsr_spmm")
         bsr_spmm_blocks.launches += 2     # the products, then the row sums
+    # the exact product, which runs only when the flag is up
+    _build.check(_build.function("bsr_spmm", "bsr_spmm_f32_fma",
+                                 _SPMM_ARGTYPES)(
+        values.data_ptr(), block_rowptr.data_ptr(), block_colind.data_ptr(),
+        b.data_ptr(), c.data_ptr(), mb, bh, bw, k, 0, flag.data_ptr(),
+        stream), "bsr_spmm")
+    bsr_spmm_blocks.gated += 1
+    bsr_spmm_blocks.flag = flag
     return c
 
 
@@ -344,6 +363,8 @@ def spmm_phases(block_rowptr, block_colind, col_ptr, col_order, cap, bh,
 
 
 bsr_spmm_blocks.launches = 0
+bsr_spmm_blocks.gated = 0
+bsr_spmm_blocks.flag = None
 
 
 def _apply(fn, a: BSR, x: torch.Tensor) -> torch.Tensor:
@@ -391,9 +412,10 @@ def bsr_spmm(a: BSR, b: torch.Tensor) -> torch.Tensor:
     if not _t.on_cuda(a.values):
         return _apply(bsr_spmm_blocks, a, b)
     # the f32 kernel's column list, made once and kept on the BSR; blocks
-    # with nonzero f32 entries below 2^-112 (a.tf32_exact False) take the
-    # FMA kernel, where the 3xTF32 split would keep fewer bits (B is not
-    # tested: csrc/tf32_mma.cuh, Limits)
+    # with nonzero f32 entries below 2^-112, an infinity or a NaN
+    # (a.tf32_exact False) take the FMA kernel, where the 3xTF32 split
+    # would keep fewer bits; B is tested in the kernel against the blocks'
+    # largest magnitude (csrc/tf32_mma.cuh, Limits)
     return _apply(functools.partial(bsr_spmm_blocks,
                                     column_order=a.column_order,
-                                    tc=a.tf32_exact), a, b)
+                                    tc=a.tf32_exact, amax=a.tf32_amax), a, b)

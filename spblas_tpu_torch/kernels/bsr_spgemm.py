@@ -257,8 +257,12 @@ def bsr_spgemm_numeric(plan: BsrSpgemmPlan, a: BSR, b: BSR) -> BSR:
                                             device=dev),
                    nnz_blocks=0, shape=plan.shape,
                    block_shape=plan.block_shape)
+    # operands the 3xTF32 split cannot carry (tf32_exact), or whose
+    # largest magnitudes make a product of the split pass FLT_MAX, take
+    # the f64 kernel (csrc/tf32_mma.cuh, Limits)
     c_blocks = _blocks(plan, a.values, b.values, out_dtype,
-                       exact=a.tf32_exact and b.tf32_exact)
+                       exact=a.tf32_exact and b.tf32_exact
+                       and _t.tf32_products_safe(a.tf32_amax, b.tf32_amax))
     cap = _t.quantize_capacity(max(nnzb_c, 1))
     pad = cap - nnzb_c
     values = torch.cat([c_blocks, c_blocks.new_zeros(pad, bh, bw)]) \

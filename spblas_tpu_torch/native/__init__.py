@@ -146,6 +146,14 @@ def _declare(lib):
     lib.spblas_level_schedule.argtypes = [i64, i64, i64p, i32p,
                                           ctypes.c_int32, ctypes.c_int32,
                                           i32p, i64p]
+    lib.spblas_mm_read.restype = i64
+    lib.spblas_mm_read.argtypes = [ctypes.c_char_p, i64, i64p,
+                                   ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.c_void_p]
+    lib.spblas_coo_to_csr.restype = None
+    lib.spblas_coo_to_csr.argtypes = [
+        i64, i64, i32p, i32p,
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"), i64p]
 
 
 def route2_pack(ne, ncells, cell_start, lrow, lcol, aux_windows_in=0,
@@ -517,3 +525,48 @@ def rcm(m, nnz, rowptr, colind):
     perm = np.zeros(m, np.int64)
     h = int(lib.spblas_rcm(int(m), int(nnz), rowptr, colind, perm))
     return perm, h
+
+
+def mm_read(path: str):
+    """Matrix Market coordinate file -> (rows, cols, vals, shape): rows
+    and cols int32, vals float64.
+
+    Symmetric/skew storage is expanded; duplicates preserved (the caller
+    coalesces).  Two calls of ``spblas_mm_read``: one counts the entries,
+    one fills buffers of that size.  Complex files raise ValueError (the
+    native reader is real-only)."""
+    lib = get_lib()
+    shape = np.zeros(2, np.int64)
+    n = int(lib.spblas_mm_read(path.encode(), 0, shape, None, None, None))
+    if n == -6:
+        raise ValueError(
+            f"mm_read({path}): complex Matrix Market files are not "
+            "supported")
+    if n < 0:
+        raise ValueError(f"mm_read({path}) failed with code {n}")
+    rows = np.zeros(max(n, 1), np.int32)
+    cols = np.zeros(max(n, 1), np.int32)
+    vals = np.zeros(max(n, 1), np.float64)
+    # the fill pass is bounded by the count pass's capacity: a file that
+    # changed between the two calls returns -7 instead of overrunning
+    # the buffers
+    n2 = int(lib.spblas_mm_read(
+        path.encode(), n, shape, rows.ctypes.data_as(ctypes.c_void_p),
+        cols.ctypes.data_as(ctypes.c_void_p),
+        vals.ctypes.data_as(ctypes.c_void_p)))
+    if n2 < 0:
+        raise ValueError(f"mm_read({path}) failed with code {n2}")
+    return rows[:n2], cols[:n2], vals[:n2], (int(shape[0]), int(shape[1]))
+
+
+def coo_to_csr(m, rows, cols, vals):
+    """Sort COO by (row, col) and build rowptr by the native counting
+    sort: (rows int32, cols int32, vals float64, rowptr int64[m + 1]).
+    The inputs are copied: the native kernel permutes its buffers in
+    place."""
+    rows = np.array(rows, dtype=np.int32, copy=True)
+    cols = np.array(cols, dtype=np.int32, copy=True)
+    vals = np.array(vals, dtype=np.float64, copy=True)
+    rowptr = np.zeros(m + 1, np.int64)
+    get_lib().spblas_coo_to_csr(m, len(rows), rows, cols, vals, rowptr)
+    return rows, cols, vals, rowptr

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 from typing import Optional
 
 import numpy as np
@@ -224,6 +225,8 @@ def _try_build_route(a: CSR, b: CSR, d: Optional[CSR], c_capacity: int):
         return None
 
     from spblas_tpu_torch import native
+    from spblas_tpu_torch.utils.profiling import record_phase
+    t_exp = time.perf_counter()
     m = a.shape[0]
     a_nnz, b_nnz = a.nnz, b.nnz
     a_rp = np.minimum(_t.to_numpy(a.rowptr).astype(np.int64), a_nnz)
@@ -253,6 +256,8 @@ def _try_build_route(a: CSR, b: CSR, d: Optional[CSR], c_capacity: int):
         total + d_nnz)
     if nnz_h > c_capacity:
         return None
+    record_phase("spgemm_engine", "expansion_s",
+                 time.perf_counter() - t_exp)
     if paned:
         # plan-size gate: mul chunks ~= occupied (slot-stripe, B-window)
         # cells; refuse past the chunk budget (the torch numeric takes
@@ -270,8 +275,13 @@ def _try_build_route(a: CSR, b: CSR, d: Optional[CSR], c_capacity: int):
         if est_chunks > int(os.environ.get("SPBLAS_MUL_CHUNK_BUDGET",
                                            400_000)):
             return None
-    return _build_route_packer(slots, sa, sb, a_len, b_len, c_capacity,
-                               paned=paned, device=a.device)
+    t_pack = time.perf_counter()
+    try:
+        return _build_route_packer(slots, sa, sb, a_len, b_len, c_capacity,
+                                   paned=paned, device=a.device)
+    finally:
+        record_phase("spgemm_engine", "pack_s",
+                     time.perf_counter() - t_pack)
 
 
 def _build_route_packer(slots, sa, sb, a_len, b_len, c_capacity,
@@ -342,7 +352,19 @@ def spgemm_compute(a_view, b_view, d_view=None,
             f"requested capacity {c_capacity}")
     c_colind, slot_all = _structure_fill(cols_s, heads, slots, valid_s,
                                          int(c_capacity))
-    route = _try_build_route(a, b, d, int(c_capacity)) if reuse else None
+    route = None
+    if reuse:
+        from spblas_tpu_torch.utils.profiling import record_phase
+        t0 = time.perf_counter()
+        route = _try_build_route(a, b, d, int(c_capacity))
+        record_phase("spgemm_engine", "build_s", time.perf_counter() - t0)
+        if (route is not None and _t.on_cuda(a.values)
+                and os.environ.get("SPBLAS_SYNC_UPLOAD") == "1"):
+            # the plan's uploads, waited for (transfer-time accounting)
+            t0 = time.perf_counter()
+            torch.cuda.synchronize(a.device)
+            record_phase("spgemm_engine", "upload_wait_s",
+                         time.perf_counter() - t0)
     plan = SpgemmPlan(src_a=src_a_s, src_b=src_b_s, is_d=is_d_s,
                       valid=valid_s, slot=slot_all, c_rowptr=c_rowptr,
                       c_colind=c_colind, c_nnz=nnz, shape=(m, n),

@@ -27,6 +27,7 @@ and level caps) are the TPU's, kept for parity (ROADMAP Queue 1 item
 from __future__ import annotations
 
 import dataclasses
+import time
 import os
 from typing import Optional
 
@@ -113,6 +114,8 @@ def triangular_solve_inspect(a_view, uplo: str = "lower",
     unit = _check_diag(diag)
     dev = a.device
     values_h = None
+    from spblas_tpu_torch.utils.profiling import record_phase
+    t0 = time.perf_counter()
     if host_arrays is not None:
         rowptr = np.asarray(host_arrays[0]).astype(np.int64)
         colind = np.asarray(host_arrays[1])
@@ -122,9 +125,13 @@ def triangular_solve_inspect(a_view, uplo: str = "lower",
         rowptr = _t.to_numpy(a.rowptr).astype(np.int64)
         colind = _t.to_numpy(a.colind)
     nnz = int(a.nnz)
+    record_phase("trsv_inspect", "pull_s", time.perf_counter() - t0)
 
+    t0 = time.perf_counter()
     levels, diag_pos, num_levels = native.level_schedule(
         m, nnz, rowptr, colind, lower, unit)
+    record_phase("trsv_inspect", "schedule_s", time.perf_counter() - t0)
+    t0 = time.perf_counter()
 
     # ragged schedule assembly from (levels, diag_pos)
     lo = np.minimum(rowptr[:-1], nnz)
@@ -164,6 +171,7 @@ def triangular_solve_inspect(a_view, uplo: str = "lower",
     dpos = np.concatenate([diag_pos.astype(np.int64)[order] if m else
                            np.zeros(0, np.int64),
                            np.full(r_cap, -1, np.int64)])
+    record_phase("trsv_inspect", "ragged_pack_s", time.perf_counter() - t0)
 
     route = route_diag = vals_ref = route_dpe = blocked = None
     if _route_solve_eligible(a, m, nnz, num_levels):

@@ -95,23 +95,54 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 TF32_TINY = 2.0 ** -112
 
 
-def tf32_exact(values: torch.Tensor) -> bool:
-    """True when every entry of an f32 (or complex64) ``values`` is finite
-    and none that is nonzero lies below :data:`TF32_TINY` in magnitude:
-    then the 3xTF32 tensor-core kernels keep f32 accuracy on it and
-    propagate its infinities and NaNs as the f32 product does
-    (``csrc/tf32_mma.cuh``, Limits).  bf16 values must also be finite (a
-    bf16 panel is not split); f64 is never split: True.  One pass over
-    ``values`` and one host read; callers keep the answer with the
-    operand (``BSR.tf32_exact``, ``BandPlan.tf32_exact``)."""
-    if values.dtype == torch.bfloat16:
-        return bool(torch.isfinite(values).all())
-    if values.dtype not in (torch.float32, torch.complex64):
-        return True
+def tf32_gate(values: torch.Tensor):
+    """(exact, amax) of an operand of the 3xTF32 kernels, from one pass
+    and one host read.  ``exact`` is True when every entry of an f32 (or
+    complex64) ``values`` is finite and none that is nonzero lies below
+    :data:`TF32_TINY` in magnitude: then the kernels keep f32 accuracy on
+    it and propagate its infinities and NaNs as the f32 product does
+    (``csrc/tf32_mma.cuh``, Limits); bf16 values must be finite (a bf16
+    panel is not split); f64 is never split: True.  ``amax`` is the
+    largest magnitude of a finite operand (of its real and imaginary
+    parts), the bound :func:`tf32_b_limit` sets the dense B's test from
+    (f64: 0.0, unused).  Callers keep both with the operand
+    (``BSR.tf32_exact``, ``BandPlan.tf32_exact`` and their ``tf32_amax``)."""
+    if values.dtype not in (torch.float32, torch.complex64, torch.bfloat16):
+        return True, 0.0
     v = torch.view_as_real(values) if values.is_complex() else values
-    mag = v.abs()
-    return not bool((((mag > 0) & (mag < TF32_TINY))
-                     | ~torch.isfinite(mag)).any())
+    mag = v.abs().float()
+    if mag.numel() == 0:
+        return True, 0.0
+    bad = ~torch.isfinite(mag)
+    if values.dtype != torch.bfloat16:
+        bad |= (mag > 0) & (mag < TF32_TINY)
+    flag, amax = torch.stack([bad.any().float(), mag.max()]).tolist()
+    return not flag, float(amax)
+
+
+def tf32_b_limit(amax: float) -> float:
+    """The largest |b| of a dense B value that the 3xTF32 kernels take
+    against a sparse operand whose largest magnitude is ``amax``: no
+    product of the split (a_hi b_hi, a_hi b_lo, a_lo b_hi) can then pass
+    FLT_MAX.  |x_hi| <= |x| (1 + 2^-11) and |x_lo| <= 2^-11 |x|, so every
+    product is below |a| |b| (1 + 2^-9): the limit is FLT_MAX / (amax (1
+    + 2^-9)), rounded down to f32 (FLT_MAX for amax 0), which every
+    infinity and NaN fails.  ``csrc/tf32_mma.cuh``, Limits, states the
+    rule the kernels apply."""
+    fmax = float(np.finfo(np.float32).max)
+    lim = fmax if amax <= 0 else min(
+        fmax, fmax / (float(amax) * (1.0 + 2.0 ** -9)))
+    f = np.float32(lim)
+    if float(f) > lim:
+        f = np.nextafter(f, np.float32(0))
+    return float(f)
+
+
+def tf32_products_safe(amax_a: float, amax_b: float) -> bool:
+    """True when no product of the 3xTF32 split of two sparse operands
+    with these largest magnitudes can pass FLT_MAX: the block SpGEMM's
+    host form of the dense B's test (:func:`tf32_b_limit`)."""
+    return amax_b <= tf32_b_limit(amax_a)
 
 
 def wide_matmul(fn, *ts) -> torch.Tensor:

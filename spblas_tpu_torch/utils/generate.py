@@ -14,6 +14,8 @@ import numpy as np
 import torch
 
 from spblas_tpu_torch import types as _t
+from spblas_tpu_torch.formats.coo import COO
+from spblas_tpu_torch.formats.csc import CSC
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.formats.dcsr import DCSR
 
@@ -42,10 +44,26 @@ def _coo_arrays(m, n, nnz, seed=0, dtype=np.float32, complex_=False):
     return vals, rows, cols
 
 
+def generate_coo(m, n, nnz, seed=0, dtype=np.float32, complex_=False,
+                 capacity=None, device=None) -> COO:
+    """COO of unique entries, sorted row-major."""
+    vals, rows, cols = _coo_arrays(m, n, nnz, seed, dtype, complex_)
+    return COO.from_arrays(vals, rows, cols, (m, n), nnz=nnz,
+                           capacity=capacity, device=device)
+
+
 def _rows_to_rowptr(rows, m):
     rowptr = np.zeros(m + 1, dtype=np.int64)
     np.add.at(rowptr[1:], rows, 1)
     return np.cumsum(rowptr)
+
+
+def generate_csr_sorted(m, n, nnz, seed=0, dtype=np.float32, complex_=False,
+                        capacity=None, device=None) -> CSR:
+    """CSR with sorted column indices within rows."""
+    vals, rows, cols = _coo_arrays(m, n, nnz, seed, dtype, complex_)
+    return CSR.from_arrays(vals, _rows_to_rowptr(rows, m), cols, (m, n),
+                           nnz=nnz, capacity=capacity, device=device)
 
 
 def generate_csr_arrays(m, n, nnz, seed=0, dtype=np.float32,
@@ -69,6 +87,27 @@ def generate_csr(m, n, nnz, seed=0, dtype=np.float32, complex_=False,
                            capacity=capacity, device=device)
 
 
+def _csc_of(t: CSR, m, n) -> CSC:
+    """The CSC of an m x n matrix whose n x m transpose's CSR is ``t``."""
+    return CSC(values=t.values, colptr=t.rowptr, rowind=t.colind,
+               nnz=t.nnz, shape=(m, n))
+
+
+def generate_csc_sorted(m, n, nnz, seed=0, dtype=np.float32, complex_=False,
+                        capacity=None, device=None) -> CSC:
+    """CSC of an m x n matrix = CSR of the n x m transpose, row indices
+    sorted within columns."""
+    return _csc_of(generate_csr_sorted(n, m, nnz, seed, dtype, complex_,
+                                       capacity, device), m, n)
+
+
+def generate_csc(m, n, nnz, seed=0, dtype=np.float32, complex_=False,
+                 capacity=None, device=None) -> CSC:
+    """CSC with row indices shuffled within columns."""
+    return _csc_of(generate_csr(n, m, nnz, seed, dtype, complex_, capacity,
+                                device), m, n)
+
+
 def generate_dense(m, n, seed=0, dtype=np.float32, complex_=False,
                    device=None) -> torch.Tensor:
     """Dense U[0, 100) matrix."""
@@ -80,6 +119,14 @@ def generate_dense(m, n, seed=0, dtype=np.float32, complex_=False,
     else:
         arr = rng.uniform(0, 100, (m, n)).astype(dtype)
     return _t.as_tensor(arr, _t.resolve_device(device))
+
+
+def generate_gaussian(m, n, seed=0, dtype=np.float32,
+                      device=None) -> torch.Tensor:
+    """Dense N(0, 1) matrix."""
+    rng = np.random.default_rng(seed)
+    return _t.as_tensor(rng.normal(0, 1, (m, n)).astype(dtype),
+                        _t.resolve_device(device))
 
 
 def generate_vector(n, seed=0, dtype=np.float32, complex_=False,
@@ -229,6 +276,75 @@ def generate_rmat_csr(n, nnz, seed=0, a=0.57, b=0.19, c=0.19,
         max(len(rows) / max(n, 1), 1.0)
     return CSR.from_arrays(vals, _rows_to_rowptr(rows, n), cols, (n, n),
                            nnz=len(rows), device=device)
+
+
+def generate_powerlaw_cluster_csr(n, attach=8, p_tri=0.5, seed=0,
+                                  dtype=np.float32, device=None) -> CSR:
+    """Scale-free graph with clustering (the Holme-Kim powerlaw-cluster
+    model): growing preferential attachment where each new link closes a
+    triangle with probability ``p_tri``.  Symmetric, zero-free diagonal,
+    values U(0.1, 1) scaled by 1/sqrt(deg) so row sums stay O(1).
+    ``data/powerlaw_64k.mtx.gz`` is its export at n 65,536, seed 7."""
+    rng = np.random.default_rng(seed)
+    attach = int(attach)
+    n = int(n)
+    if n <= attach + 1:
+        raise ValueError("n must exceed attach+1")
+    adj = [set() for _ in range(n)]
+    # endpoint pool: each edge contributes both endpoints, so uniform
+    # draws from the pool are degree-proportional
+    pool = []
+    for v in range(attach + 1):          # seed clique
+        for u in range(v):
+            adj[v].add(u)
+            adj[u].add(v)
+            pool.append(u)
+            pool.append(v)
+    for v in range(attach + 1, n):
+        targets = set()
+        last = None
+        draws = rng.integers(0, 1 << 62, size=4 * attach)
+        coin = rng.random(attach)
+        di = 0
+        while len(targets) < attach:
+            t = None
+            if last is not None and coin[len(targets) % attach] < p_tri:
+                # triangle step: a random neighbor of the last target
+                nbrs = adj[last]
+                if nbrs:
+                    cand = list(nbrs)[int(draws[di] % len(nbrs))]
+                    di = (di + 1) % len(draws)
+                    if cand != v and cand not in targets:
+                        t = cand
+            if t is None:                 # preferential-attachment step
+                t = pool[int(draws[di] % len(pool))]
+                di = (di + 1) % len(draws)
+                if t == v or t in targets:
+                    last = None
+                    continue
+            targets.add(t)
+            last = t
+        for t in targets:
+            adj[v].add(t)
+            adj[t].add(v)
+            pool.append(v)
+            pool.append(t)
+    rows = np.concatenate([np.full(len(adj[v]), v, np.int64)
+                           for v in range(n)])
+    cols = np.concatenate([np.fromiter(adj[v], np.int64, len(adj[v]))
+                           for v in range(n)])
+    deg = np.bincount(rows, minlength=n)
+    # one value per undirected edge (numerically symmetric): a u<v
+    # half-edge draws the value, the mirror looks it up by edge key
+    lo = np.minimum(rows, cols)
+    hi = np.maximum(rows, cols)
+    key = lo * n + hi
+    uniq, inv = np.unique(key, return_inverse=True)
+    edge_vals = rng.uniform(0.1, 1.0, len(uniq))
+    scale = 1.0 / np.sqrt(np.maximum(deg[lo], 1) *
+                          np.maximum(deg[hi], 1)) ** 0.5
+    vals = (edge_vals[inv] * scale).astype(dtype)
+    return _coo_to_csr(rows, cols, vals, (n, n), device=device)
 
 
 def generate_triangular_csr(m, seed=0, lower=True, unit_diag=False,

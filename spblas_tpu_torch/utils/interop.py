@@ -1,8 +1,16 @@
-"""Carrying state across from the JAX package.
+"""Interop with scipy.sparse and torch.sparse, and carrying state across
+from the JAX package.
+
+``from_scipy``/``to_scipy`` are the JAX package's; ``from_torch_sparse``
+and ``to_torch_sparse`` take the place of its BCOO bridges
+(``from_bcoo``/``to_bcoo``), with torch's sparse COO and CSR tensors on
+the operand's device.
 
 The JAX package's arrays, handed over as numpy (``np.asarray`` of its
 containers and plans), become the port's objects on ``device`` bit for
-bit.  With these, both packages run on the same matrix and the same plan.
+bit: every plan that ``utils.serialize.load_plan`` returns has a loader
+here.  With these, both packages run on the same matrix and the same
+plan.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.formats.bsr import BSR
 from spblas_tpu_torch.formats.coo import COO
 from spblas_tpu_torch.formats.csc import CSC
+from spblas_tpu_torch.formats.convert import to_coo, to_csr
 from spblas_tpu_torch.formats.csr import CSR
 from spblas_tpu_torch.formats.dcsr import DCSR
 from spblas_tpu_torch.kernels.banded import BandPlan, PermutedBandPlan
@@ -30,6 +39,74 @@ from spblas_tpu_torch.kernels.route_mul_paned import (MulPanedPanel,
 from spblas_tpu_torch.kernels.route_paned import (CB, PanedPanel,
                                                   RoutePanedPlan)
 from spblas_tpu_torch.kernels.route_plan import RoutePlan, fuse_levels
+
+
+def from_scipy(a, capacity=None, device=None) -> CSR:
+    """scipy.sparse matrix -> CSR container on ``device``."""
+    a = a.tocsr()
+    return CSR.from_arrays(a.data, a.indptr, a.indices, a.shape,
+                           nnz=a.nnz, capacity=capacity, device=device)
+
+
+def to_scipy(a):
+    """Any container -> scipy.sparse.csr_matrix (its live entries, read
+    to the host)."""
+    import scipy.sparse as sps
+
+    a = to_csr(a)
+    nnz = int(a.nnz)
+    m, n = a.shape
+    return sps.csr_matrix(
+        (_t.to_numpy(a.values)[:nnz], _t.to_numpy(a.colind)[:nnz],
+         _t.to_numpy(a.rowptr)[: m + 1]), shape=(m, n))
+
+
+def from_torch_sparse(t: torch.Tensor, capacity=None) -> CSR:
+    """A rank-2 ``torch.sparse_coo`` or ``torch.sparse_csr`` tensor (no
+    batch or dense dimensions) -> CSR on the tensor's device, its entries
+    sorted by (row, col) and kept as they are (duplicates of an
+    uncoalesced COO tensor stay two entries, as JAX's ``from_bcoo`` keeps
+    BCOO's)."""
+    if t.layout == torch.sparse_csr:
+        crow, cols, vals = t.crow_indices(), t.col_indices(), t.values()
+        rows = torch.repeat_interleave(
+            torch.arange(t.shape[0], device=t.device),
+            (crow[1:] - crow[:-1]).long())
+    elif t.layout == torch.sparse_coo:
+        if t.sparse_dim() != 2 or t.dense_dim() != 0:
+            raise ValueError("only plain rank-2 sparse tensors (no batch "
+                             "or dense dims)")
+        idx, vals = t._indices(), t._values()
+        rows, cols = idx[0], idx[1]
+    else:
+        raise ValueError(f"not a sparse COO or CSR tensor: {t.layout}")
+    m, n = t.shape
+    rows, cols = rows.long(), cols.long()
+    order = torch.argsort(rows * n + cols, stable=True)
+    rows, cols, vals = rows[order], cols[order], vals[order]
+    rowptr = torch.zeros(m + 1, dtype=torch.int64, device=t.device)
+    rowptr[1:] = torch.cumsum(torch.bincount(rows, minlength=m), 0)
+    return CSR.from_arrays(vals, rowptr, cols, (m, n), nnz=int(len(vals)),
+                           capacity=capacity, device=t.device)
+
+
+def to_torch_sparse(a, layout=torch.sparse_coo) -> torch.Tensor:
+    """Any container -> a torch sparse tensor of ``layout`` (COO, as
+    JAX's ``to_bcoo`` gives BCOO, or CSR) over its live entries, on the
+    container's device."""
+    if layout == torch.sparse_csr:
+        c = to_csr(a)
+        nnz = int(c.nnz)
+        return torch.sparse_csr_tensor(
+            c.rowptr[: c.shape[0] + 1].long(), c.colind[:nnz].long(),
+            c.values[:nnz], size=c.shape)
+    if layout != torch.sparse_coo:
+        raise ValueError(f"layout must be sparse_coo or sparse_csr, got "
+                         f"{layout}")
+    coo = to_coo(a)
+    nnz = int(coo.nnz)
+    idx = torch.stack([coo.rowind[:nnz].long(), coo.colind[:nnz].long()])
+    return torch.sparse_coo_tensor(idx, coo.values[:nnz], size=coo.shape)
 
 
 def csr_from_numpy(values, rowptr, colind, nnz, shape,
@@ -333,3 +410,40 @@ def bsr_spgemm_plan_from_numpy(pair_ptr, pair_a, pair_b, c_rowptr,
         c_colind=_t.as_tensor(np.asarray(c_colind), dev, _t.index_dtype),
         shape=(int(shape[0]), int(shape[1])),
         block_shape=(int(block_shape[0]), int(block_shape[1])))
+
+
+def trsv_plan_from_numpy(arrays: dict, static: dict, route=None,
+                         device=None):
+    """A TrsvPlan over a JAX one's arrays (as numpy, keyed by field name:
+    ent_idx, ent_col, ent_slot, lv_estart, row_ids, diag_idx, lv_rstart,
+    and where it has a route, route_diag, route_vals_ref, route_dpe), its
+    static fields (e_cap, r_cap, uplo, unit_diag, m) and its ROUTE2 solve
+    plan ``route`` (a port plan, or None).  The host level offsets are
+    derived from the arrays; the values token does not survive the trip,
+    so a routed solve re-bakes its values (``route_dpe``)."""
+    from spblas_tpu_torch.ops.triangular_solve import TrsvPlan
+    dev = _t.resolve_device(device)
+    put = {k: None if v is None else _t.as_tensor(np.asarray(v), dev)
+           for k, v in arrays.items()}
+    return TrsvPlan(
+        **put, **static, route=route,
+        lv_estart_host=np.asarray(arrays["lv_estart"]).astype(np.int64),
+        lv_rstart_host=np.asarray(arrays["lv_rstart"]).astype(np.int64))
+
+
+def spgemm_plan_from_numpy(arrays: dict, static: dict, route=None,
+                           device=None):
+    """A SpgemmPlan over a JAX one's arrays (src_a, src_b, is_d, valid,
+    slot, c_rowptr, c_colind, and c_nnz, a 0-d array held here as a host
+    int), its static fields (shape, has_d, a_capacity, b_capacity,
+    d_capacity) and its mul engine plan ``route`` (a port plan, or
+    None)."""
+    from spblas_tpu_torch.ops.spgemm import SpgemmPlan
+    dev = _t.resolve_device(device)
+    arrays = dict(arrays)
+    c_nnz = int(np.asarray(arrays.pop("c_nnz")))
+    static = dict(static)
+    static["shape"] = (int(static["shape"][0]), int(static["shape"][1]))
+    return SpgemmPlan(
+        **{k: _t.as_tensor(np.asarray(v), dev) for k, v in arrays.items()},
+        c_nnz=c_nnz, **static, route=route)

@@ -379,7 +379,7 @@ def test_low_end_operands_take_the_exact_kernels(monkeypatch):
                         lambda *a: calls.append("fma") or
                         banded.band_spmm_inplace_reference(*a))
     monkeypatch.setattr(banded, "band_spmm_stream_inplace",
-                        lambda *a: calls.append("tc") or
+                        lambda *a, amax: calls.append("tc") or
                         banded.band_spmm_inplace_reference(*a))
     for plan in (band, dataclasses.replace(
             band, panels=band.panels * 2.0 ** -120)):

@@ -188,13 +188,14 @@ def test_default_device_raises_without_cuda(ctor, monkeypatch):
 
 
 def test_public_surface_matches_jax():
-    """The port exports every name of the JAX package's ``__all__``;
-    only its ``solvers`` module (not listed there) is still missing."""
+    """The port exports every name of the JAX package's ``__all__``, and
+    its ``solvers`` module (not listed there) with the same solvers."""
     assert set(sp.__all__) <= set(tsp.__all__), \
         set(sp.__all__) - set(tsp.__all__)
     for name in sp.__all__:
         assert getattr(tsp, name) is not None
-    assert hasattr(sp, "solvers") and not hasattr(tsp, "solvers")
+    for name in ("cg", "power_method", "jacobi", "CGResult", "PowerResult"):
+        assert hasattr(sp.solvers, name) and hasattr(tsp.solvers, name)
 
 
 def test_generators_match_jax_arrays():
@@ -261,7 +262,12 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                 "spblas_tpu_torch.ops.transpose",
                 "spblas_tpu_torch.ops.scale",
                 "spblas_tpu_torch.formats.dcsr",
-                "spblas_tpu_torch.kernels.ell"} <= seen, seen
+                "spblas_tpu_torch.kernels.ell",
+                "spblas_tpu_torch.solvers",
+                "spblas_tpu_torch.utils.io",
+                "spblas_tpu_torch.utils.serialize",
+                "spblas_tpu_torch.utils.profiling",
+                "spblas_tpu_torch.utils.interop"} <= seen, seen
         from spblas_tpu_torch.kernels import plans
         from spblas_tpu_torch.utils import generate as gen
         a = gen.generate_banded_csr(500, 500, 9, seed=0, device="cpu")
@@ -341,6 +347,21 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                                         (600, 600))
         y = banded.band_power_iterations(p, torch.ones(600), 3)
         assert y.shape == (600,) and bool(y.isfinite().all())
+        # the solvers, the Matrix Market reader (native) and a plan file
+        a = gen.generate_banded_csr(400, 400, 9, seed=13, device="cpu")
+        r = sp.solvers.cg(sp.matrix_opt(sp.add(a, sp.transpose(a))),
+                          torch.ones(400), maxiter=3)
+        assert int(r.iterations) == 3
+        from spblas_tpu_torch.utils import interop, io, serialize
+        a = io.load_matrix_market("data/fem2d_128.mtx.gz", device="cpu")
+        assert a.shape == (16384, 16384)
+        import tempfile
+        with tempfile.TemporaryDirectory() as tmp:
+            plan = banded.build_band_plan(interop.from_scipy(
+                interop.to_scipy(L), device="cpu"))
+            serialize.save_plan(tmp + "/p.npz", plan)
+            back = serialize.load_plan(tmp + "/p.npz", device="cpu")
+            assert torch.equal(back.panels, plan.panels)
         assert "jax" not in sys.modules or sys.modules["jax"] is None
         print("ok")
     """)

@@ -161,8 +161,9 @@ def test_plan_spmm_streams_b_past_the_resident_limit(monkeypatch):
     calls = []
     for name in ("band_spmm_inplace", "band_spmm_stream_inplace"):
         fn = getattr(tbanded, name)
-        monkeypatch.setattr(tbanded, name, lambda *a, fn=fn, name=name: (
-            calls.append(name), fn(*a))[1])
+        monkeypatch.setattr(tbanded, name,
+                            lambda *a, fn=fn, name=name, **kw: (
+                                calls.append(name), fn(*a, **kw))[1])
     a = gen.generate_banded_csr(700, 700, 31, seed=9)
     plan = ("band", tbanded.build_band_plan(port_csr(a)))
     tplans.plan_spmm(plan, torch.zeros(700, 8))

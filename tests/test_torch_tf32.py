@@ -95,6 +95,12 @@ def model(a: torch.Tensor, b: torch.Tensor, fold: bool = True,
     return acc
 
 
+def tf32_exact(values: torch.Tensor) -> bool:
+    """The gate of the 3xTF32 kernels' sparse operand: the ``exact`` half
+    of ``types.tf32_gate``."""
+    return _t.tf32_gate(values)[0]
+
+
 def err_over_limit(c, a, b):
     ref = a.double() @ b.double()
     lim = 64 * EPS * (a.double().abs() @ b.double().abs())
@@ -252,7 +258,7 @@ def test_infinities_propagate_as_the_f32_product():
     inf = torch.isinf(ref)
     assert inf.any() and torch.isnan(ref).any()
     assert torch.equal(torch.sign(c[inf]), torch.sign(ref[inf]))
-    assert not _t.tf32_exact(a) and not _t.tf32_exact(a.to(torch.bfloat16))
+    assert not tf32_exact(a) and not tf32_exact(a.to(torch.bfloat16))
 
 
 def test_block_spgemm_depth_needs_the_fold():
@@ -278,10 +284,10 @@ def test_low_end_scaled_operands_need_the_gate(depth):
     b = b / 128 * 2.0 ** 120
     assert float(a[a > 0].abs().min()) < 2.0 ** -126   # subnormal lo parts
     assert err_over_limit(model(a, b), a, b) > 0.25
-    assert not _t.tf32_exact(a) and _t.tf32_exact(b)
+    assert not tf32_exact(a) and tf32_exact(b)
     # at 2^-80 the same operands keep f32 accuracy, and pass the gate
     a2 = a * 2.0 ** 40
-    assert _t.tf32_exact(a2) and err_over_limit(model(a2, b), a2, b) < 0.25
+    assert tf32_exact(a2) and err_over_limit(model(a2, b), a2, b) < 0.25
 
 
 def test_tf32_exact_flags_only_tiny_nonzeros():
@@ -289,15 +295,15 @@ def test_tf32_exact_flags_only_tiny_nonzeros():
     magnitude, or an infinity or a NaN (bf16 too, which is not split);
     zeros, 2^-112 itself, finite bf16 and f64 values pass."""
     x = torch.tensor([0.0, -0.0, 1.0, 2.0 ** -112, -3.0], dtype=torch.float32)
-    assert _t.tf32_exact(x)
+    assert tf32_exact(x)
     for bad in (float("inf"), -float("inf"), float("nan")):
-        assert not _t.tf32_exact(torch.cat([x, torch.tensor([bad])]))
-        assert not _t.tf32_exact(torch.tensor([bad]).to(torch.bfloat16))
-    assert not _t.tf32_exact(torch.cat([x, torch.tensor([-2.0 ** -113])]))
-    assert not _t.tf32_exact(torch.tensor([1.0 + 2.0 ** -120 * 1j],
+        assert not tf32_exact(torch.cat([x, torch.tensor([bad])]))
+        assert not tf32_exact(torch.tensor([bad]).to(torch.bfloat16))
+    assert not tf32_exact(torch.cat([x, torch.tensor([-2.0 ** -113])]))
+    assert not tf32_exact(torch.tensor([1.0 + 2.0 ** -120 * 1j],
                                           dtype=torch.complex64))
-    assert _t.tf32_exact(torch.tensor([2.0 ** -130], dtype=torch.float64))
-    assert _t.tf32_exact(torch.tensor([2.0 ** -120]).to(torch.bfloat16))
+    assert tf32_exact(torch.tensor([2.0 ** -130], dtype=torch.float64))
+    assert tf32_exact(torch.tensor([2.0 ** -120]).to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("values, want", [
@@ -317,7 +323,127 @@ def test_tf32_exact_layouts(values, want):
     fails, zeros pass), the same for every layout: f32, complex64 with
     the value in either part, and a strided view."""
     x = torch.tensor(values, dtype=torch.float32)
-    assert _t.tf32_exact(x) is want
-    assert _t.tf32_exact(torch.complex(x, torch.ones_like(x))) is want
-    assert _t.tf32_exact(torch.complex(torch.ones_like(x), x)) is want
-    assert _t.tf32_exact(torch.stack([x, x], 1)[:, 0]) is want
+    assert tf32_exact(x) is want
+    assert tf32_exact(torch.complex(x, torch.ones_like(x))) is want
+    assert tf32_exact(torch.complex(torch.ones_like(x), x)) is want
+    assert tf32_exact(torch.stack([x, x], 1)[:, 0]) is want
+
+
+# The dense B's test (csrc/tf32_mma.cuh, "What the kernels do about
+# it"): the kernels flag a B value nonzero below 2^-112, or one whose
+# magnitude is not at most types.tf32_b_limit of the sparse operand's
+# largest magnitude; one flagged value sends the call to the exact
+# kernel.
+INF, NAN = float("inf"), float("nan")
+
+
+def b_flags(b: torch.Tensor, amax: float) -> torch.Tensor:
+    """The kernels' test of each dense B value (``tf32_mma.cuh``,
+    ``b_fails``), elementwise: True where the value is nonzero and below
+    ``types.TF32_TINY`` in magnitude, or where its magnitude is not at
+    most ``types.tf32_b_limit(amax)`` (every infinity and NaN)."""
+    mag = b.float().abs()
+    return (((mag > 0) & (mag < _t.TF32_TINY))
+            | ~(mag <= _t.tf32_b_limit(amax)))
+
+
+@pytest.mark.parametrize("amax, value, flagged", [
+    (1.0, 0.0, False), (1.0, -0.0, False), (1.0, 2.0 ** -112, False),
+    (1.0, -2.0 ** -113, True), (1.0, 2.0 ** -149, True), (1.0, 1.0, False),
+    (1.0, 2.0 ** 127, False), (1.0, -1.999 * 2.0 ** 127, True),
+    (1.0, INF, True), (1.0, -INF, True), (1.0, NAN, True),
+    (2.0 ** 64, 2.0 ** 63, False), (2.0 ** 64, -0.99 * 2.0 ** 64, False),
+    (2.0 ** 64, 0.999 * 2.0 ** 64, True), (0.0, 2.0 ** 127, False),
+    (0.0, INF, True), (INF, 1.0, True), (INF, 0.0, False)])
+def test_b_flag_rule(amax, value, flagged):
+    b = torch.tensor([value], dtype=torch.float32)
+    assert bool(b_flags(b, amax)[0]) is flagged
+
+
+@pytest.mark.parametrize("amax", [1.9, 1.9 * 2.0 ** 64, 1.3 * 2.0 ** 100])
+def test_unflagged_b_keeps_every_product_finite(amax):
+    """B just inside the limit against A at its largest magnitude: no
+    product of the split passes FLT_MAX, and the modelled kernel gives
+    the f32 product within the tolerance; the limit is within 2^-7 of
+    the true overflow boundary, so it flags little that is safe."""
+    fmax = float(torch.finfo(torch.float32).max)
+    lim = _t.tf32_b_limit(amax)
+    assert lim * amax >= fmax * (1 - 2.0 ** -7)
+    rng = np.random.default_rng(10)
+    a = torch.from_numpy((rng.choice([-1.0, 1.0], (6, 1)) * amax)
+                         .astype(np.float32))
+    b = torch.from_numpy((rng.choice([-1.0, 1.0], (1, 5))
+                          * rng.uniform(0.5, 1.0 - 2.0 ** -10, (1, 5))
+                          * lim).astype(np.float32))
+    assert not b_flags(b, amax).any()
+    ahi, alo = split(a)
+    bhi, blo = split(b)
+    for x, y in ((ahi, bhi), (ahi, blo), (alo, bhi)):
+        assert ((x.double() @ y.double()).abs() <= fmax).all()
+    c = model(a, b)
+    assert torch.isfinite(c).all()
+    assert err_over_limit(c, a, b) <= 1.0
+
+
+def test_flagged_b_edges_break_the_split():
+    """The two B edges that chip_smoke.py measured on the card before
+    the flag existed: B at 2^-120 against A at 2^120 reads past a
+    quarter of the limit in the model; B's infinities against A at 2^16
+    read NaN on the card where the f32 product is infinite (the model
+    sums each step in float64, so it cannot show that one).  Every such
+    B value is flagged."""
+    a, b = operands(64, 232, 8, True, 11)
+    a_hi, b_lo = a * 2.0 ** 120, b / 100 * 2.0 ** -120
+    assert tf32_exact(a_hi)
+    assert err_over_limit(model(a_hi, b_lo), a_hi, b_lo) > 0.25
+    amax = _t.tf32_gate(a_hi)[1]
+    assert b_flags(b_lo, amax)[b_lo != 0].all()
+    rng = np.random.default_rng(12)
+    a16 = torch.from_numpy((rng.standard_normal((64, 24)) * 2.0 ** 16)
+                           .astype(np.float32))
+    b_inf = torch.from_numpy(rng.uniform(-1, 1, (24, 8)).astype(np.float32))
+    b_inf[5, ::2] = INF
+    b_inf[9, 1::2] = -INF
+    flags = b_flags(b_inf, _t.tf32_gate(a16)[1])
+    assert torch.equal(flags, torch.isinf(b_inf))
+
+
+def test_tf32_gate_keeps_the_largest_magnitude():
+    """One pass gives the gate and max|A| (of both parts of a complex
+    operand); the block SpGEMM's host test of two maxima is the B limit's
+    test on the larger side."""
+    x = torch.tensor([1.0, -3.0, 2.0 ** -112, 0.0])
+    assert _t.tf32_gate(x) == (True, 3.0)
+    cx = torch.complex(x, torch.tensor([0.0, 0.0, -5.0, 0.0]))
+    assert _t.tf32_gate(cx) == (True, 5.0)
+    assert _t.tf32_gate(torch.tensor([1.0, INF]))[0] is False
+    assert _t.tf32_gate(torch.tensor([2.0 ** -113]))[0] is False
+    assert _t.tf32_gate(torch.zeros(0)) == (True, 0.0)
+    assert _t.tf32_gate(torch.tensor([4.0]).to(torch.bfloat16)) == (True,
+                                                                   4.0)
+    assert _t.tf32_products_safe(2.0 ** 64, 2.0 ** 63)
+    assert not _t.tf32_products_safe(2.0 ** 64, 2.0 ** 64)
+
+
+def test_tensor_core_wrappers_require_amax_on_cuda(monkeypatch):
+    """The raw tensor-core wrappers test B against the sparse operand's
+    largest magnitude, which the caller passes (``BandPlan.tf32_amax``,
+    ``BSR.tf32_amax``): without it a CUDA call raises before it launches
+    (no pass over the operand to find it); a CPU call takes the plain
+    version and needs none."""
+    from spblas_tpu_torch.kernels import banded, bsr_kernels as bk
+    panels, bp = torch.zeros(256, 136), torch.zeros(264, 4)
+    values = torch.zeros(1, 8, 8)
+    rowptr = torch.tensor([0, 1], dtype=torch.int32)
+    colind = torch.zeros(1, dtype=torch.int32)
+    b = torch.zeros(8, 4)
+    assert banded.band_spmm_stream_padded(panels, bp).shape == (256, 4)
+    assert bk.bsr_spmm_blocks(values, rowptr, colind, b).shape == (8, 4)
+    monkeypatch.setattr(_t, "on_cuda", lambda t: True)
+    with pytest.raises(ValueError, match="amax"):
+        banded.band_spmm_stream_padded(panels, bp)
+    with pytest.raises(ValueError, match="amax"):
+        banded.band_spmm_stream_inplace(panels, torch.zeros(250, 4), 4,
+                                        256)
+    with pytest.raises(ValueError, match="amax"):
+        bk.bsr_spmm_blocks(values, rowptr, colind, b)
