@@ -49,6 +49,19 @@ to float64; ``band_spmv_ad`` on the headline band (the forward on the
 band kernel, the gradients against a float64 backward); the five
 ``data/*.mtx.gz`` files through ``load_matrix_market`` and the SpMV main
 path; one SpGEMM and one SpTRSV plan through ``save_plan``/``load_plan``.
+Phase D, last, drives the distribution layer (``spblas_tpu_torch.parallel``):
+an NCCL world of one rank in this process runs bench.py's distributed
+cell (the 100k A.A product: ``dist_spgemm_compute``, then 20
+``dist_spgemm_numeric`` reuses on distinct values, one slot fill each,
+each C held per entry to one card's ``multiply_fill``, 10 for the same
+bits) and ``dist_plan_spmv`` on the headline band and uniform 1M; a gloo
+world of four ranks sharing the card (``parallel/launch.py``), every
+collective staged through the host, runs the headline band's halo SpMV
+and SpMM at k = 64, uniform 1M through per-rank ROUTE2 plans, the 100k
+engine, the 20k triangular solve and a union add of two uniform 300k
+matrices; every rank must launch its kernels, rank 0 holds the gathered
+result to one card's path, and ``[dist]`` lines give each rank's kernel
+ms, the slowest rank's call ms and the bytes staged.
 
 The ROUTE v1 kernel runs every level of a plan in one launch, ordered by
 device counters, and the paned and resident ROUTE2 kernels one launch
@@ -133,6 +146,7 @@ import torch
 
 import spblas_tpu_torch as sp
 from spblas_tpu_torch import _build, native
+from spblas_tpu_torch import parallel as par
 from spblas_tpu_torch import solvers
 from spblas_tpu_torch import types as _t
 from spblas_tpu_torch.formats.csr import CSR, host_arrays
@@ -397,6 +411,11 @@ POWER_SOURCE = "spblas_tpu_torch/csrc/band_power.cu"
 POWER_REPLACES = "spblas_tpu/kernels/banded.py:474"
 SOLVE_SOURCE = "spblas_tpu_torch/csrc/route2_spmv.cu"
 SOLVE_REPLACES = "spblas_tpu/kernels/route2_kernel.py:119"
+# the kernels of phase D's distributed paths: (source, TPU kernel)
+DIST_SOURCES = {"band_spmv": (BAND_SOURCE, BAND_REPLACES),
+                "band_spmm": (BAND_SPMM_SOURCE, BAND_SPMM_REPLACES),
+                "route2_spmv": (ROUTE_SOURCE, ROUTE_REPLACES),
+                "route2_mul_paned": (MUL_PANED_SOURCE, MUL_PANED_REPLACES)}
 # wrapper -> kernel name, for the launch counts
 WRAPPERS = {"band_spmv": banded.band_spmv_padded,
             "dia_spmv": dia.dia_spmv_padded,
@@ -1995,14 +2014,16 @@ def permuted_csr(a, seed):
 # phase 3: the main path at full width
 # ------------------------------------------------------------------ #
 
-def main_path(name, a, kind, seed, card, ref=None):
+def main_path(name, a, kind, seed, card, ref=None, opt=None):
     """``multiply(scaled(2.0, matrix_opt(A)), x)``: the chooser must pick
     ``kind`` (None: any, recorded); the result is held against the
     float64 base path of ``ref`` (default ``a``: another container of
-    the same matrix, e.g. a lazy flip of what ``a`` materializes)."""
+    the same matrix, e.g. a lazy flip of what ``a`` materializes).
+    ``opt``: the ``matrix_opt`` handle to use (a later SpMM main path
+    on the same handle reuses a structured plan, as users' code does)."""
     cx = a.dtype.is_complex
     x = gen.generate_vector(a.shape[1], seed=seed, complex_=cx)
-    opt = sp.matrix_opt(a)
+    opt = sp.matrix_opt(a) if opt is None else opt
     reset_launches()
     t0 = time.perf_counter()
     y = sp.multiply(sp.scaled(2.0, opt), x)
@@ -2542,8 +2563,10 @@ def bsr_spgemm_main(name, a, b, card):
 
 def spgemm_phase(rates, card):
     """The SpGEMM main paths and their kernels; returns (main-path
-    records, kernel records, deferred structure differences)."""
-    main, recs, deferred = [], [], []
+    records, kernel records, deferred structure differences, and the
+    100k cell's matrix, plan and cuSPARSE ms, which phase D holds its
+    distributed product to)."""
+    main, recs, deferred, cells = [], [], [], {}
     for name, make, kind, expect in SPGEMM_MAIN:
         a = make()
         rec, info, a0_vals = spgemm_main(name, a, kind, expect, rates,
@@ -2553,6 +2576,8 @@ def spgemm_phase(rates, card):
         case = mul_case if kind == "resident" else mul_paned_case
         recs.append(case(name, info.plan.route, a_arr, a.values, rates,
                          card, rec["cusparse_spgemm_ms_with_symbolic"]))
+        if name == SPGEMM_MAIN[1][0]:
+            cells[name] = (a, info, rec["cusparse_spgemm_ms_with_symbolic"])
         del info, a
         torch.cuda.empty_cache()
     n_ent, cap, hubs, a_len, b_len, seed = MUL_HUB
@@ -2589,7 +2614,7 @@ def spgemm_phase(rates, card):
                     f"bsr_spgemm {name}: no empty block row")
         del a, b
     torch.cuda.empty_cache()
-    return main, recs, deferred
+    return main, recs, deferred, cells
 
 
 def route_mul_case(name, plan, a_arr, b_arr, rates, card, lib_ms=None):
@@ -3852,6 +3877,523 @@ def solver_phase(head, stencil, rates, card):
     return main
 
 
+# ------------------------------------------------------------------ #
+# phase D: the distribution layer (spblas_tpu_torch.parallel)
+# ------------------------------------------------------------------ #
+
+# D1 runs an NCCL world of one rank in this process (NCCL refuses two
+# ranks on one card); D2 a gloo world of DIST_RANKS processes sharing the
+# card, its meshes staging every collective through the host (gloo
+# carries no CUDA tensor), which checks the distributed semantics on the
+# card and is no speed figure for NCCL.  DIST_LIMIT bounds each D2 case
+# and every collective (seconds).
+DIST_RANKS = 4
+DIST_D1_BACKEND = "nccl"
+DIST_DEVICE = "cuda:0"
+DIST_LIMIT = 600.0
+DIST_REPS = 10
+DIST_SPMM_K = 64
+DIST_SEED = 141
+DIST_FILLS = SPGEMM_FILLS
+DIST_NOTE = ("gloo world of 4 on one card, staged through the host: a "
+             "check of the distributed semantics, not an NCCL speed figure")
+
+
+def local_rows(a, r0, r1):
+    """Rows [r0, r1) of the CSR ``a`` as a CSR of their own (global
+    columns), on ``a``'s device: the block a rank owns."""
+    r1 = min(r1, a.shape[0])
+    rp = a.rowptr[r0:r1 + 1].long()
+    lo, hi = int(rp[0]), int(rp[-1])
+    return CSR(values=a.values[lo:hi], rowptr=(rp - lo).int(),
+               colind=a.colind[lo:hi], nnz=hi - lo,
+               shape=(r1 - r0, a.shape[1]))
+
+
+def in_turn(mesh, fn):
+    """``fn()`` on each rank in turn, the others waiting at a barrier, so
+    a rank's kernel timings share the card with no other rank."""
+    import torch.distributed as dist
+    out = None
+    for r in range(mesh.size):
+        if mesh.rank == r:
+            out = fn()
+            torch.cuda.synchronize()
+        dist.barrier()
+    return out
+
+
+def call_ms(mesh, fn, reps=DIST_REPS):
+    """Mean host ms of ``reps`` distributed calls run by every rank at
+    once, each ended by a synchronize (staging and collectives
+    included)."""
+    import torch.distributed as dist
+    fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def rank_setup():
+    """A D2 rank's process settings: those of ``run``."""
+    warnings.filterwarnings("ignore", message="Sparse")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def d2_band(mesh, rates, card):
+    """Rank task: the headline band through ``dist_band_spmv`` and
+    ``dist_band_spmm`` at k = DIST_SPMM_K (the halo, then R5 and the
+    resident R12 a rank); rank 0 holds the gathered result against the
+    float64 base path."""
+    rank_setup()
+    _, hm, hn, hbw = HEADLINE
+    a = gen.generate_banded_csr(hm, hn, hbw, seed=0)
+    t0 = time.perf_counter()
+    plan = par.partition_band(a, mesh)
+    inspect_s = time.perf_counter() - t0
+    x = gen.generate_vector(hn, seed=DIST_SEED)
+    b = dense_operands(hn, DIST_SPMM_K, DIST_SEED + 1)[0]
+    out = {"inspect_s": inspect_s}
+    r0 = mesh.rank * plan.mloc
+    a_loc = local_rows(a, r0, r0 + plan.mloc)
+    for op, fn, g, kname, ref_fn, plain in (
+            ("spmv", par.dist_band_spmv, x, "band_spmv",
+             banded.band_spmv_padded, banded.band_spmv_reference),
+            ("spmm", par.dist_band_spmm, b, "band_spmm",
+             banded.band_spmm_padded, banded.band_spmm_reference)):
+        xl = par.partition_band_vector(g, plan, mesh)
+        s0 = mesh.staged_bytes
+        reset_launches()
+        y = fn(plan, xl, mesh)
+        torch.cuda.synchronize()
+        launches = read_launches("band")[kname]
+        staged = mesh.staged_bytes - s0
+        require(launches == 1, f"dist {op} rank {mesh.rank}: {launches} "
+                               f"{kname} launches")
+        yg = par.gather_result(y, plan, mesh)
+        err = ratio = None
+        if mesh.rank == 0:
+            if op == "spmv":
+                a64 = dataclasses.replace(a, values=a.values.double())
+                absd = sp.multiply(dataclasses.replace(
+                    a, values=a.values.abs().double()), g.abs().double())
+                err, ratio = limit_check(yg, sp.multiply(a64, g.double()),
+                                         absd)
+            else:
+                err, ratio = spmm_check(a, g, yg, 1.0)
+        ms = call_ms(mesh, lambda: fn(plan, xl, mesh))
+        win = par.banded.halo_window(plan, xl, mesh)
+        k = 1 if win.dim() == 1 else win.shape[1]
+        nbytes = (plan.panels.numel() * 4 + win.numel() * 4
+                  + plan.panels.shape[0] * 4 * k)
+        b_ms, b_by = bound(nbytes, 2 * plan.panels.numel() * k, rates)
+
+        def timings():
+            ins = replicas(lambda: (plan.panels.clone(), win.clone()),
+                           nbytes)
+            lib = library_ms(a_loc, g) if op == "spmv" \
+                else library_mm_ms(a_loc, g)
+            return (device_ms(ref_fn, ins), device_ms(plain, ins), lib)
+
+        k_ms, p_ms, l_ms = in_turn(mesh, timings)
+        out[op] = dict(kernel=kname, launches=launches, staged=staged,
+                       call_ms=ms, kernel_ms=k_ms, plain_ms=p_ms,
+                       library_ms=l_ms, bound_ms=b_ms, bound_by=b_by,
+                       max_abs_err=err, err_over_limit=ratio)
+        del y, yg, win
+    return out
+
+
+def d2_route(mesh, rates, card):
+    """Rank task: uniform 1M^2 degree 10 through ``dist_route_spmv``
+    (x all-gathered, then R3 on the rank's ROUTE2 plan)."""
+    rank_setup()
+    a = ROUTE_MAIN[1][1]()
+    t0 = time.perf_counter()
+    plan = par.partition_route(a, mesh)
+    inspect_s = time.perf_counter() - t0
+    x = gen.generate_vector(a.shape[1], seed=DIST_SEED + 2)
+    xl = par.partition_spmv_vector(("route", plan), x, mesh)
+    s0 = mesh.staged_bytes
+    reset_launches()
+    y = par.dist_route_spmv(plan, xl, mesh)
+    torch.cuda.synchronize()
+    launches = read_launches("route")["route2_spmv"]
+    staged = mesh.staged_bytes - s0
+    ranges = len(plan.route.launch_ranges())
+    require(launches == ranges, f"dist route rank {mesh.rank}: {launches} "
+                                f"route2_spmv launches, {ranges} ranges")
+    yg = par.gather_result(y, plan, mesh)
+    err = ratio = None
+    if mesh.rank == 0:
+        a64 = dataclasses.replace(a, values=a.values.double())
+        absd = sp.multiply(dataclasses.replace(
+            a, values=a.values.abs().double()), x.abs().double())
+        err, ratio = limit_check(yg, sp.multiply(a64, x.double()), absd)
+    ms = call_ms(mesh, lambda: par.dist_route_spmv(plan, xl, mesh))
+    route = plan.route
+    x2 = r2k.pack_x2(route, x)
+    nch = route.nchunks
+    nbytes = (nch * (8 * 1024 + 12) + route.x_rows * 512
+              + 2 * r2k.out_rows(route) * 512)
+    b_ms, b_by = bound(nbytes, 2 * nch * 1024, rates)
+    r0 = mesh.rank * plan.mloc
+    a_loc = local_rows(a, r0, r0 + plan.mloc)
+
+    def timings():
+        def copy():
+            return dataclasses.replace(
+                route, tile=route.tile.clone(), val=route.val.clone(),
+                slab_base=route.slab_base.clone(),
+                y_base=route.y_base.clone(),
+                src_flag=route.src_flag.clone()), x2.clone()
+        ins = replicas(copy, nbytes)
+        return (device_ms(r2k.route2_spmv_padded, ins),
+                device_ms(r2k.route2_spmv_reference, ins),
+                library_ms(a_loc, x))
+
+    k_ms, p_ms, l_ms = in_turn(mesh, timings)
+    return {"inspect_s": inspect_s, "spmv": dict(
+        kernel="route2_spmv", launches=launches, staged=staged, call_ms=ms,
+        kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms, bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=err, err_over_limit=ratio, nchunks=nch,
+        launch_ranges=ranges)}
+
+
+def mul_bound(stream, cap, rates):
+    """(bound_ms, bound_by, bytes) of a slot fill: the index stream (sa,
+    sb, run_start), A and B read once, c written once."""
+    ent = int(stream.sa.numel())
+    nbytes = (2 * ent + stream.nslots + 1 + cap) * 4 + (
+        stream.a_len + stream.b_len) * 4
+    return (*bound(nbytes, 2 * ent, rates), nbytes)
+
+
+def mul_timings(eng, a_arr, bg, nbytes):
+    """(kernel, plain) ms of a rank's slot fill."""
+    ex, cap = eng.expansion, eng.capacity
+
+    def copy():
+        return (dataclasses.replace(ex, sa=ex.sa.clone(), sb=ex.sb.clone(),
+                                    run_start=ex.run_start.clone()),
+                a_arr.clone(), bg.clone())
+
+    ins = replicas(copy, nbytes)
+    return (device_ms(lambda s_, a_, b_: mf.mul_fill(s_, a_, b_, cap), ins),
+            device_ms(lambda s_, a_, b_: mf.mul_fill_reference(
+                s_, a_, b_, cap), ins))
+
+
+def d2_spgemm(mesh, rates, card):
+    """Rank task: the 100k A.A product through the engine: the rank's
+    host symbolic and paned plan, then one numeric (B's values
+    all-gathered, one R6 slot fill a rank); rank 0 holds the assembled
+    C against the float64 torch numeric of one card."""
+    rank_setup()
+    name, make, _, _ = SPGEMM_MAIN[1]
+    a = make()
+    ar = par.partition_rowblock(a, mesh)
+    t0 = time.perf_counter()
+    plan = par.dist_spgemm_compute(ar, ar, mesh)
+    compute_s = time.perf_counter() - t0
+    require(plan.engine is not None, f"dist {name}: no engine on the card")
+    s0 = mesh.staged_bytes
+    reset_launches()
+    c = par.dist_spgemm_numeric(plan, ar, ar, mesh)
+    torch.cuda.synchronize()
+    launches = read_launches("paned")["route2_mul_paned"]
+    staged = mesh.staged_bytes - s0
+    require(launches == 1, f"dist {name} rank {mesh.rank}: {launches} "
+                           "slot fills, want 1")
+    back = par.assemble_csr(c, mesh)
+    err = ratio = None
+    if mesh.rank == 0:
+        info = sp.spgemm_compute(a, a, reuse=False)
+        a64 = dataclasses.replace(a, values=a.values.double())
+        aab = dataclasses.replace(a, values=a.values.abs().double())
+        ref = sp.spgemm_fill(info, a64, a64)
+        absd = sp.spgemm_fill(info, aab, aab)
+        nnz = ref.nnz
+        require(back.nnz == nnz == plan.result_nnz
+                and torch.equal(back.rowptr, ref.rowptr)
+                and torch.equal(back.colind[:nnz], ref.colind[:nnz]),
+                f"dist {name}: C structure differs from one card's")
+        err, ratio = limit_check(back.values[:nnz], ref.values[:nnz],
+                                 absd.values[:nnz])
+        del info, ref, absd
+    del back
+    ms = call_ms(mesh, lambda: par.dist_spgemm_numeric(plan, ar, ar, mesh))
+    eng = plan.engine
+    a_arr = torch.cat([ar.values, ar.values.new_ones(1)])
+    bg = mesh.all_gather(ar.values).reshape(-1)
+    b_ms, b_by, nbytes = mul_bound(eng.expansion, eng.capacity, rates)
+    k_ms, p_ms, l_ms = in_turn(mesh, lambda: mul_timings(
+        eng, a_arr, bg, nbytes) + (library_spgemm_ms(ar.local_csr(), a),))
+    return {"inspect_s": compute_s, "fill": dict(
+        kernel="route2_mul_paned", launches=launches, staged=staged,
+        call_ms=ms, kernel_ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+        err_over_limit=ratio, panels=len(eng.panels),
+        result_nnz=plan.result_nnz)}
+
+
+def d2_trsv(mesh, rates, card):
+    """Rank task: the 20k triangular factor through
+    ``dist_triangular_solve`` (p steps, a level sweep and one broadcast
+    each); rank 0 holds x to the componentwise backward error."""
+    rank_setup()
+    name, make, _, _ = TRSV_MAIN[0]
+    a = make()
+    t0 = time.perf_counter()
+    plan = par.dist_triangular_solve_inspect(a, mesh, uplo="lower")
+    inspect_s = time.perf_counter() - t0
+    b = gen.generate_vector(a.shape[0], seed=DIST_SEED + 3)
+    bl = par.partition_vector(b, plan, mesh, axis="rows")
+    s0 = mesh.staged_bytes
+    x = par.dist_triangular_solve(plan, bl, mesh)
+    torch.cuda.synchronize()
+    staged = mesh.staged_bytes - s0
+    xg = par.gather_result(x, plan, mesh)
+    ratio = None
+    if mesh.rank == 0:
+        a64 = dataclasses.replace(a, values=a.values.double())
+        x64 = xg.double()
+        r = (sp.multiply(a64, x64) - b.double()).abs()
+        lim = 64 * EPS32 * (sp.multiply(abs_csr(a), x64.abs())
+                            + b.double().abs())
+        bad = int((r > lim).sum())
+        require(bad == 0, f"dist {name}: {bad} rows past the backward "
+                          "bound")
+        ratio = float((r / lim).max())
+    ms = call_ms(mesh, lambda: par.dist_triangular_solve(plan, bl, mesh))
+    return {"inspect_s": inspect_s, "solve": dict(
+        staged=staged, call_ms=ms, backward_ratio=ratio,
+        levels=int(plan.rows.shape[0]))}
+
+
+def d2_add(mesh, rates, card):
+    """Rank task: ``dist_add`` of two uniform 300k^2 matrices (the union
+    planned a rank, no collective in the numeric); rank 0 holds the
+    assembled C to one card's ``add``, bit for bit."""
+    rank_setup()
+    a = ROUTE_MAIN[0][1]()
+    b = gen.generate_csr(*a.shape, a.nnz, seed=UNION_SEED)
+    ar, br = par.partition_rowblock(a, mesh), par.partition_rowblock(b, mesh)
+    t0 = time.perf_counter()
+    plan = par.dist_add_compute(ar, br, mesh)
+    inspect_s = time.perf_counter() - t0
+    s0 = mesh.staged_bytes
+    c = par.dist_add_numeric(plan, ar, br, mesh)
+    torch.cuda.synchronize()
+    staged = mesh.staged_bytes - s0
+    back = par.assemble_csr(c, mesh)
+    if mesh.rank == 0:
+        ref = sp.add(a, b)
+        nnz = ref.nnz
+        require(back.nnz == nnz and torch.equal(back.rowptr, ref.rowptr)
+                and torch.equal(back.colind[:nnz], ref.colind[:nnz])
+                and torch.equal(back.values[:nnz], ref.values[:nnz]),
+                "dist add: C differs from one card's add")
+    ms = call_ms(mesh, lambda: par.dist_add_numeric(plan, ar, br, mesh))
+    return {"inspect_s": inspect_s, "numeric": dict(
+        staged=staged, call_ms=ms, bit_equal=True)}
+
+
+D2_CASES = (("band", d2_band), ("route", d2_route), ("spgemm", d2_spgemm),
+            ("trsv", d2_trsv), ("add", d2_add))
+
+
+def d1_spgemm(mesh, cells, rates, card):
+    """D1: the bench's distributed cell (bench.py:330) on an NCCL world
+    of one: ``dist_spgemm_compute`` of the 100k A.A product, then
+    DIST_FILLS numerics on distinct values, one slot fill each, each C
+    held per entry to one card's ``multiply_fill`` within 64 eps
+    (|A||B|); 10 fills give the same bits."""
+    name = SPGEMM_MAIN[1][0]
+    a, info, lib_ms = cells[name]
+    ar = par.partition_rowblock(a, mesh)
+    require(ar.local_capacity == a.capacity, f"{name}: capacities differ")
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(DIST_SEED)
+    vals = [torch.rand(a.capacity, generator=g, device=DEVICE) * 2 - 1
+            for _ in range(DIST_FILLS)]
+    t0 = time.perf_counter()
+    plan = par.dist_spgemm_compute(ar, ar, mesh)
+    torch.cuda.synchronize()
+    compute_s = time.perf_counter() - t0
+    eng = plan.engine
+    require(eng is not None, f"dist {name}: no engine on the card")
+    nnz = info.result_nnz
+    require(plan.c_nnz == nnz and plan.result_nnz == nnz,
+            f"dist {name}: result_nnz {plan.result_nnz}, one card {nnz}")
+    reset_launches()
+    t0 = time.perf_counter()
+    cs = [par.dist_spgemm_numeric(plan, dataclasses.replace(ar, values=v),
+                                  ar, mesh).values for v in vals]
+    torch.cuda.synchronize()
+    numerics_s = time.perf_counter() - t0
+    launches = read_launches("paned")
+    fills = launches["route2_mul_paned"]
+    require(fills == DIST_FILLS, f"dist {name}: {fills} slot fills for "
+                                 f"{DIST_FILLS} numerics, want one each")
+    err = ratio = 0.0
+    for v, c in zip(vals, cs):
+        ai = dataclasses.replace(a, values=v)
+        ref = sp.multiply_fill(info, ai, a)
+        if err == 0.0:
+            require(torch.equal(plan.c_rowptr, ref.rowptr)
+                    and torch.equal(plan.c_colind[:nnz], ref.colind[:nnz]),
+                    f"dist {name}: C structure differs from one card's")
+        absd = sp.multiply_fill(info, dataclasses.replace(
+            a, values=v.abs().double()), abs_csr(a))
+        e, r = limit_check(c[:nnz], ref.values[:nnz], absd.values[:nnz])
+        err, ratio = max(err, e), max(ratio, r)
+        del ref, absd
+    a0 = dataclasses.replace(ar, values=vals[0])
+    same_bits(f"dist_spgemm_numeric {name} (nccl world 1)",
+              lambda: par.dist_spgemm_numeric(plan, a0, ar, mesh).values, (),
+              runs=SAME_BITS_RUNS)
+    del cs
+    ms = wall_ms(lambda: par.dist_spgemm_numeric(plan, a0, ar, mesh),
+                 DIST_FILLS)
+    a_arr = torch.cat([vals[0], vals[0].new_ones(1)])
+    b_ms, b_by, nbytes = mul_bound(eng.expansion, eng.capacity, rates)
+    k_ms, p_ms = mul_timings(eng, a_arr, a.values, nbytes)
+    rec = {"main_path": f"dist1_{name}", "op": "dist", "kind": "paned",
+           "backend": mesh.backend, "ranks": mesh.size, "m": a.shape[0],
+           "nnz": a.nnz, "result_nnz": nnz, "panels": len(eng.panels),
+           "launches": launches, "kernels": ["route2_mul_paned"],
+           "numerics": DIST_FILLS, "max_abs_err_vs_one_card": err,
+           "max_err_over_limit": ratio, "compute_s": compute_s,
+           "numerics_s": numerics_s, "numeric_ms": ms, "card": card}
+    emit(rec)
+    kern = {"kernel": "route2_mul_paned", "case": f"dist1_{name}",
+            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+            "launches": fills}
+    return rec, kern
+
+
+def d1_spmv(mesh, name, a, kind, seed, card):
+    """D1: ``dist_plan_spmv`` at p = 1 through the chooser (which must
+    pick ``kind``), held per row to the float64 base path."""
+    t0 = time.perf_counter()
+    kp = par.partition_spmv(a, mesh)
+    inspect_s = time.perf_counter() - t0
+    require(kp[0] == kind, f"dist1 {name}: chooser picked {kp[0]!r}, "
+                           f"want {kind!r}")
+    x = gen.generate_vector(a.shape[1], seed=seed)
+    xl = par.partition_spmv_vector(kp, x, mesh)
+    reset_launches()
+    y = par.dist_plan_spmv(kp, xl, mesh)
+    torch.cuda.synchronize()
+    launches = read_launches(kind)
+    a64 = dataclasses.replace(a, values=a.values.double())
+    absd = sp.multiply(abs_csr(a), x.abs().double())
+    err, ratio = limit_check(y[:a.shape[0]], sp.multiply(a64, x.double()),
+                             absd)
+    ms = wall_ms(lambda: par.dist_plan_spmv(kp, xl, mesh), 20)
+    rec = {"main_path": f"dist1_{name}", "op": "dist", "kind": kind,
+           "backend": mesh.backend, "ranks": mesh.size, "m": a.shape[0],
+           "nnz": a.nnz, "launches": launches,
+           "kernels": list(KIND_KERNELS[kind]),
+           "max_abs_err_vs_f64": err, "max_err_over_limit": ratio,
+           "inspect_s": inspect_s, "ms": ms, "card": card}
+    emit(rec)
+    return rec
+
+
+def dist_phase(cells, rates, card):
+    """Phase D.  D1: an NCCL world of one rank in this process: the 100k
+    A.A engine over 20 numerics, and ``dist_plan_spmv`` on the headline
+    band and uniform 1M.  D2: a gloo world of DIST_RANKS processes on the
+    one card (``parallel/launch.py``): the headline band's SpMV and SpMM,
+    uniform 1M's ROUTE2 SpMV, the 100k engine, the 20k solve and a union
+    add, each rank launching its kernel.  Returns (main-path records,
+    kernel records)."""
+    import torch.distributed as dist
+    from spblas_tpu_torch.parallel.launch import World
+    t_d = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    par.init_distributed(DIST_D1_BACKEND, rank=0, world_size=1,
+                         store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                         device=DIST_DEVICE, timeout=DIST_LIMIT)
+    try:
+        mesh = par.make_row_mesh()
+        require(mesh.backend == DIST_D1_BACKEND and mesh.size == 1
+                and not mesh.stage_through_host, f"D1 mesh {mesh}")
+        rec, d1_kern = d1_spgemm(mesh, cells, rates, card)
+        main = [rec]
+        _, hm, hn, hbw = HEADLINE
+        main.append(d1_spmv(mesh, HEADLINE[0], gen.generate_banded_csr(
+            hm, hn, hbw, seed=0), "band", DIST_SEED + 4, card))
+        main.append(d1_spmv(mesh, ROUTE_MAIN[1][0], ROUTE_MAIN[1][1](),
+                            "route", DIST_SEED + 5, card))
+    finally:
+        dist.destroy_process_group()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    cells.clear()
+    torch.cuda.empty_cache()
+    log(f"[dist] D1 (nccl world 1) in {time.perf_counter() - t_d:.1f} s")
+
+    t_2 = time.perf_counter()
+    res = {}
+    with World(DIST_RANKS, backend="gloo", device=DIST_DEVICE,
+               stage_through_host=True, timeout=DIST_LIMIT,
+               start_timeout=DIST_LIMIT) as world:
+        for case, fn in D2_CASES:
+            t0 = time.perf_counter()
+            res[case] = world.run(fn, rates, card, timeout=DIST_LIMIT)
+            log(f"[dist] D2 {case}: {time.perf_counter() - t0:.1f} s")
+    recs = [d1_kern]
+    for case, ranks in res.items():
+        for op, r0 in ranks[0].items():
+            if op == "inspect_s":
+                continue
+            per = [r[op] for r in ranks]
+            line = {"main_path": f"dist4_{case}_{op}", "op": "dist",
+                    "backend": "gloo", "ranks": DIST_RANKS,
+                    "stage_through_host": True, "note": DIST_NOTE,
+                    "inspect_s": [r["inspect_s"] for r in ranks],
+                    "staged_bytes": [p["staged"] for p in per],
+                    "slowest_call_ms": max(p["call_ms"] for p in per),
+                    "card": card}
+            for key in ("kernel_ms", "launches", "plain_ms", "library_ms"):
+                if key in r0:
+                    line[key] = [p[key] for p in per]
+            line.update({k: v for k, v in r0.items() if k in (
+                "max_abs_err", "err_over_limit", "backward_ratio",
+                "bit_equal", "panels", "result_nnz", "levels",
+                "nchunks")})
+            log(f"[dist] {case} {op}: rank kernel ms "
+                f"{line.get('kernel_ms')}, slowest rank call ms "
+                f"{line['slowest_call_ms']:.3f}, staged_bytes "
+                f"{line['staged_bytes']} ({DIST_NOTE}) {card}")
+            emit(line)
+            if "kernel" not in r0:
+                continue
+            require(all(p["launches"] > 0 for p in per),
+                    f"dist4 {case} {op}: a rank launched no {r0['kernel']}")
+            recs.append({
+                "kernel": r0["kernel"], "case": f"dist4_{case}_{op}",
+                "kernel_ms": max(p["kernel_ms"] for p in per),
+                "plain_ms": max(p["plain_ms"] for p in per),
+                "library_ms": max(p["library_ms"] for p in per),
+                "bound_ms": max(p["bound_ms"] for p in per),
+                "bound_by": r0["bound_by"], "max_abs_err": r0["max_abs_err"],
+                "launches": sum(p["launches"] for p in per)})
+    log(f"[dist] D2 (gloo world {DIST_RANKS}) in "
+        f"{time.perf_counter() - t_2:.1f} s; phase D "
+        f"{time.perf_counter() - t_d:.1f} s")
+    return main, recs
+
+
 def run():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4090,17 +4632,22 @@ def run():
     del ba, plan
     pname, pseed, pk = PERM_MAIN
     pa = permuted_csr(head, pseed)
-    rec, plan = main_path(pname, pa, "band_perm", 90, card)
+    # one handle for the SpMV and SpMM main paths: the plan cache
+    # aliases the structured band_perm plan across both (its RCM
+    # inspection runs once, as in a user's code)
+    popt = sp.matrix_opt(pa)
+    rec, plan = main_path(pname, pa, "band_perm", 90, card, opt=popt)
     main.append(rec)
     spmm_band_recs.append(band_perm_spmm_case(f"{pname}_k{pk}", plan, pk,
                                               91, rates, card, pa))
     spmm_band_recs += band_spmm_case(f"{pname}_k{pk}_padded", plan.band,
                                      pk, 91, rates, card, csr=pa)
-    rec = main_path_spmm(f"{pname}_k{pk}", pa, "band_perm", pk, 92, card)[0]
+    rec = main_path_spmm(f"{pname}_k{pk}", pa, "band_perm", pk, 92, card,
+                         opt=popt)[0]
     require(rec["launches"]["band_spmm"] == 1,
             f"{pname}: {rec['launches']['band_spmm']} band_spmm launches")
     main.append(rec)
-    del pa, plan
+    del pa, plan, popt
     torch.cuda.empty_cache()
     # SpMM over the band (B streamed), SELL, DIA and the complex band
     rec = main_path_spmm(spmm_name, head, "band", SPMM_BANDED_K, 86,
@@ -4149,7 +4696,8 @@ def run():
     torch.cuda.empty_cache()
     # SpGEMM: the two-phase main paths on the mul engines, the block
     # SpGEMM through multiply, and their kernels
-    spgemm_main_recs, spgemm_recs, deferred = spgemm_phase(rates, card)
+    spgemm_main_recs, spgemm_recs, deferred, cells = spgemm_phase(rates,
+                                                                  card)
     main += spgemm_main_recs
     # the ROUTE v1 SpGEMM engine, the band power chain, and SpTRSV
     rec, v1_recs_mul, v1_deferred = v1_phase(rates, card)
@@ -4159,6 +4707,10 @@ def run():
     main.append(rec)
     trsv_main_recs, solve_recs = trsv_phase(rates, card)
     main += trsv_main_recs
+    # phase D: the distribution layer, on an NCCL world of one and a
+    # gloo world of four ranks on the card
+    dist_main, dist_recs = dist_phase(cells, rates, card)
+    main += dist_main
     tables = {"spmm": SPMM_KIND_KERNELS, "spgemm": SPGEMM_KIND_KERNELS,
               "trsv": TRSV_KIND_KERNELS, "power": POWER_KIND_KERNELS}
     for r in main:
@@ -4194,6 +4746,17 @@ def run():
                 "library_ms": head_rec["library_ms"],
                 "fma_bound_ms": None if tc is None else head_rec["bound_ms"],
                 "tc_bound_ms": tc}
+
+    def dist_line(r):
+        # a distributed path's kernel: launches summed over the ranks of
+        # its main-path call, the slowest rank's times and bound
+        return {"name": f"{r['kernel']}@{r['case']}", "route": "cuda",
+                "source": DIST_SOURCES[r["kernel"]][0],
+                "replaces": DIST_SOURCES[r["kernel"]][1],
+                "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+                "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]}
 
     def of(recs, kname, case=None):
         return [r for r in recs if r["kernel"] == kname
@@ -4243,7 +4806,7 @@ def run():
         line("route2_solve", SOLVE_SOURCE, SOLVE_REPLACES,
              of(solve_recs, "route2_solve", TRSV_MAIN[1][0])[0],
              of(solve_recs, "route2_solve")),
-    ]})
+    ] + [dist_line(r) for r in dist_recs]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     require(not deferred, "; ".join(deferred))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,

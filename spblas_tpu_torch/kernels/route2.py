@@ -293,6 +293,13 @@ def build_route2_plan(rowptr, colind, values, shape: Tuple[int, int],
                              shape, nnz, any_lane=any_lane,
                              row_window_mult=row_window_mult,
                              hub_deg=hub_deg, rotate=rotate)
+    return plan_from_arrays(A, dev)
+
+
+def plan_from_arrays(A: dict, dev) -> Route2Plan:
+    """The Route2Plan of :func:`_build_route2_arrays`' host arrays on
+    ``dev``, with its slab work lists (``parallel/route_spmv.py`` pads
+    the arrays to a common chunk count first)."""
 
     def put(arr):
         return torch.as_tensor(arr).to(dev)

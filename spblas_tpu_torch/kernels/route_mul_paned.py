@@ -123,13 +123,23 @@ def build_route2_mul_paned_plan(slots, src_a, src_b, a_len: int,
                                 b_len: int, capacity: int,
                                 panel_slots: int = _PANEL_SLOTS,
                                 pane_rows: int = _PANE_ROWS,
-                                device=None) -> Route2MulPanedPlan:
+                                device=None, agree=None) -> Route2MulPanedPlan:
     """Per-panel mul packs plus the B-pane-major regroup, placed on
     ``device`` (default ``cuda``).  ``slots`` must be nondecreasing (the
     expansion stream of ``ops/spgemm`` is slot-sorted); ``panel_slots``
     adapts downward when a panel would exceed the per-dispatch chunk
-    budget."""
+    budget.
+
+    ``agree``: for the ranks of an SPMD program that each build a plan of
+    their own stream in lockstep (``parallel/spgemm``), a function that
+    combines a list of host integers over the ranks by their maximum.
+    The ranks then halve the panel together, and each panel takes the
+    largest rank's chunk count (padded with flag-1 zero groups, which
+    publish nothing), pane height and prefix depth, with ``has_aux``
+    set.  Without it the plan is this stream's alone."""
     dev = _t.resolve_device(device)
+    lockstep = agree is not None
+    agree = agree or (lambda values: list(values))
     slots = np.asarray(slots, np.int64)
     src_a = np.asarray(src_a, np.int64)
     src_b = np.asarray(src_b, np.int64)
@@ -139,7 +149,7 @@ def build_route2_mul_paned_plan(slots, src_a, src_b, a_len: int,
         raise ValueError(f"pane_rows {pane_rows} must hold whole B slabs "
                          f"of {SUBS * g_b} rows")
 
-    last_slot = int(slots[-1]) if len(slots) else 0
+    last_slot = agree([int(slots[-1]) if len(slots) else 0])[0]
     panel_slots = max(ROW_WINDOW, (panel_slots // ROW_WINDOW) * ROW_WINDOW)
     host_panels = []
     total_slots_packed = 0
@@ -151,14 +161,17 @@ def build_route2_mul_paned_plan(slots, src_a, src_b, a_len: int,
         sub = _build_route2_mul_arrays(
             slots[lo:hi] - s0, src_a[lo:hi], src_b[lo:hi], a_len, b_len,
             cap_p, g_a=g_a, g_b=g_b)
-        if (sub["t1"].shape[0] > _CHUNKS_PER_DISPATCH
-                and cap_p > ROW_WINDOW):
+        if agree([int(sub["t1"].shape[0] > _CHUNKS_PER_DISPATCH
+                      and cap_p > ROW_WINDOW)])[0]:
             panel_slots = max(ROW_WINDOW,
                               (cap_p // 2 // ROW_WINDOW) * ROW_WINDOW)
             continue
         host_panels.append(_regroup_mul_by_pane(sub, pane_rows, cap_p))
         total_slots_packed += sub["t1"].shape[0] * SLOTS
         s0 += cap_p
+    # each panel's chunk count, pane height and prefix depth
+    common = agree([v for hp in host_panels for v in (
+        hp["arrays"]["t1"].shape[0], hp["out_rows"], hp["dist_max"])])
 
     a_rows = -(-max(a_len, 1) // LANES)
     a_rows = -(-a_rows // (SUBS * g_a)) * (SUBS * g_a)
@@ -170,17 +183,40 @@ def build_route2_mul_paned_plan(slots, src_a, src_b, a_len: int,
         return torch.as_tensor(arr).to(dev)
 
     panels = tuple(
-        MulPanedPanel(**{k: put(v) for k, v in hp["arrays"].items()},
-                      slots=hp["slots"], out_rows=hp["out_rows"],
-                      has_aux=hp["has_aux"], dist_max=hp["dist_max"],
+        MulPanedPanel(**{k: put(v) for k, v in _pad_chunks(
+                          hp["arrays"], common[3 * i]).items()},
+                      slots=hp["slots"], out_rows=common[3 * i + 1],
+                      has_aux=lockstep or hp["has_aux"],
+                      dist_max=common[3 * i + 2],
                       launch_starts=hp["launch_starts"])
-        for hp in host_panels)
+        for i, hp in enumerate(host_panels))
     return Route2MulPanedPlan(
         panels=panels, g_a=g_a, g_b=g_b, a_rows=a_rows,
         b_rows_pad=b_rows_pad, pane_rows=pane_rows, capacity=capacity,
         fill=len(slots) / max(total_slots_packed, 1),
         expansion=build_slot_stream(slots, src_a, src_b, a_len, b_len,
                                     dev))
+
+
+def _pad_chunks(arrays: dict, nc: int) -> dict:
+    """A panel's arrays with its chunk stream padded to ``nc`` chunks by
+    flag-1 zero groups, which publish nothing (no event: -1)."""
+    n_own = arrays["t1"].shape[0]
+    if nc == n_own:
+        return arrays
+    out = dict(arrays)
+    for key in ("t1", "t2", "ab", "bb", "yb", "fl", "pane"):
+        arr = arrays[key]
+        pad = np.zeros((nc - n_own,) + arr.shape[1:], arr.dtype)
+        if key == "fl":
+            pad[:] = 1
+        out[key] = np.concatenate([arr, pad])
+    for key in ("eva", "evb", "evw", "evs"):
+        arr = arrays[key]
+        out[key] = np.concatenate([arr, np.full(
+            (nc // CB - arr.shape[0],), 0 if key == "evs" else -1,
+            arr.dtype)])
+    return out
 
 
 def _regroup_mul_by_pane(sub: dict, pane_rows: int, cap_p: int) -> dict:

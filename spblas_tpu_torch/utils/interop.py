@@ -447,3 +447,191 @@ def spgemm_plan_from_numpy(arrays: dict, static: dict, route=None,
     return SpgemmPlan(
         **{k: _t.as_tensor(np.asarray(v), dev) for k, v in arrays.items()},
         c_nnz=c_nnz, **static, route=route)
+
+
+# ------------------------------------------------------------------ #
+# the distribution layer's plans: the JAX package's stacked (p, ...)
+# arrays, as numpy, and one rank's slice [rank] of them
+# ------------------------------------------------------------------ #
+
+def _rank_slices(arrays: dict, rank: int, dev) -> dict:
+    return {k: _t.as_tensor(np.asarray(v)[rank], dev)
+            for k, v in arrays.items()}
+
+
+def dist_csr_plan_from_numpy(arrays: dict, static: dict, rank: int,
+                             device=None):
+    """Rank ``rank``'s DistCSR of a JAX one: ``arrays`` its values, rowloc
+    and colloc (p, p, bcap) and nnz; ``static`` its shape, mloc, nloc."""
+    from spblas_tpu_torch.parallel.dist_csr import DistCSR
+    dev = _t.resolve_device(device)
+    arrays = dict(arrays)
+    nnz = int(np.asarray(arrays.pop("nnz")))
+    return DistCSR(**_rank_slices(arrays, rank, dev), nnz=nnz,
+                   shape=tuple(int(s) for s in static["shape"]),
+                   mloc=int(static["mloc"]), nloc=int(static["nloc"]),
+                   rank=int(rank))
+
+
+def dist_rowblock_plan_from_numpy(arrays: dict, static: dict, rank: int,
+                                  device=None):
+    """Rank ``rank``'s RowBlockCSR of a JAX one: ``arrays`` its values,
+    colind (p, lcap) and rowptr (p, mloc+1); ``static`` its shape, mloc."""
+    from spblas_tpu_torch.parallel.rowblock import RowBlockCSR
+    dev = _t.resolve_device(device)
+    rowptr = np.asarray(arrays["rowptr"])
+    return RowBlockCSR(**_rank_slices(arrays, rank, dev),
+                       nnz=int(rowptr[rank, -1]),
+                       shape=tuple(int(s) for s in static["shape"]),
+                       mloc=int(static["mloc"]), p=int(rowptr.shape[0]),
+                       rank=int(rank))
+
+
+def dist_band_plan_from_numpy(arrays: dict, static: dict, rank: int,
+                              device=None):
+    """Rank ``rank``'s DistBandPlan of a JAX one: ``arrays`` its panels
+    (p, rows, w); ``static`` its h, mloc, shape."""
+    from spblas_tpu_torch.parallel.banded import DistBandPlan
+    dev = _t.resolve_device(device)
+    panels = np.asarray(arrays["panels"])
+    return DistBandPlan(panels=_t.as_tensor(panels[rank], dev),
+                        h=int(static["h"]), mloc=int(static["mloc"]),
+                        shape=tuple(int(s) for s in static["shape"]),
+                        p=int(panels.shape[0]), rank=int(rank))
+
+
+def dist_route_plan_from_numpy(arrays: dict, static: dict, rank: int,
+                               device=None):
+    """Rank ``rank``'s DistRoutePlan of a JAX one: ``arrays`` its tile,
+    val, slab_base, y_base, src_flag (p, nch, ...); ``static`` its shape,
+    mloc, nloc, g, x_rows, out_rows, has_aux, dist_max, any_lane,
+    row_window_mult.  The rank's Route2Plan has the JAX plan's pane
+    height (``y_rows`` = out_rows), no value sources (it cannot take new
+    values) and launch starts from :func:`route2_launch_starts`."""
+    from spblas_tpu_torch.parallel.route_spmv import DistRoutePlan
+    dev = _t.resolve_device(device)
+    a = {k: np.asarray(v)[rank] for k, v in arrays.items()}
+    g, ww = int(static["g"]), int(static["row_window_mult"])
+    starts = route2_launch_starts(a["src_flag"], a["slab_base"],
+                                  a["y_base"], g, ww)
+    shape = tuple(int(s) for s in static["shape"])
+    route = Route2Plan(
+        tile=_t.as_tensor(a["tile"], dev), val=_t.as_tensor(a["val"], dev),
+        slab_base=_t.as_tensor(a["slab_base"], dev),
+        y_base=_t.as_tensor(a["y_base"], dev),
+        src_flag=_t.as_tensor(a["src_flag"], dev),
+        val_src=torch.full(a["tile"].shape, -1, dtype=torch.int32,
+                           device=dev),
+        ext_cols=torch.zeros(0, dtype=torch.int32, device=dev), g=g,
+        shape=(int(static["mloc"]), shape[1]),
+        nat_slots=int(static["x_rows"]) * 128,
+        x_rows=int(static["x_rows"]), y_rows=int(static["out_rows"]),
+        aux_rows=0, n_aux_chunks=int((a["src_flag"] == 1).sum()), fill=0.0,
+        dist_max=int(static["dist_max"]), any_lane=bool(static["any_lane"]),
+        row_window_mult=ww, launch_starts=starts,
+        slab_work=build_slab_work(a["slab_base"], starts, dev))
+    return DistRoutePlan(route=route, shape=shape, mloc=int(static["mloc"]),
+                         nloc=int(static["nloc"]),
+                         out_rows=int(static["out_rows"]),
+                         has_aux=bool(static["has_aux"]),
+                         p=int(np.asarray(arrays["tile"]).shape[0]),
+                         rank=int(rank))
+
+
+def dist_sell_plan_from_numpy(arrays: dict, static: dict, rank: int,
+                              device=None):
+    """Rank ``rank``'s DistSellPlan of a JAX one: ``arrays`` its
+    bucket_values and bucket_cols (lists of (p, mb, Wb)) and pos
+    (p, mloc); ``static`` its shape, mloc, nloc."""
+    from spblas_tpu_torch.parallel.route_spmv import DistSellPlan
+    dev = _t.resolve_device(device)
+    pos = np.asarray(arrays["pos"])
+    return DistSellPlan(
+        bucket_values=tuple(_t.as_tensor(np.asarray(v)[rank], dev)
+                            for v in arrays["bucket_values"]),
+        bucket_cols=tuple(_t.as_tensor(np.asarray(c)[rank], dev)
+                          for c in arrays["bucket_cols"]),
+        pos=_t.as_tensor(pos[rank], dev),
+        shape=tuple(int(s) for s in static["shape"]),
+        mloc=int(static["mloc"]), nloc=int(static["nloc"]),
+        p=int(pos.shape[0]), rank=int(rank))
+
+
+def dist_spgemm_plan_from_numpy(arrays: dict, static: dict, rank: int,
+                                engine=None, device=None):
+    """Rank ``rank``'s DistSpgemmPlan of a JAX one: ``arrays`` its src_a,
+    src_b, valid, slot, c_rowptr, c_colind (p, ...) and c_nnz (p,);
+    ``static`` its shape, mloc; ``engine`` None or the JAX engine as
+    (panels, static): ``panels`` one (arrays, static) pair a panel (t1,
+    t2, ab, bb, yb, fl, eva, evb, evw, evs stacked (p, ...); slots,
+    out_rows, has_aux, dist_max), ``static`` its g_a, g_b, a_rows,
+    b_rows_pad, pane_rows, capacity.  The rank's engine has no expansion
+    stream, so the card's slot fill refuses it; the CPU walks its
+    tiles."""
+    from spblas_tpu_torch.parallel.spgemm import DistSpgemmPlan
+    dev = _t.resolve_device(device)
+    arrays = dict(arrays)
+    c_nnz = np.asarray(arrays.pop("c_nnz"))
+    eng = None
+    if engine is not None:
+        panels, estatic = engine
+        eng = route2_mul_paned_plan_from_numpy(
+            [({k: np.asarray(v)[rank] for k, v in pa.items()}, ps)
+             for pa, ps in panels], dict(estatic, fill=0.0), device=dev)
+    return DistSpgemmPlan(**_rank_slices(arrays, rank, dev),
+                          c_nnz=int(c_nnz[rank]),
+                          result_nnz=int(c_nnz.sum()),
+                          shape=tuple(int(s) for s in static["shape"]),
+                          mloc=int(static["mloc"]), p=int(c_nnz.shape[0]),
+                          rank=int(rank), engine=eng)
+
+
+def dist_add_plan_from_numpy(arrays: dict, static: dict, rank: int,
+                             device=None):
+    """Rank ``rank``'s DistAddPlan of a JAX one: ``arrays`` its slot_a,
+    slot_b, c_rowptr, c_colind (p, ...) and c_nnz (p,); ``static`` its
+    shape, mloc.  The port's merge plan is rebuilt from the slots: each
+    slot's A entry, then its B entry, the order of the union's sort."""
+    from spblas_tpu_torch.ops.add import AddPlan
+    from spblas_tpu_torch.parallel.add import DistAddPlan
+    dev = _t.resolve_device(device)
+    arrays = dict(arrays)
+    c_nnz = np.asarray(arrays.pop("c_nnz"))
+    a = {k: np.asarray(v)[rank] for k, v in arrays.items()}
+    ccap = a["c_colind"].shape[0]
+    sa = a["slot_a"][a["slot_a"] < ccap].astype(np.int64)
+    sb = a["slot_b"][a["slot_b"] < ccap].astype(np.int64)
+    keys = np.concatenate([sa, sb])
+    pos = np.empty(len(keys), np.int64)
+    pos[np.argsort(keys, kind="stable")] = np.arange(len(keys))
+    run_len = np.bincount(keys, minlength=ccap)
+    put = lambda x: torch.from_numpy(x).to(dev)  # noqa: E731
+    plan = AddPlan(a_pos=put(pos[:len(sa)]), b_pos=put(pos[len(sa):]),
+                   run_start=put(np.cumsum(run_len) - run_len),
+                   run_len=put(run_len), max_run=int(run_len.max(initial=0)),
+                   c_rowptr=_t.as_tensor(a["c_rowptr"], dev),
+                   c_colind=_t.as_tensor(a["c_colind"], dev),
+                   c_nnz=int(c_nnz[rank]),
+                   shape=(int(static["mloc"]), int(static["shape"][1])))
+    return DistAddPlan(
+        slot_a=_t.as_tensor(a["slot_a"], dev),
+        slot_b=_t.as_tensor(a["slot_b"], dev), c_rowptr=plan.c_rowptr,
+        c_colind=plan.c_colind, c_nnz=plan.c_nnz, add=plan,
+        shape=tuple(int(s) for s in static["shape"]),
+        mloc=int(static["mloc"]), p=int(c_nnz.shape[0]), rank=int(rank))
+
+
+def dist_trsv_plan_from_numpy(arrays: dict, static: dict, rank: int,
+                              device=None):
+    """Rank ``rank``'s DistTrsvPlan of a JAX one: ``arrays`` its rows,
+    eidx, evalid, cols, ldiag, lvals, ovals, ocols, orows (p, ...);
+    ``static`` its lower, unit_diag, mloc, shape."""
+    from spblas_tpu_torch.parallel.trsv import DistTrsvPlan
+    dev = _t.resolve_device(device)
+    return DistTrsvPlan(**_rank_slices(arrays, rank, dev),
+                        lower=bool(static["lower"]),
+                        unit_diag=bool(static["unit_diag"]),
+                        mloc=int(static["mloc"]),
+                        shape=tuple(int(s) for s in static["shape"]),
+                        p=int(np.asarray(arrays["rows"]).shape[0]),
+                        rank=int(rank))

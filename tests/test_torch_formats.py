@@ -198,6 +198,19 @@ def test_public_surface_matches_jax():
         assert hasattr(sp.solvers, name) and hasattr(tsp.solvers, name)
 
 
+def test_parallel_surface_matches_jax():
+    """``spblas_tpu_torch.parallel`` exports every name of the JAX
+    package's ``parallel.__all__`` but ``row_sharding`` and
+    ``replicated``, which name JAX placements of a global array (ROADMAP
+    item 17)."""
+    import spblas_tpu.parallel as jpar
+    import spblas_tpu_torch.parallel as tpar
+    missing = set(jpar.__all__) - set(tpar.__all__)
+    assert missing == {"row_sharding", "replicated"}, missing
+    for name in set(jpar.__all__) - missing:
+        assert getattr(tpar, name) is not None
+
+
 def test_generators_match_jax_arrays():
     """The port's generators draw the JAX package's numbers."""
     cases = [
@@ -267,7 +280,10 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
                 "spblas_tpu_torch.utils.io",
                 "spblas_tpu_torch.utils.serialize",
                 "spblas_tpu_torch.utils.profiling",
-                "spblas_tpu_torch.utils.interop"} <= seen, seen
+                "spblas_tpu_torch.utils.interop",
+                "spblas_tpu_torch.parallel",
+                "spblas_tpu_torch.parallel.launch",
+                "spblas_tpu_torch.parallel.dryrun"} <= seen, seen
         from spblas_tpu_torch.kernels import plans
         from spblas_tpu_torch.utils import generate as gen
         a = gen.generate_banded_csr(500, 500, 9, seed=0, device="cpu")
@@ -362,6 +378,11 @@ def test_port_imports_neither_jax_nor_spblas_tpu():
             serialize.save_plan(tmp + "/p.npz", plan)
             back = serialize.load_plan(tmp + "/p.npz", device="cpu")
             assert torch.equal(back.panels, plan.panels)
+        # the distribution layer's dry run on a local world of 2 ranks,
+        # each of which reports that it imported neither package
+        from spblas_tpu_torch.parallel.dryrun import dryrun_multichip
+        ranks = dryrun_multichip(2)
+        assert [r["no_jax"] for r in ranks] == [True, True], ranks
         assert "jax" not in sys.modules or sys.modules["jax"] is None
         print("ok")
     """)
