@@ -61,7 +61,16 @@ and SpMM at k = 64, uniform 1M through per-rank ROUTE2 plans, the 100k
 engine, the 20k triangular solve and a union add of two uniform 300k
 matrices; every rank must launch its kernels, rank 0 holds the gathered
 result to one card's path, and ``[dist]`` lines give each rank's kernel
-ms, the slowest rank's call ms and the bytes staged.
+ms, the slowest rank's call ms and the bytes staged.  Phase X, after it,
+runs the port's fourteen examples (``examples/torch/``) on the card as a
+user runs them, each asserting its dense oracle: the twelve
+single-process ones in this process (``runpy``, ``--device cuda``), each
+of which must print its closing line and launch the kernels its plans
+reach at its own sizes (``EXAMPLES``), and the two distributed ones as
+subprocesses on an NCCL world of one rank and on a gloo world of four
+ranks sharing the card, staged through the host, each of which must exit
+0 and print its closing line; one JSON line gives each example's wall
+seconds and launches (no speed figure).
 
 The ROUTE v1 kernel runs every level of a plan in one launch, ordered by
 device counters, and the paned and resident ROUTE2 kernels one launch
@@ -129,12 +138,16 @@ result.  It imports nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import importlib
+import importlib.util
+import io
 import json
 import math
 import os
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -4394,6 +4407,220 @@ def dist_phase(cells, rates, card):
     return main, recs
 
 
+# ------------------------------------------------------------------ #
+# phase X: the port's examples (examples/torch/), as a user runs them
+# ------------------------------------------------------------------ #
+
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "examples", "torch")
+# single-process example -> (closing line, the kernels it must launch on
+# the card: the chooser's pick at the example's own sizes, or the
+# kernel its entry point runs)
+EXAMPLES = {
+    "simple_spmv": ("ok", ()),
+    "spmm": ("ok", ()),
+    "matrix_opt_example": ("ok", ("route2_spmv",)),
+    "simple_spgemm": ("ok", ("route2_mul",)),
+    "spgemm_reuse": ("ok", ("route2_mul",)),
+    "simple_sptrsv": ("ok", ("route2_solve",)),
+    "iterative_solvers": ("ok", ("band_spmv",)),
+    # its DIA plans run dia_spmv; matrix_opt on the card picks a band
+    # plan for the 2000-row stencil (band fill 0.0215, past the narrow
+    # band rung's 0.02, ahead of the DIA rung)
+    "mesh_matrices": ("mesh_matrices example ok", ("dia_spmv",
+                                                   "band_spmv")),
+    "bsr_blocks": ("ok", ("bsr_spmv", "bsr_spmm", "bsr_spgemm")),
+    "real_matrix_io": ("ok", ("dia_spmv",)),
+    "unstructured_tour": ("ok", ("route2_spmv", "route_spmv",
+                                 "route2_solve")),
+    "complex_ops": ("complex_ops: all oracles passed",
+                    ("route2_cx_spmv", "band_spmv")),
+}
+# the examples whose SpGEMM must take the resident engine (the slot
+# fill's count is shared, SHARED), by the global holding its info
+EXAMPLE_ENGINES = {"simple_spgemm": lambda g: g["info"],
+                   "spgemm_reuse": lambda g: g["state"].info}
+# distributed example -> (closing line, the kernels each rank must
+# launch); each runs as a subprocess on an NCCL world of one rank and on
+# a gloo world of DIST_RANKS ranks sharing the card, staged through the
+# host (phase D's pair), then its tour again on a world of each kind
+# whose ranks count their launches (the chooser's route on 1,024 rows;
+# the halo band SpMV and each rank's slot fill of the paned engine)
+DIST_EXAMPLES = {"distributed_spmv": ("ok", ("route2_spmv",)),
+                 "distributed_ops": ("dist spgemm engine ok",
+                                     ("band_spmv", "route2_mul_paned"))}
+EXAMPLE_WORLDS = (("nccl", 1), ("gloo", DIST_RANKS))
+EXAMPLE_LIMIT = 300.0
+
+
+def run_example(name, argv):
+    """The example ``name`` run in this process as ``python
+    examples/torch/<name>.py <argv>``; (its globals, its stdout lines).
+    The environment, ``sys.argv`` and ``sys.path`` come back as they were
+    (an example may set ``SPBLAS_FORCE_*``)."""
+    path = os.path.join(EXAMPLES_DIR, f"{name}.py")
+    env, argv0, path0 = dict(os.environ), sys.argv, list(sys.path)
+    buf = io.StringIO()
+    sys.argv = [path, *argv]
+    try:
+        with contextlib.redirect_stdout(buf):
+            g = runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv, sys.path[:] = argv0, path0
+        os.environ.clear()
+        os.environ.update(env)
+        for ln in buf.getvalue().splitlines():  # a failed run's too
+            log(f"[example {name}] {ln}")
+    return g, buf.getvalue().splitlines()
+
+
+def example_module(name):
+    """``examples/torch/<name>.py`` imported as a module: its functions,
+    not its ``__main__`` body."""
+    spec = importlib.util.spec_from_file_location(
+        f"_example_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_rank(mesh, name):
+    """One rank of a counted world: the example's ``tour`` on this rank,
+    the counts set to 0 just before and read just after (the slot fill
+    credited to the paned engine, the distributed SpGEMM's); (counts,
+    the tour's stdout lines)."""
+    tour = example_module(name).tour
+    buf = io.StringIO()
+    reset_launches()
+    with contextlib.redirect_stdout(buf):
+        tour(mesh)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
+    return read_launches("paned"), buf.getvalue().splitlines()
+
+
+def run_dist_examples(runs, limit=EXAMPLE_LIMIT):
+    """Each ``(name, argv)`` of ``runs`` as ``python
+    examples/torch/<name>.py <argv>``, all started at once, each a
+    subprocess in a session of its own (its world's ranks with it); those
+    still running ``limit`` seconds after the start are killed, session
+    and all.  Returns (exit code, stdout lines, stderr lines, wall
+    seconds), exit code and seconds None for a killed run, in the order
+    of ``runs``."""
+    t0 = time.perf_counter()
+    out = []
+    with contextlib.ExitStack() as stack:
+        # files, not pipes: a child never blocks on a full pipe while
+        # another is waited for
+        files = [[stack.enter_context(tempfile.TemporaryFile("w+"))
+                  for _ in range(2)] for _ in runs]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(EXAMPLES_DIR, f"{name}.py"),
+             *argv], stdout=fo, stderr=fe, text=True,
+            start_new_session=True) for (name, argv), (fo, fe) in zip(
+                runs, files)]
+        ends = [None] * len(procs)
+        while None in ends and time.perf_counter() - t0 < limit:
+            time.sleep(0.2)
+            for i, proc in enumerate(procs):
+                if ends[i] is None and proc.poll() is not None:
+                    ends[i] = time.perf_counter() - t0
+        for proc, end, streams in zip(procs, ends, files):
+            if end is None:
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(proc.pid, 9)
+                proc.wait()
+            lines = []
+            for f in streams:
+                f.seek(0)
+                lines.append(f.read().splitlines())
+            out.append((None if end is None else proc.returncode, *lines,
+                        end))
+    return out
+
+
+def examples_phase(card):
+    """Phase X: every example of ``examples/torch/`` on the card.  The
+    single-process ones run in this process, their counts set to 0 just
+    before each and read just after: each must print its closing line and
+    launch the kernels ``EXAMPLES`` names.  The distributed ones run as
+    subprocesses, each on an NCCL world of one and on a gloo world of
+    DIST_RANKS on the card, the four worlds at once: each must exit 0 and
+    print its closing line; then their tours run again on a world of each
+    kind in which every rank counts its launches and must launch the
+    kernels ``DIST_EXAMPLES`` names.  Logs one JSON line of each
+    example's wall seconds and launches; times nothing as a speed figure.
+    Returns the records."""
+    from spblas_tpu_torch.parallel.launch import World
+    t_x = time.perf_counter()
+    recs = []
+    for name, (closing, kernels) in EXAMPLES.items():
+        reset_launches()
+        t0 = time.perf_counter()
+        g, lines = run_example(name, ["--device", DEVICE])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_launches("resident")
+        require(lines and lines[-1] == closing,
+                f"example {name}: closing line {lines[-1:]}, want "
+                f"{closing!r}")
+        if name in EXAMPLE_ENGINES:
+            got = engine_kind(EXAMPLE_ENGINES[name](g).plan.route)
+            require(got == "resident",
+                    f"example {name}: SpGEMM engine {got!r}, want resident")
+        missed = [k for k in kernels if not counts[k]]
+        require(not missed, f"example {name} did not launch {missed}: "
+                            f"{counts}")
+        recs.append({"example": name, "seconds": secs, "launches": {
+            k: v for k, v in counts.items() if v}})
+    # the four worlds at once: their ranks' start (python, torch, the
+    # card) is most of their time
+    runs = [(name, backend, ranks) for name in DIST_EXAMPLES
+            for backend, ranks in EXAMPLE_WORLDS]
+    got = run_dist_examples([(name, ["--device", DIST_DEVICE, "--backend",
+                                     backend, "--ranks", str(ranks)])
+                             for name, backend, ranks in runs])
+    for (name, backend, ranks), (rc, lines, errs, secs) in zip(runs, got):
+        for ln in lines:
+            log(f"[example {name} {backend}x{ranks}] {ln}")
+        if rc != 0:
+            for ln in errs[-40:]:
+                log(f"[example {name} {backend}x{ranks} stderr] {ln}")
+        closing = DIST_EXAMPLES[name][0]
+        require(rc == 0 and lines and lines[-1] == closing,
+                f"example {name} on {backend} x {ranks}: exit {rc}, last "
+                f"line {lines[-1:]}, want {closing!r}")
+        recs.append({"example": name, "backend": backend, "ranks": ranks,
+                     "seconds": secs, "concurrent": len(runs)})
+    # the same tours on worlds whose ranks count their launches: every
+    # rank must launch the kernels DIST_EXAMPLES names
+    for backend, ranks in EXAMPLE_WORLDS:
+        stage = (backend == "gloo"
+                 and torch.device(DIST_DEVICE).type == "cuda")
+        with World(ranks, backend=backend, device=DIST_DEVICE,
+                   stage_through_host=stage) as world:
+            for name, (_, kernels) in DIST_EXAMPLES.items():
+                t0 = time.perf_counter()
+                per = world.run(example_rank, name)
+                secs = time.perf_counter() - t0
+                for ln in per[0][1]:
+                    log(f"[example {name} {backend}x{ranks} counted] {ln}")
+                for r, (counts, _) in enumerate(per):
+                    missed = [k for k in kernels if not counts[k]]
+                    require(not missed,
+                            f"example {name} on {backend} x {ranks}: rank "
+                            f"{r} did not launch {missed}: {counts}")
+                recs.append({"example": name, "backend": backend,
+                             "ranks": ranks, "seconds": secs,
+                             "counted": True, "launches": [
+                                 {k: v for k, v in c.items() if v}
+                                 for c, _ in per]})
+    total = time.perf_counter() - t_x
+    emit({"examples": recs, "seconds": total, "card": card})
+    log(f"[examples] {len(recs)} runs in {total:.1f} s")
+    return recs
+
+
 def run():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4711,6 +4938,8 @@ def run():
     # gloo world of four ranks on the card
     dist_main, dist_recs = dist_phase(cells, rates, card)
     main += dist_main
+    # phase X: the port's examples as a user runs them
+    examples_phase(card)
     tables = {"spmm": SPMM_KIND_KERNELS, "spgemm": SPGEMM_KIND_KERNELS,
               "trsv": TRSV_KIND_KERNELS, "power": POWER_KIND_KERNELS}
     for r in main:

@@ -17,10 +17,16 @@ rank destroys its process group when the world closes.
 
 Build the kernels before starting a world on the card
 (``_build.build_all()``): every rank then loads the same libraries.
+
+A distributed script hands its module-level rank function to
+:func:`run_tour` (started with ``python``: a local world; under
+``torchrun``: this process's rank), or to :func:`tour_main`, which reads
+``--device``, ``--backend`` and ``--ranks`` from the command line first.
 """
 
 from __future__ import annotations
 
+import argparse
 import datetime
 import os
 import queue
@@ -217,3 +223,55 @@ def run_world(n: int, fn, *args, backend: str = "gloo", device=None,
                stage_through_host=stage_through_host, threads=threads,
                timeout=timeout) as world:
         return world.run(fn, *args, timeout=timeout)
+
+
+def run_tour(fn, backend: str, device=None,
+             ranks: Optional[int] = None) -> list:
+    """``fn(mesh)`` on every rank, the results in rank order: under
+    ``torchrun`` (``LOCAL_RANK`` set) as this process's rank of its world
+    (one result), else on a local world of ``ranks`` ranks (default: one
+    a card, 4 on the CPU).  ``backend`` is the caller's; ranks take their
+    device as :class:`World` places them, and a gloo mesh over the card
+    stages every collective through the host (gloo carries no CUDA
+    tensor).  Raises when there is no card and no ``device`` is named."""
+    import torch
+    from spblas_tpu_torch import _build
+    from spblas_tpu_torch.parallel.mesh import (init_distributed,
+                                                make_row_mesh)
+
+    local = os.environ.get("LOCAL_RANK")
+    dev = _rank_device(int(local or 0), device)
+    stage = backend == "gloo" and dev.type == "cuda"
+    if local is not None:
+        init_distributed(backend, device=dev)
+        try:
+            return [fn(make_row_mesh(device=dev, stage_through_host=stage))]
+        finally:
+            torch.distributed.destroy_process_group()
+    if dev.type == "cuda":
+        _build.build_all()                  # every rank loads one build
+    ranks = ranks or (torch.cuda.device_count() if dev.type == "cuda"
+                      else 4)
+    return run_world(ranks, fn, backend=backend, device=device,
+                     stage_through_host=stage)
+
+
+def tour_main(fn, description: str, argv=None) -> list:
+    """A distributed script's command line, ``[--device D] [--backend
+    nccl|gloo] [--ranks N]``, then :func:`run_tour`; the backend defaults
+    to NCCL on the card and gloo on the CPU."""
+    from spblas_tpu_torch import types as _t
+
+    parser = argparse.ArgumentParser(description=description)
+    parser.add_argument("--device", default=None,
+                        help="ranks' device (default: the card, a rank a "
+                             "card; 'cuda:0' puts every rank on one card)")
+    parser.add_argument("--backend", choices=("nccl", "gloo"),
+                        help="default: nccl on the card, gloo on the CPU")
+    parser.add_argument("--ranks", type=int, default=None,
+                        help="ranks of the local world (default: one a "
+                             "card; 4 on the CPU); torchrun sets its own")
+    args = parser.parse_args(argv)
+    backend = args.backend or (
+        "nccl" if _t.resolve_device(args.device).type == "cuda" else "gloo")
+    return run_tour(fn, backend, args.device, args.ranks)

@@ -4,7 +4,11 @@ package's loader and to the port's own generators (the files are their
 exports), and ``save_matrix_market`` round-trips real and complex
 containers bit for bit (values written with 17 significant digits)."""
 
+import importlib.util
 import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -90,3 +94,45 @@ def test_symmetric_storage_expands_and_duplicates_sum(tmp_path):
     # the loaded file through the chooser, as any other matrix
     y = tsp.multiply(tsp.matrix_opt(a), torch.ones(3))
     np.testing.assert_allclose(y.numpy(), want.sum(1))
+
+
+@pytest.mark.parametrize("name", ["fem2d_128", "stencil3d_32"])
+def test_make_data_torch_regenerates_the_data_file(name, tmp_path):
+    """``scripts/make_data_torch.py`` (the port's recipes, no JAX) writes
+    a file that loads bit-equal to the checked-in one, and skips a file
+    that exists."""
+    spec = importlib.util.spec_from_file_location(
+        "make_data_torch", os.path.join(os.path.dirname(DATA), "scripts",
+                                        "make_data_torch.py"))
+    make = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(make)
+    out = str(tmp_path / f"{name}.mtx.gz")
+    assert make.write_missing(str(tmp_path), [name]) == [out]
+    assert make.write_missing(str(tmp_path), [name]) == []
+    got = io.load_matrix_market(out, device="cpu")
+    want = io.load_matrix_market(os.path.join(DATA, name + ".mtx.gz"),
+                                 device="cpu")
+    assert got.shape == want.shape and got.nnz == want.nnz
+    for g, w in zip(_live(got), _live(want)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_make_data_torch_imports_no_jax(tmp_path):
+    """The script writes a file with ``jax`` and ``spblas_tpu`` made
+    unimportable."""
+    script = os.path.join(os.path.dirname(DATA), "scripts",
+                          "make_data_torch.py")
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["spblas_tpu"] = None
+        import runpy
+        sys.argv = [{script!r}, "--out", {str(tmp_path)!r}, "fem2d_128"]
+        runpy.run_path({script!r}, run_name="__main__")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         env=dict(os.environ, OMP_NUM_THREADS="1"),
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert (tmp_path / "fem2d_128.mtx.gz").exists()
